@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+
+  1. the card's name and power limit (``nvidia-smi``);
+  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all at once);
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes the fit gives it: ``pairwise_topk`` at n = 16000 and a ragged
+     n = 1007 (d = 8 and d = 100), ``edge_cascade`` on the stage-1 and
+     stage-2 edges of the n = 16000 fit;
+  4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
+     card with the launch counters set to 0 just before it, held against
+     the port's own ``device="cpu"`` fit (graph edges, MST edge ids and
+     labels for every mpts equal) and, at n = 2000, against dense scipy
+     MSTs (weight multisets to rtol 1e-5), and a duplicate-heavy input on
+     the slot path against its CPU run;
+  5. warm per-stage seconds, each kernel's time beside its plain version,
+     a library yardstick and its bound, the count of implicit syncs in
+     one warm fit, the device's busy share of a fit and a host profile.
+
+The second-to-last line is ``{"kernels": [...]}``, the last
+``{"ok": true, "device": {...}}``.  The full record also goes to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+N, D, KMAX = 16000, 8, 16
+N_RAGGED = 1007
+N_DENSE = 2000
+RTOL = 1e-5
+PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def make_points(n: int, d: int, seed: int):
+    """16 Gaussian clusters in [-10, 10]^d plus 5% uniform noise, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_noise = n // 20
+    centers = rng.uniform(-10.0, 10.0, size=(16, d))
+    members = centers[rng.integers(0, 16, n - n_noise)] + rng.normal(0.0, 0.6, size=(n - n_noise, d))
+    noise = rng.uniform(-12.0, 12.0, size=(n_noise, d))
+    x = np.concatenate([members, noise])
+    return x[rng.permutation(n)].astype(np.float32)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card, warm (one call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_pairwise_topk(x, k_eff: int, k_top: int) -> dict:
+    """Kernel vs plain at one shape: refined indices equal, raw d2 within
+    1e-5 * (|q|^2 + |k|^2)."""
+    import torch
+    from repro_torch.kernels import ops, pairwise_topk as pt
+
+    d_k, i_k = pt.pairwise_topk(x, k_eff)
+    d_p, i_p = pt.pairwise_topk_plain(x, k_eff)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    check(d_k.shape == (n, k_eff) and i_k.shape == (n, k_eff), "pairwise_topk output shape")
+    check(bool(torch.isfinite(d_k).all()), "pairwise_topk d2 finite")
+    rows = torch.arange(n, device=x.device)[:, None]
+    check(bool(((i_k >= 0) & (i_k < n) & (i_k != rows)).all()), "pairwise_topk indices in range, self excluded")
+    xn = (x * x).sum(1)
+    tol = RTOL * (xn[:, None] + xn[i_k.long()])
+    err = (d_k - d_p).abs()
+    check(bool((err <= tol).all()), f"pairwise_topk raw d2 off by up to {float(err.max())} at n={n}")
+    _, r_k = ops._refine_knn(x, x, i_k, k_top=k_top)
+    _, r_p = ops._refine_knn(x, x, i_p, k_top=k_top)
+    check(bool((r_k == r_p).all()), f"pairwise_topk refined indices differ at n={n}")
+    return {"max_abs_err": float(err.max())}
+
+
+def stage_inputs(x, plan):
+    """The edge lists the fit hands ``edge_cascade``: stage 1 (every unique
+    SBCN candidate) and stage 2 (the open stage-1 survivors)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mrd, sbcn, wspd
+    from repro_torch.kernels import fused_cascade as fc
+
+    n = x.shape[0]
+    knn_d2, knn_idx = plan.knn(x, KMAX - 1)
+    cd2k = mrd.core_distances2(knn_d2)[:, -1]
+    x_host = x.cpu().numpy().astype(np.float64)
+    tree = wspd.build_fair_split_tree(x_host, np.sqrt(cd2k.cpu().numpy().astype(np.float64)))
+    pu, pv = wspd.wspd_pairs(tree, s=1.0)
+    ks, n_real, _, _, n_overflow = sbcn.cascade_candidates(
+        x, cd2k, tree.perm, tree.start[pu], tree.end[pu] - tree.start[pu],
+        tree.start[pv], tree.end[pv] - tree.start[pv],
+        tie_cap=plan.cascade_tie_cap, tier_chunk_elems=plan.tier_chunk_elems,
+    )
+    check(int(n_overflow) == 0, "the smoke input stays on the fused path")
+    valid, first, lo, hi = fc.unpack_keys(ks[: int(n_real)], n)
+    stage1 = (lo, hi, valid)
+    killed, cert, _, _ = fc.edge_cascade(x, cd2k, knn_idx, knn_d2, lo, hi, valid, k_check=plan.cascade_stage1_k)
+    surv_open = valid & first & ~killed & ~cert
+    n_open = int(surv_open.sum())
+    pos = sbcn.compact_idx(surv_open, n_open)
+    stage2 = (lo[pos], hi[pos], torch.ones((n_open,), dtype=torch.bool, device=x.device))
+    return (x, cd2k, knn_idx, knn_d2), [(stage1, plan.cascade_stage1_k), (stage2, KMAX - 1)]
+
+
+def cascade_flops_bytes(n: int, d: int, m: int, k: int) -> tuple[float, float]:
+    """Operations and bytes of one ``edge_cascade`` launch over m edges:
+    d2 and both endpoint norms, then per checked neighbour (2k of them) its
+    norm, its cross d2 and the mrd arithmetic; every input read once (x,
+    cd2k, the first k columns of knn_idx and knn_d2, ea, eb, valid) and
+    the four outputs written once."""
+    flops = m * (7 * d + 2 * k * (5 * d + 10))
+    nbytes = 4 * (n * d + n + 2 * n * k) + m * (4 + 4 + 1) + m * 16
+    return flops, nbytes
+
+
+def where_the_time_goes(fit, record: dict) -> None:
+    """Device busy share of one warm fit (``torch.profiler``: the union of
+    the device activity intervals over the host wall time) and the host
+    functions with the most cumulative time in another (``cProfile``)."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fit()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            busy_us += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += 0.0 if cur_e is None else cur_e - cur_s
+    record["profiled_fit_s"] = wall_s
+    record["device_busy_s"] = busy_us / 1e6 if spans else None
+    record["device_activities"] = len(spans)
+    if spans:
+        print(f"device busy {busy_us / 1e6:.4f} s of a {wall_s:.3f} s profiled fit "
+              f"({len(spans)} device activities; idle share {1 - busy_us / 1e6 / wall_s:.4f})", flush=True)
+    else:
+        print("device busy share: not measured (the profiler recorded no device activity)", flush=True)
+
+    pr = cProfile.Profile()
+    pr.enable()
+    fit()
+    torch.cuda.synchronize()
+    pr.disable()
+    rows = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][3])[:30]
+    record["host_profile"] = [
+        {"fn": f"{Path(f).name}:{line}({name})", "cum_s": cum, "calls": calls}
+        for (f, line, name), (_, calls, _, cum, _) in rows
+    ]
+    print("host profile of one warm fit (cumulative s): " + "; ".join(
+        f"{r['fn']} {r['cum_s']:.2f}" for r in record["host_profile"][:14]), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+
+    import numpy as np
+    from repro_torch import engine
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.core import ref as oref
+    from repro_torch.kernels import _build, fused_cascade as fc, pairwise_topk as pt
+
+    record: dict = {}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    record["card"] = smi
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.monotonic()
+    per_kernel = _build.build_all()
+    record["build_s"] = time.monotonic() - t0
+    print(f"build: {record['build_s']:.1f} s wall, per source {per_kernel}", flush=True)
+
+    # -- 3. kernels against their plain versions -----------------------------
+    dev = torch.device("cuda")
+    x_np = make_points(N, D, SEED)
+    x = torch.from_numpy(x_np).to(dev)
+    plan = engine.resolve_plan(device="cuda")
+    k_eff = min(N - 1, KMAX - 1 + plan.knn_refine_slack)
+    topk = check_pairwise_topk(x, k_eff, KMAX - 1)
+    check_pairwise_topk(x[:N_RAGGED].contiguous(), k_eff, KMAX - 1)
+    # d = 100: the query tile outgrows the 48 KB default of shared memory
+    check_pairwise_topk(torch.from_numpy(make_points(N_RAGGED, 100, SEED + 2)).to(dev), k_eff, KMAX - 1)
+    print(f"pairwise_topk: kernel == plain at n={N} and n={N_RAGGED} (d={D}, d=100; K={k_eff})", flush=True)
+
+    base, stages = stage_inputs(x, plan)
+    casc_err = 0.0
+    for (lo, hi, valid), k_check in stages:
+        out_k = fc.edge_cascade(*base, lo, hi, valid, k_check=k_check)
+        out_p = fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check)
+        check(bool((out_k[0] == out_p[0]).all()), f"edge_cascade killed differs at k_check={k_check}")
+        check(bool((out_k[1] == out_p[1]).all()), f"edge_cascade cert differs at k_check={k_check}")
+        for j, name in ((2, "d2"), (3, "w2")):
+            a, b = out_k[j][valid], out_p[j][valid]
+            check(bool(torch.isfinite(a).all()), f"edge_cascade {name} finite")
+            check(torch.allclose(a, b, rtol=RTOL, atol=0.0), f"edge_cascade {name} beyond rtol {RTOL}")
+            casc_err = max(casc_err, float((a - b).abs().max()) if a.numel() else 0.0)
+        print(f"edge_cascade: kernel == plain on {lo.shape[0]} edges at k_check={k_check} "
+              f"({int(out_k[0].sum())} killed, {int(out_k[1].sum())} certified)", flush=True)
+
+    # -- 4. the main path ----------------------------------------------------
+    pt.pairwise_topk.launches = 0
+    fc.edge_cascade.launches = 0
+    t0 = time.monotonic()
+    est = MultiHDBSCAN(kmax=KMAX).fit(x_np)
+    views = est.select_all()
+    torch.cuda.synchronize()
+    record["cold_fit_s"] = time.monotonic() - t0
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches}
+    print(f"main path: fit + select_all in {record['cold_fit_s']:.2f} s, launches {launches}, "
+          f"graph {est.graph_.stats}", flush=True)
+    check(launches["pairwise_topk"] >= 1, "the fit launched pairwise_topk")
+    check(launches["edge_cascade"] >= 2, "the fit launched edge_cascade for both stages")
+    check(est.plan_.backend == "cuda", "the fit ran on the cuda backend")
+
+    t0 = time.monotonic()
+    est_cpu = MultiHDBSCAN(kmax=KMAX, device="cpu").fit(x_np)
+    views_cpu = est_cpu.select_all()
+    record["cpu_fit_s"] = time.monotonic() - t0
+    check(np.array_equal(est.graph_.edges, est_cpu.graph_.edges), "graph edges equal the CPU run")
+    m_gpu, m_cpu = est.model_.msts, est_cpu.model_.msts
+    check(np.array_equal(m_gpu.mst_ea, m_cpu.mst_ea) and np.array_equal(m_gpu.mst_eb, m_cpu.mst_eb),
+          "MST edge ids equal the CPU run for every mpts")
+    check(np.allclose(m_gpu.mst_w, m_cpu.mst_w, rtol=RTOL, atol=0.0), "MST weights equal the CPU run")
+    for v_g, v_c in zip(views, views_cpu):
+        check(v_g.labels.shape == (N,), "labels shape")
+        check(np.array_equal(v_g.labels, v_c.labels), f"labels equal the CPU run at mpts={v_g.mpts}")
+    n_clusters = {v.mpts: v.n_clusters for v in views}
+    print(f"main path == device='cpu' run (CPU fit {record['cpu_fit_s']:.1f} s); clusters per mpts {n_clusters}",
+          flush=True)
+
+    x2 = make_points(N_DENSE, D, SEED + 1)
+    est2 = MultiHDBSCAN(kmax=KMAX).fit(x2)
+    x2_64 = x2.astype(np.float64)
+    cd = oref.core_distances(x2_64, KMAX)
+    for mpts in est2.mpts_values_:
+        _, _, w = est2.mst_for(mpts)
+        dense = oref.mst_weights(oref.mrd_matrix(x2_64, mpts, cd))
+        check(np.allclose(np.sort(w.astype(np.float64)), dense, rtol=RTOL, atol=0.0),
+              f"n={N_DENSE} MST weight multiset vs dense scipy at mpts={mpts}")
+    print(f"n={N_DENSE}: MST weight multisets == dense scipy MSTs for mpts 2..{KMAX}", flush=True)
+
+    # duplicate-heavy input: per-row tie overflow sends the build to the slot path
+    x_dup = np.repeat(np.random.default_rng(SEED + 3).normal(size=(40, 2)).astype(np.float32), 8, axis=0)
+    est_dup, est_dup_cpu = (MultiHDBSCAN(kmax=KMAX, device=dv).fit(x_dup) for dv in ("cuda", "cpu"))
+    paths = [e.graph_.stats.get("path", "slot") for e in (est_dup, est_dup_cpu)]
+    check(paths == ["slot", "slot"], f"the duplicate-heavy input takes the slot path on both devices; got {paths}")
+    check(np.array_equal(est_dup.graph_.edges, est_dup_cpu.graph_.edges), "slot path: graph edges equal the CPU run")
+    for v_g, v_c in zip(est_dup.select_all(), est_dup_cpu.select_all()):
+        check(np.array_equal(v_g.labels, v_c.labels), f"slot path: labels equal the CPU run at mpts={v_g.mpts}")
+    print(f"n={len(x_dup)} duplicate-heavy: slot path on the card == CPU run for mpts 2..{KMAX}", flush=True)
+
+    # -- 5. timings ----------------------------------------------------------
+    est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
+    t0 = time.monotonic()
+    est_w.select_all()
+    stages_s = {k: est_w.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    stages_s["hierarchy"] = time.monotonic() - t0
+    record["stages_s"] = stages_s
+    print("warm stages (s): " + json.dumps(stages_s), flush=True)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            MultiHDBSCAN(kmax=KMAX).fit(x_np)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
+    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record)
+
+    kernels = []
+    ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+    plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 3)
+
+    def library_topk():
+        xn = (x * x).sum(1)
+        d2 = (xn[:, None] + xn[None, :] - 2.0 * (x @ x.T)).clamp_min_(0.0)
+        d2.fill_diagonal_(float("inf"))
+        return torch.topk(d2, k_eff, dim=1, largest=False)
+
+    library_ms = cuda_ms(library_topk, 3)
+    b_ms, b_by = bound(N * N * (2 * D + 3), 4 * N * D + 8 * N * k_eff)
+    kernels.append({
+        "name": "pairwise_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+        "replaces": "src/repro/kernels/pairwise_topk.py:37",
+        "launches": launches["pairwise_topk"], "max_abs_err": topk["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    })
+
+    c_ms = c_plain = c_bound_ops = c_bound_bytes = 0.0
+    per_stage = []
+    for (lo, hi, valid), k_check in stages:
+        m = int(lo.shape[0])
+        t_k = cuda_ms(lambda: fc.edge_cascade(*base, lo, hi, valid, k_check=k_check), 10)
+        t_p = cuda_ms(lambda: fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check), 3)
+        flops, nbytes = cascade_flops_bytes(N, D, m, k_check)
+        c_ms, c_plain = c_ms + t_k, c_plain + t_p
+        c_bound_ops += flops / PEAK_F32_FLOPS * 1e3
+        c_bound_bytes += nbytes / PEAK_BYTES * 1e3
+        per_stage.append({"k_check": k_check, "edges": m, "ms": t_k, "plain_ms": t_p,
+                          "bound_ms": bound(flops, nbytes)[0]})
+    record["edge_cascade_stages"] = per_stage
+    print("edge_cascade per launch: " + json.dumps(per_stage), flush=True)
+    kernels.append({
+        "name": "edge_cascade", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/edge_cascade.cu",
+        "replaces": "src/repro/kernels/fused_cascade.py:129",
+        "launches": launches["edge_cascade"], "max_abs_err": casc_err,
+        "ms": c_ms, "plain_ms": c_plain,
+        "bound_ms": max(c_bound_ops, c_bound_bytes),
+        "bound_by": "operations" if c_bound_ops >= c_bound_bytes else "bytes",
+        "library_ms": None,
+    })
+    record["kernels"] = kernels
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""Public API of the port, as in ``repro.api``:
+
+    from repro_torch.api import FittedModel, MultiHDBSCAN, SelectionPolicy
+
+    est = MultiHDBSCAN(kmax=16).fit(x)               # on the card
+    est = MultiHDBSCAN(kmax=16, device="cpu").fit(x)  # plain PyTorch on the CPU
+    est.model_.select(8).labels
+    est.model_.save("fitted.npz")                     # loads in either package
+"""
+
+from .estimator import MultiHDBSCAN
+from .model import ArtifactError, Clustering, FittedModel
+from .selection import SelectionPolicy
+
+__all__ = ["ArtifactError", "Clustering", "FittedModel", "MultiHDBSCAN", "SelectionPolicy"]

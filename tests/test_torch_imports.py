@@ -1,0 +1,84 @@
+"""The port stands alone: no module of ``repro_torch`` imports JAX or the
+JAX package, and the fit never carries on on the CPU unless asked to."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api as t_api
+from repro_torch import engine as t_engine
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(REPO / "src").with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}:{node.lineno} imports {name}"
+
+
+def test_fit_without_a_card_raises_unless_cpu_is_asked_for(monkeypatch, blobs):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = blobs[0]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.MultiHDBSCAN(kmax=4).fit(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.FittedModel.fit(x, kmax=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_engine.resolve_plan()
+    est = t_api.MultiHDBSCAN(kmax=4, device="cpu").fit(x)
+    assert est.plan_.backend == "torch" and est.plan_.device == "cpu"
+    assert np.asarray(est.select(4).labels).shape == (len(x),)
+
+
+def test_plan_backends_and_later_slices():
+    assert t_engine.resolve_plan(device="cpu").backend == "torch"
+    assert t_engine.resolve_plan(device="cpu", backend="ref").backend == "ref"
+    with pytest.raises(ValueError, match="does not run on"):
+        t_engine.resolve_plan(device="cpu", backend="cuda")
+    plan = t_engine.resolve_plan(device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        plan.lune_nonempty(None, None, None, None, None)
+    with pytest.raises(NotImplementedError, match="slice"):
+        plan.query_knn(None, None, 3)
+    with pytest.raises(NotImplementedError, match="dual-tree"):
+        plan.knn(torch.zeros((25000, 2)), 3)
+    with pytest.raises(NotImplementedError, match="slice"):
+        t_engine.resolve_plan("mesh", device="cpu")

@@ -1,0 +1,166 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+The same numpy inputs go through the JAX function (Pallas kernels in
+interpret mode, or the jnp twin) and through the port's wrapper, which on
+CPU tensors runs the kernel's plain PyTorch version.  Integer outputs must
+be equal; float outputs agree to rtol 1e-5, the tolerance the repo uses
+for MST weight multisets.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import sbcn as j_sbcn
+from repro.core import wspd as j_wspd
+from repro.engine.plan import Plan as JPlan
+from repro.kernels import fused_cascade as j_fc
+from repro.kernels import ops as j_ops
+
+from repro_torch.kernels import fused_cascade as t_fc
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import pairwise_topk as t_pt
+
+RTOL = 1e-5
+# the reference plan's emission settings, so the JAX package's program
+# registry sees the bucket ladder its fits use
+TIE_CAP = JPlan(backend="jnp").cascade_tie_cap
+TIER_CHUNK = JPlan(backend="jnp").tier_chunk_elems
+
+
+def _points(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-4, 4, size=(3, d))
+    return (centers[rng.integers(0, 3, n)] + rng.normal(0, 0.5, size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("backend", ["pallas_interpret", "jnp"])
+@pytest.mark.parametrize("k", [4, 15])
+@pytest.mark.parametrize("d", [2, 8])
+@pytest.mark.parametrize("n", [64, 257])
+def test_knn_matches_reference(n, d, k, backend):
+    x = _points(n, d, seed=n + d)
+    d_j, i_j = j_ops.knn(jnp.asarray(x), k, backend=backend)
+    d_t, i_t = t_ops.knn(torch.from_numpy(x), k, backend="torch")
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=RTOL)
+
+
+def test_knn_ref_backend_matches_torch_backend(blobs):
+    x = torch.from_numpy(blobs[0])
+    d_r, i_r = t_ops.knn(x, 15, backend="ref")
+    d_t, i_t = t_ops.knn(x, 15, backend="torch")
+    np.testing.assert_array_equal(i_r.numpy(), i_t.numpy())
+    np.testing.assert_array_equal(d_r.numpy(), d_t.numpy())
+
+
+def test_pairwise_topk_plain_orders_ties_by_index():
+    """Duplicated points tie exactly; the lower index comes first, as the
+    reference's stable streaming merge orders them."""
+    base = np.random.default_rng(3).normal(size=(30, 2)).astype(np.float32)
+    x = torch.from_numpy(np.repeat(base, 4, axis=0))
+    d2, idx = t_pt.pairwise_topk_plain(x, 7, block_q=16, block_k=24)
+    d2_r, idx_r = t_pt.pairwise_topk_plain(x, 7, block_q=1024, block_k=2048)
+    np.testing.assert_array_equal(idx.numpy(), idx_r.numpy())
+    np.testing.assert_array_equal(d2.numpy(), d2_r.numpy())
+    same = d2[:, :-1] == d2[:, 1:]  # duplicated points tie exactly
+    assert same.any()
+    assert (idx[:, :-1][same] < idx[:, 1:][same]).all()
+
+
+@pytest.fixture(scope="module")
+def blobs_candidates(blobs):
+    """The real stage-1 input of the fused build on ``blobs``: the sorted
+    packed candidate keys of the reference's bounded SBCN emission."""
+    x = blobs[0]
+    xj = jnp.asarray(x)
+    d2, idx = j_ops.knn(xj, 15, backend="jnp")
+    cd2k = d2[:, -1]
+    tree = j_wspd.build_fair_split_tree(x.astype(np.float64), np.sqrt(np.asarray(cd2k, np.float64)))
+    pu, pv = j_wspd.wspd_pairs(tree, s=1.0)
+    ks, n_real, *_ = j_sbcn.cascade_candidates(
+        xj, cd2k, tree.perm, tree.start[pu], tree.end[pu] - tree.start[pu],
+        tree.start[pv], tree.end[pv] - tree.start[pv],
+        tie_cap=TIE_CAP, tier_chunk_elems=TIER_CHUNK,
+    )
+    keys = np.asarray(ks)[: int(n_real)]
+    n = len(x)
+    return x, np.array(d2), np.array(idx), keys // n, keys % n
+
+
+@pytest.mark.parametrize("k_check", [2, 15])
+def test_edge_cascade_matches_pallas_interpret(blobs_candidates, k_check):
+    x, d2, idx, lo, hi = blobs_candidates
+    rng = np.random.default_rng(k_check)
+    valid = rng.random(len(lo)) > 0.05
+    cd2k = d2[:, -1]
+    out_j = j_fc.edge_cascade(
+        jnp.asarray(x), jnp.asarray(cd2k), jnp.asarray(idx), jnp.asarray(d2),
+        jnp.asarray(lo.astype(np.int32)), jnp.asarray(hi.astype(np.int32)), jnp.asarray(valid),
+        k_check=k_check, backend="pallas_interpret",
+    )
+    t = torch.from_numpy
+    out_t = t_fc.edge_cascade(
+        t(x), t(cd2k), t(idx), t(d2), t(lo.astype(np.int32)), t(hi.astype(np.int32)), t(valid),
+        k_check=k_check,
+    )
+    killed_j, cert_j, d2_j, w2_j = (np.asarray(v) for v in out_j)
+    killed_t, cert_t, d2_t, w2_t = (v.numpy() for v in out_t)
+    np.testing.assert_array_equal(killed_t, killed_j)
+    np.testing.assert_array_equal(cert_t, cert_j)
+    assert killed_t.any() and cert_t.any()
+    np.testing.assert_allclose(d2_t[valid], d2_j[valid], rtol=RTOL)
+    np.testing.assert_allclose(w2_t[valid], w2_j[valid], rtol=RTOL)
+
+
+def test_stage1_packed_matches_reference(blobs_candidates):
+    """Unpack -> cascade -> certificate split of the sorted keys (the
+    kernel's stage-1 dispatch) against the reference's one-program block."""
+    x, d2, idx, lo, hi = blobs_candidates
+    n = len(x)
+    keys = (lo * n + hi).astype(np.int32)
+    keys = np.concatenate([keys, np.full(5, np.iinfo(np.int32).max, np.int32)])
+    cd2k = d2[:, -1]
+    out_j = j_fc.stage1_packed(
+        jnp.asarray(x), jnp.asarray(cd2k), jnp.asarray(idx), jnp.asarray(d2),
+        jnp.asarray(keys), jnp.int32(n), k_check=2, chunk=65536,
+    )
+    t = torch.from_numpy
+    out_t = t_fc.stage1_packed(
+        t(x), t(cd2k), t(idx), t(d2), t(keys), n, k_check=2, chunk=65536, block_e=256,
+    )
+    for name, a, b in zip(("lo", "hi", "surv_cert", "surv_open", "n_cert", "n_open"),
+                          (out_j[i] for i in (0, 1, 4, 5, 6, 7)),
+                          (out_t[i] for i in (0, 1, 4, 5, 6, 7))):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
+    """A tensor on any device but the CPU never reaches a plain version:
+    a CUDA tensor launches the kernel, anything else raises."""
+    def boom(*a, **k):
+        raise AssertionError("plain version reached for a non-CPU tensor")
+
+    monkeypatch.setattr(t_pt, "pairwise_topk_plain", boom)
+    monkeypatch.setattr(t_fc, "edge_cascade_plain", boom)
+    x = torch.empty((16, 2), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_pt.pairwise_topk(x, 3)
+    i = torch.empty((16,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_fc.edge_cascade(
+            x, x[:, 0], torch.empty((16, 3), dtype=torch.int32, device="meta"),
+            torch.empty((16, 3), device="meta"), i, i,
+            torch.empty((16,), dtype=torch.bool, device="meta"), k_check=2,
+        )
+
+
+def test_pairwise_topk_rejects_bad_input():
+    with pytest.raises(ValueError, match="k_top"):
+        t_pt.pairwise_topk(torch.zeros((5, 2)), 5)
+    with pytest.raises(ValueError, match="float"):
+        t_pt.pairwise_topk(torch.zeros((5, 2), dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="shape"):
+        t_pt.pairwise_topk(torch.zeros((5,)), 2)
