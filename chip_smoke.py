@@ -11,14 +11,25 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the fit gives it: ``pairwise_topk`` at n = 16000 and a ragged
      n = 1007 (d = 8 and d = 100), ``edge_cascade`` on the stage-1 and
-     stage-2 edges of the n = 16000 fit;
+     stage-2 edges of the n = 16000 fit in both summation orders;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it, held against
      the port's own ``device="cpu"`` fit (graph edges, MST edge ids and
      labels for every mpts equal) and, at n = 2000, against dense scipy
      MSTs (weight multisets to rtol 1e-5), and a duplicate-heavy input on
      the slot path against its CPU run;
-  5. warm per-stage seconds, each kernel's time beside its plain version,
+  5. the exact variant, ``MultiHDBSCAN(kmax=16, variant="rng")`` at
+     n = 16000 with the counters set to 0 just before it: its graph is the
+     RNG* fit's minus the edges the lune scan removed, and every mpts keeps
+     the RNG* fit's MST weights bit for bit; ``lune_filter`` against its
+     plain version on the fit's own unresolved edges and on a ragged
+     n = 1007, d = 100 case; the exact variant on the card against its CPU
+     run at n = 3000;
+  6. prediction: 4096 queries against the exact fit on the card, and the
+     same queries against its saved artifact loaded on the CPU (labels and
+     attachment neighbours equal, probabilities and lambdas to rtol 1e-5,
+     equal DBCV profiles), with the rate in queries per second;
+  7. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound, the count of implicit syncs in
      one warm fit, the device's busy share of a fit and a host profile.
 
@@ -41,6 +52,8 @@ SEED = 0
 N, D, KMAX = 16000, 8, 16
 N_RAGGED = 1007
 N_DENSE = 2000
+N_EXACT_CPU = 3000
+N_QUERIES = 4096
 RTOL = 1e-5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -109,6 +122,60 @@ def check_pairwise_topk(x, k_eff: int, k_top: int) -> dict:
     return {"max_abs_err": float(err.max())}
 
 
+def make_queries(x_np, n_q: int, seed: int):
+    """Half near fitted points, half uniform over the data's box, float32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    near = x_np[rng.integers(0, len(x_np), n_q // 2)] + rng.normal(0.0, 0.3, size=(n_q // 2, x_np.shape[1]))
+    far = rng.uniform(x_np.min(0), x_np.max(0), size=(n_q - n_q // 2, x_np.shape[1]))
+    return np.concatenate([near, far]).astype(np.float32)
+
+
+def lune_args(ea, eb, w2, points, cd2):
+    """The ``lune_filter`` operands ``ops.lune_nonempty`` gathers."""
+    a, b = ea.long(), eb.long()
+    return (points[a], points[b], cd2[a], cd2[b], ea, eb, w2, points, cd2)
+
+
+def check_lune_filter(args, what: str, *, block_e: int, block_c: int):
+    """Kernel vs plain on one set of operands: verdict bits equal."""
+    import torch
+    from repro_torch.kernels import lune_filter as lf
+
+    out_k = lf.lune_filter(*args, block_e=block_e, block_c=block_c)
+    out_p = lf.lune_filter_plain(*args)
+    torch.cuda.synchronize()
+    n_diff = int((out_k != out_p).sum())
+    check(n_diff == 0, f"lune_filter verdicts differ from the plain version on {n_diff} edges ({what})")
+    return out_k
+
+
+def ragged_lune_case(dev):
+    """n = 1007, d = 100: clustered points with exact duplicates, edges to
+    near and far points at their mrd, edges weighted above their own mrd
+    (an endpoint would lie inside if it counted), edges between a point and
+    its duplicate, and padded edges (w2 = -inf)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 4)
+    n, d = N_RAGGED, 100
+    centers = rng.uniform(-3.0, 3.0, size=(6, d))
+    x = centers[rng.integers(0, 6, n - 100)] + rng.normal(0.0, 0.5, size=(n - 100, d))
+    x = np.concatenate([x, x[:100]]).astype(np.float32)
+    cd2 = np.sort(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1), axis=1)[:, 7].astype(np.float32)
+    m = 4000
+    ea = rng.integers(0, n, m).astype(np.int32)
+    eb = np.where(rng.random(m) < 0.5, (ea + rng.integers(1, 30, m)) % n, rng.integers(0, n, m)).astype(np.int32)
+    ea[:50], eb[:50] = np.arange(50), np.arange(n - 100, n - 50)  # a point and its duplicate
+    w2 = np.maximum(((x[ea] - x[eb]) ** 2).sum(-1), np.maximum(cd2[ea], cd2[eb])).astype(np.float32)
+    w2[50:400] *= 4.0
+    w2[::29] = -np.inf
+    t = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    return lune_args(t(ea), t(eb), t(w2), t(x), t(cd2))
+
+
 def stage_inputs(x, plan):
     """The edge lists the fit hands ``edge_cascade``: stage 1 (every unique
     SBCN candidate) and stage 2 (the open stage-1 survivors)."""
@@ -131,12 +198,29 @@ def stage_inputs(x, plan):
     check(int(n_overflow) == 0, "the smoke input stays on the fused path")
     valid, first, lo, hi = fc.unpack_keys(ks[: int(n_real)], n)
     stage1 = (lo, hi, valid)
-    killed, cert, _, _ = fc.edge_cascade(x, cd2k, knn_idx, knn_d2, lo, hi, valid, k_check=plan.cascade_stage1_k)
+    killed, cert, _, _ = fc.edge_cascade(
+        x, cd2k, knn_idx, knn_d2, lo, hi, valid, k_check=plan.cascade_stage1_k,
+        fma=fc.sum_order_fma(x.shape[1], fused=True),
+    )
     surv_open = valid & first & ~killed & ~cert
     n_open = int(surv_open.sum())
     pos = sbcn.compact_idx(surv_open, n_open)
     stage2 = (lo[pos], hi[pos], torch.ones((n_open,), dtype=torch.bool, device=x.device))
     return (x, cd2k, knn_idx, knn_d2), [(stage1, plan.cascade_stage1_k), (stage2, KMAX - 1)]
+
+
+def lune_flops_bytes(n: int, d: int, m: int, m_removed: int) -> tuple[float, float]:
+    """Operations and bytes of one ``lune_filter`` launch over m edges.
+
+    A kept edge has to be checked against every point, a removed one
+    against one point at the least (the first inside).  Per (edge, point)
+    pair: two d-long dot products (4 d) and the norm sums, mrd maxima,
+    margins and compares (16).  Every input is read once: the endpoint
+    coordinates, core distances, indices and weights of the m edges, the
+    n points and their core distances; the m verdicts are written once.
+    """
+    pairs = (m - m_removed) * n + m_removed
+    return pairs * (4 * d + 16), 4 * (m * (2 * d + 5) + n * (d + 1) + m)
 
 
 def cascade_flops_bytes(n: int, d: int, m: int, k: int) -> tuple[float, float]:
@@ -215,9 +299,9 @@ def main() -> int:
 
     import numpy as np
     from repro_torch import engine
-    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.api import FittedModel, MultiHDBSCAN
     from repro_torch.core import ref as oref
-    from repro_torch.kernels import _build, fused_cascade as fc, pairwise_topk as pt
+    from repro_torch.kernels import _build, fused_cascade as fc, lune_filter as lf, ops, pairwise_topk as pt
 
     record: dict = {}
     smi = subprocess.run(
@@ -247,19 +331,33 @@ def main() -> int:
     print(f"pairwise_topk: kernel == plain at n={N} and n={N_RAGGED} (d={D}, d=100; K={k_eff})", flush=True)
 
     base, stages = stage_inputs(x, plan)
+    fma_main = fc.sum_order_fma(D, fused=True)
     casc_err = 0.0
     for (lo, hi, valid), k_check in stages:
-        out_k = fc.edge_cascade(*base, lo, hi, valid, k_check=k_check)
-        out_p = fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check)
-        check(bool((out_k[0] == out_p[0]).all()), f"edge_cascade killed differs at k_check={k_check}")
-        check(bool((out_k[1] == out_p[1]).all()), f"edge_cascade cert differs at k_check={k_check}")
-        for j, name in ((2, "d2"), (3, "w2")):
-            a, b = out_k[j][valid], out_p[j][valid]
-            check(bool(torch.isfinite(a).all()), f"edge_cascade {name} finite")
-            check(torch.allclose(a, b, rtol=RTOL, atol=0.0), f"edge_cascade {name} beyond rtol {RTOL}")
-            casc_err = max(casc_err, float((a - b).abs().max()) if a.numel() else 0.0)
-        print(f"edge_cascade: kernel == plain on {lo.shape[0]} edges at k_check={k_check} "
-              f"({int(out_k[0].sum())} killed, {int(out_k[1].sum())} certified)", flush=True)
+        # both summation orders: the fit's (unfused at d = 8) and the FMA chain
+        for fma in (fma_main, not fma_main):
+            out_k = fc.edge_cascade(*base, lo, hi, valid, k_check=k_check, fma=fma)
+            out_p = fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check, fma=fma)
+            what = f"k_check={k_check}, fma={fma}"
+            check(bool((out_k[0] == out_p[0]).all()), f"edge_cascade killed differs at {what}")
+            check(bool((out_k[1] == out_p[1]).all()), f"edge_cascade cert differs at {what}")
+            for j, name in ((2, "d2"), (3, "w2")):
+                a, b = out_k[j][valid], out_p[j][valid]
+                check(bool(torch.isfinite(a).all()), f"edge_cascade {name} finite")
+                check(torch.equal(a, b), f"edge_cascade {name} not bit-equal to the plain version at {what}")
+                casc_err = max(casc_err, float((a - b).abs().max()) if a.numel() else 0.0)
+            print(f"edge_cascade: kernel == plain (bit for bit) on {lo.shape[0]} edges at {what} "
+                  f"({int(out_k[0].sum())} killed, {int(out_k[1].sum())} certified)", flush=True)
+
+    ragged = ragged_lune_case(dev)
+    out_r = check_lune_filter(ragged, f"ragged n={N_RAGGED}, d=100", block_e=plan.lune_block_e,
+                              block_c=plan.lune_block_c)
+    w2_r = ragged[6]
+    check(bool(out_r.any()) and not bool(out_r[torch.isfinite(w2_r)].all()),
+          "the ragged lune case has both verdicts")
+    check(not bool(out_r[torch.isneginf(w2_r)].any()), "padded edges (w2 = -inf) are never removed")
+    print(f"lune_filter: kernel == plain on the ragged case (n={N_RAGGED}, d=100, {w2_r.shape[0]} edges, "
+          f"{int(out_r.sum())} with a point inside)", flush=True)
 
     # -- 4. the main path ----------------------------------------------------
     pt.pairwise_topk.launches = 0
@@ -313,14 +411,115 @@ def main() -> int:
         check(np.array_equal(v_g.labels, v_c.labels), f"slot path: labels equal the CPU run at mpts={v_g.mpts}")
     print(f"n={len(x_dup)} duplicate-heavy: slot path on the card == CPU run for mpts 2..{KMAX}", flush=True)
 
-    # -- 5. timings ----------------------------------------------------------
+    # -- 5. the exact variant ------------------------------------------------
+    captured = {}
+
+    def spy(*args, **kwargs):  # records the unresolved edges the exact pass scans
+        captured["args"], captured["kwargs"] = args, kwargs
+        return real_lune_nonempty(*args, **kwargs)
+
+    real_lune_nonempty = ops.lune_nonempty
+    ops.lune_nonempty = spy
+    try:
+        pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+        t0 = time.monotonic()
+        est_x = MultiHDBSCAN(kmax=KMAX, variant="rng").fit(x_np)
+        views_x = est_x.select_all()
+        torch.cuda.synchronize()
+        record["exact_cold_fit_s"] = time.monotonic() - t0
+        launches_x = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                      "lune_filter": lf.lune_filter.launches}
+    finally:
+        ops.lune_nonempty = real_lune_nonempty
+    gs, gx = est.graph_.stats, est_x.graph_.stats
+    record["exact_graph"] = gx
+    print(f"exact path: fit + select_all in {record['exact_cold_fit_s']:.2f} s, launches {launches_x}, "
+          f"graph {gx}", flush=True)
+    check(launches_x["lune_filter"] >= 1, "the exact fit launched lune_filter")
+    check(launches_x["pairwise_topk"] >= 1 and launches_x["edge_cascade"] >= 2,
+          "the exact fit launched pairwise_topk and edge_cascade")
+    check(gx["m_edges"] == gs["m_edges"] - gx["m_removed_exact"],
+          "exact m_edges == RNG* m_edges - m_removed_exact")
+    star_edges = set(map(tuple, est.graph_.edges.tolist()))
+    check(set(map(tuple, est_x.graph_.edges.tolist())) <= star_edges, "exact edges are a subset of the RNG* edges")
+    for mpts in est.mpts_values_:
+        w_s, w_x = est.mst_for(mpts)[2], est_x.mst_for(mpts)[2]
+        check(np.array_equal(np.sort(w_s), np.sort(w_x)),
+              f"exact fit keeps the RNG* fit's MST weight multiset bit for bit at mpts={mpts}")
+    for v in views_x:
+        check(v.labels.shape == (N,), "exact fit labels shape")
+    print(f"exact fit: {gx['m_unresolved']} unresolved edges scanned, {gx['m_removed_exact']} removed; "
+          f"MST weight multisets == RNG* fit's for mpts 2..{KMAX}", flush=True)
+
+    lune_main = lune_args(*captured["args"])
+    lune_kw = {"block_e": captured["kwargs"]["block_e"], "block_c": captured["kwargs"]["block_c"]}
+    out_l = check_lune_filter(lune_main, f"the exact fit's {gx['m_unresolved']} unresolved edges", **lune_kw)
+    check(int(out_l.sum()) == gx["m_removed_exact"], "the kernel's removals are the fit's m_removed_exact")
+    print(f"lune_filter: kernel == plain on the fit's {gx['m_unresolved']} unresolved edges at n={N}", flush=True)
+
+    x3 = make_points(N_EXACT_CPU, D, SEED + 5)
+    est3, est3_cpu = (MultiHDBSCAN(kmax=KMAX, variant="rng", device=dv).fit(x3) for dv in ("cuda", "cpu"))
+    check(est3.graph_.stats == est3_cpu.graph_.stats, "exact variant: graph stats equal the CPU run")
+    check(np.array_equal(est3.graph_.edges, est3_cpu.graph_.edges), "exact variant: edges equal the CPU run")
+    m3, m3c = est3.model_.msts, est3_cpu.model_.msts
+    check(np.array_equal(m3.mst_ea, m3c.mst_ea) and np.array_equal(m3.mst_eb, m3c.mst_eb),
+          "exact variant: MST edge ids equal the CPU run")
+    for v_g, v_c in zip(est3.select_all(), est3_cpu.select_all()):
+        check(np.array_equal(v_g.labels, v_c.labels), f"exact variant: labels equal the CPU run at mpts={v_g.mpts}")
+    print(f"n={N_EXACT_CPU} exact variant: card == CPU run (graph {est3.graph_.stats})", flush=True)
+
+    t0 = time.monotonic()
+    est_xw = MultiHDBSCAN(kmax=KMAX, variant="rng").fit(x_np)
+    est_xw.select_all()
+    stages_x = {k: est_xw.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    stages_x["total_with_hierarchy"] = time.monotonic() - t0
+    record["exact_stages_s"] = stages_x
+    print(f"exact fit, warm stages (s) on {smi}: " + json.dumps(stages_x), flush=True)
+
+    # -- 6. prediction ---------------------------------------------------------
+    q = make_queries(x_np, N_QUERIES, SEED + 6)
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    res_g = est_x.approximate_predict(q)
+    launches_p = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                  "lune_filter": lf.lune_filter.launches}
+    reps = 5
+    t0 = time.monotonic()
+    for _ in range(reps):
+        est_x.approximate_predict(q)
+    record["predict_qps"] = reps * N_QUERIES / (time.monotonic() - t0)
+    q_t, x_t = torch.from_numpy(q).to(dev), torch.from_numpy(x_np).to(dev)
+    t0 = time.monotonic()
+    for _ in range(reps):
+        est_x.plan_.query_knn(q_t, x_t, KMAX - 1)
+    torch.cuda.synchronize()
+    record["predict_query_knn_ms"] = (time.monotonic() - t0) / reps * 1e3
+    path = est_x.save(str(ROOT / "build" / "chip_smoke_exact.npz"))
+    model_cpu = FittedModel.load(path, device="cpu")
+    res_c = model_cpu.approximate_predict(q)  # extracts all levels and builds the walk tables
+    t0 = time.monotonic()
+    model_cpu.approximate_predict(q)
+    record["predict_qps_cpu"] = N_QUERIES / (time.monotonic() - t0)
+    check(res_g.labels.shape == (KMAX - 1, N_QUERIES), "prediction labels shape")
+    check(np.array_equal(res_g.labels, res_c.labels), "prediction labels equal the CPU run")
+    check(np.array_equal(res_g.neighbors, res_c.neighbors), "attachment neighbours equal the CPU run")
+    check(np.allclose(res_g.lambdas, res_c.lambdas, rtol=RTOL, atol=0.0), "lambdas equal the CPU run to rtol")
+    check(np.allclose(res_g.probabilities, res_c.probabilities, rtol=RTOL, atol=0.0),
+          "probabilities equal the CPU run to rtol")
+    check(bool((res_g.labels >= 0).any()) and bool((res_g.labels == -1).any()), "queries land in clusters and in noise")
+    check(est_x.dbcv_profile() == model_cpu.dbcv_profile(), "DBCV profiles equal on the card and the CPU")
+    print(f"prediction: {N_QUERIES} queries x {KMAX - 1} mpts rows, card == CPU run from the saved artifact; "
+          f"{record['predict_qps']:.0f} queries/s on {smi} (warm, host clock, {reps} batches; "
+          f"query kNN {record['predict_query_knn_ms']:.3f} ms a batch), "
+          f"{record['predict_qps_cpu']:.0f} queries/s on the host CPU (warm); launches {launches_p}", flush=True)
+
+    # -- 7. timings ----------------------------------------------------------
     est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     t0 = time.monotonic()
     est_w.select_all()
     stages_s = {k: est_w.timings_[k] for k in ("knn", "rng_build", "mst_range")}
     stages_s["hierarchy"] = time.monotonic() - t0
     record["stages_s"] = stages_s
-    print("warm stages (s): " + json.dumps(stages_s), flush=True)
+    print(f"warm stages (s) on {smi}: " + json.dumps(stages_s), flush=True)
 
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -378,11 +577,29 @@ def main() -> int:
         "bound_by": "operations" if c_bound_ops >= c_bound_bytes else "bytes",
         "library_ms": None,
     })
+    m_unres, m_removed = int(lune_main[0].shape[0]), gx["m_removed_exact"]
+    l_ms = cuda_ms(lambda: lf.lune_filter(*lune_main, **lune_kw), 10)
+    l_plain = cuda_ms(lambda: lf.lune_filter_plain(*lune_main), 3)
+    l_bound, l_by = bound(*lune_flops_bytes(N, D, m_unres, m_removed))
+    sweep = {be: cuda_ms(lambda: lf.lune_filter(*lune_main, block_e=be, block_c=lune_kw["block_c"]), 10)
+             for be in (32, 64, 128, 256)}
+    record["lune_filter_block_e_ms"] = sweep
+    print(f"lune_filter on {m_unres} edges x {N} points, {smi}: {l_ms:.4f} ms (bound {l_bound:.4f} ms, "
+          f"plain {l_plain:.3f} ms);"
+          f" by edges per block {json.dumps(sweep)}", flush=True)
+    kernels.append({
+        "name": "lune_filter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lune_filter.cu",
+        "replaces": "src/repro/kernels/lune_filter.py:33",
+        "launches": launches_x["lune_filter"], "max_abs_err": 0.0,
+        "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
+    })
     record["kernels"] = kernels
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

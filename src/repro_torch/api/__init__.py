@@ -5,6 +5,7 @@
     est = MultiHDBSCAN(kmax=16).fit(x)               # on the card
     est = MultiHDBSCAN(kmax=16, device="cpu").fit(x)  # plain PyTorch on the CPU
     est.model_.select(8).labels
+    labels, probs = est.approximate_predict(q, mpts=8)  # unseen points, no refit
     est.model_.save("fitted.npz")                     # loads in either package
 """
 

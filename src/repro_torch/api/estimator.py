@@ -35,9 +35,11 @@ class MultiHDBSCAN:
     cluster_selection_epsilon : float
         Malzer & Baum's hybrid threshold; 0.0 (default) disables it.
     allow_single_cluster : bool
-    variant : {"rng_ss", "rng_star"}
-        RNG^kmax graph variant (the exact ``"rng"`` comes with a later
-        slice of the port).
+    variant : {"rng_ss", "rng_star", "rng"}
+        RNG^kmax graph variant: ``"rng_star"`` (default) filters the WSPD
+        supergraph with the kNN-lune check and the core-distance
+        certificate; ``"rng"`` adds the exact lune scan of the edges left
+        unresolved (the ``lune_filter`` kernel on the card).
     device : str or torch.device, optional
         Where the fit runs.  Default ``"cuda"``: the hand-written kernels,
         and a ``RuntimeError`` on a machine without a card.  ``"cpu"`` runs
@@ -156,9 +158,20 @@ class MultiHDBSCAN:
         return self.model_.save(path)
 
     def approximate_predict(self, Q, mpts: int | None = None, policy: SelectionPolicy | None = None):
+        """Assign unseen points to the fitted clusters, no refit.
+
+        With ``mpts`` given: ``(labels, probabilities)`` at that density
+        level (McInnes & Healy's ``approximate_predict``).  With
+        ``mpts=None``: a :class:`~repro_torch.core.predict.PredictResult`
+        with (R, q) labels / probabilities / lambdas / neighbours for every
+        fitted level from one query pass.
+        """
         return self.model_.approximate_predict(Q, mpts, policy)
 
     def dbcv_profile(self) -> list[dict]:
+        """DBCV relative validity per fitted mpts (paper §I): pick promising
+        density levels without ground truth.  Returns
+        ``[{"mpts", "dbcv", "n_clusters"}]``."""
         return self.model_.dbcv_profile()
 
     def mst_for(self, mpts: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -5,18 +5,18 @@ of ``repro/api/model.py``.
   * ``model.select(mpts, policy)`` — a :class:`Clustering` view, cached per
     (mpts, policy);
   * ``model.select_all(policy)`` — every fitted density level;
+  * ``model.approximate_predict(Q, ...)`` — out-of-sample assignment, no
+    refit; ``model.dbcv_profile()`` — DBCV at every level;
   * ``model.save(path)`` / ``FittedModel.load(path)`` — one ``.npz`` in the
     reference's format (``repro.fitted_model``, schema v1), so an artifact
     saved by either package loads in the other.
-
-Out-of-sample prediction (``approximate_predict``) and ``dbcv_profile``
-belong to the prediction slice of the port and raise here.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -27,12 +27,12 @@ import numpy as np
 import torch
 
 from .. import engine
-from ..core import multi
+from ..core import dbcv as dbcv_mod
+from ..core import multi, predict
 from .selection import SelectionPolicy
 
 ARTIFACT_SCHEMA_VERSION = 1
 _ARTIFACT_FORMAT = "repro.fitted_model"
-_PREDICTION_SLICE = "out-of-sample prediction and DBCV belong to the prediction slice of the port"
 
 
 class ArtifactError(RuntimeError):
@@ -65,6 +65,46 @@ def _git_sha() -> str:
         return out.stdout.strip() or "unknown"
     except (OSError, subprocess.SubprocessError):
         return "unknown"
+
+
+def _exemplars(h: multi.HierarchyResult) -> list[np.ndarray]:
+    """Most-persistent point ids per selected cluster (hdbscan-style).
+
+    For each selected cluster, take the leaf clusters of its condensed
+    subtree and, within each leaf, the points that survive to the leaf's
+    deepest departure lambda — the density peaks the cluster is "about".
+    """
+    tree = h.condensed
+    n = tree.n_points
+    cluster_rows = tree.child >= n
+    kids: dict[int, list[int]] = {}
+    for p, c in zip(tree.parent[cluster_rows], tree.child[cluster_rows]):
+        kids.setdefault(int(p), []).append(int(c))
+    pt_parent = tree.parent[~cluster_rows]
+    pt_child = tree.child[~cluster_rows]
+    pt_lam = tree.lam[~cluster_rows]
+
+    out: list[np.ndarray] = []
+    for c in sorted(h.selected):
+        leaves: list[int] = []
+        stack = [int(c)]
+        while stack:
+            v = stack.pop()
+            ch = kids.get(v)
+            if ch:
+                stack.extend(ch)
+            else:
+                leaves.append(v)
+        picks = []
+        for leaf in leaves:
+            rows = pt_parent == leaf
+            if rows.any():
+                lam = pt_lam[rows]
+                finite = np.isfinite(lam)
+                cap = lam[finite].max() if finite.any() else lam.max()
+                picks.append(pt_child[rows][lam >= cap])
+        out.append(np.sort(np.concatenate(picks)) if picks else np.empty(0, np.int64))
+    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,6 +142,16 @@ class Clustering:
         """Selected condensed-cluster ids (sorted order = label order)."""
         return self.hierarchy.selected
 
+    @functools.cached_property
+    def probabilities(self) -> np.ndarray:
+        """(n,) hdbscan-style membership strength in [0, 1] (0 = noise)."""
+        return predict.membership_probabilities(self.hierarchy)
+
+    @functools.cached_property
+    def exemplars(self) -> list[np.ndarray]:
+        """Per-label arrays of the most-persistent point ids (density peaks)."""
+        return _exemplars(self.hierarchy)
+
     def __repr__(self) -> str:
         return (
             f"Clustering(mpts={self.mpts}, n_clusters={self.n_clusters}, "
@@ -114,7 +164,8 @@ class FittedModel:
 
     Build with :meth:`fit` or :meth:`load`.  The fitted arrays are treated
     as immutable; the only mutable state is the extraction cache, bounded
-    by ``max_cached_hierarchies`` (LRU).
+    by ``max_cached_hierarchies`` (LRU), and the prediction walk tables
+    derived from the cached extractions.
     """
 
     def __init__(
@@ -139,6 +190,7 @@ class FittedModel:
         self._cache: collections.OrderedDict[
             tuple[int, SelectionPolicy], multi.HierarchyResult
         ] = collections.OrderedDict()
+        self._walk: dict[SelectionPolicy, dict[int, predict.WalkTable]] = {}
 
     # -- construction ------------------------------------------------------
 
@@ -279,7 +331,8 @@ class FittedModel:
         self._cache[key] = h
         bound = self.max_cached_hierarchies
         while bound is not None and len(self._cache) > bound:
-            self._cache.popitem(last=False)
+            (em, ep), _ = self._cache.popitem(last=False)
+            self._walk.get(ep, {}).pop(em, None)
         return h
 
     def select(self, mpts: int, policy: SelectionPolicy | None = None) -> Clustering:
@@ -297,8 +350,40 @@ class FittedModel:
         row = self.msts.row_of(mpts)
         return self.msts.mst_ea[row], self.msts.mst_eb[row], self.msts.mst_w[row]
 
+    # -- out-of-sample prediction ------------------------------------------
+
+    def predict_range(
+        self,
+        Q,
+        *,
+        mpts_values: Sequence[int] | None = None,
+        policy: SelectionPolicy | None = None,
+    ) -> predict.PredictResult:
+        """Out-of-sample assignment for the requested mpts rows (one pass)."""
+        pol = self._resolve_policy(policy)
+        Q = np.asarray(Q)
+        predict.validate_queries(Q, self.n_features)
+        return predict.predict_range(
+            self.msts,
+            self.X,
+            Q,
+            lambda m: self.hierarchy(m, pol),
+            plan=self.plan,
+            mpts_values=mpts_values,
+            table_cache=self._walk.setdefault(pol, {}),
+        )
+
     def approximate_predict(self, Q, mpts: int | None = None, policy: SelectionPolicy | None = None):
-        raise NotImplementedError(_PREDICTION_SLICE)
+        """hdbscan-style ``approximate_predict`` over the fitted state.
+
+        With ``mpts`` given: ``(labels, probabilities)`` for that level;
+        with ``mpts=None``: the full per-mpts
+        :class:`~repro_torch.core.predict.PredictResult`.
+        """
+        res = self.predict_range(Q, mpts_values=None if mpts is None else [mpts], policy=policy)
+        if mpts is None:
+            return res
+        return res.labels[0], res.probabilities[0]
 
     def mpts_profile(self, policy: SelectionPolicy | None = None) -> list[dict]:
         """One summary row per density level (the paper's exploration query)."""
@@ -318,7 +403,16 @@ class FittedModel:
         return rows
 
     def dbcv_profile(self, policy: SelectionPolicy | None = None) -> list[dict]:
-        raise NotImplementedError(_PREDICTION_SLICE)
+        """DBCV relative validity at every fitted density level."""
+        rows = []
+        for mpts in self.msts.mpts_values:
+            h = self.hierarchy(mpts, policy)
+            rows.append({
+                "mpts": mpts,
+                "dbcv": dbcv_mod.dbcv_relative_validity(h.mst_ea, h.mst_eb, h.mst_w, h.labels),
+                "n_clusters": h.n_clusters,
+            })
+        return rows
 
     # -- artifact layer ----------------------------------------------------
 

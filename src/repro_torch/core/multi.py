@@ -121,7 +121,9 @@ def _compact_mst_rows(in_mst, ea, eb, w_sel, *, n: int):
     sel.scatter_(1, dst, torch.arange(m, device=dev).expand(R, m).contiguous())
     sel = sel[:, : n - 1]
     counts = in_mst.sum(dim=1, dtype=torch.int32)
-    mst_w = torch.sqrt(w_sel.gather(1, sel))
+    # float32 sqrt through float64: correctly rounded on every device, as
+    # the reference's XLA sqrt is (torch's vectorised CPU float32 sqrt is not)
+    mst_w = torch.sqrt(w_sel.gather(1, sel).double()).float()
     ea, eb = ea.long(), eb.long()
     return ea[sel].to(torch.int32), eb[sel].to(torch.int32), mst_w, counts
 

@@ -1,11 +1,12 @@
-"""RNG construction pipeline: RNG** -> RNG* (paper §IV-E, Alg. 1), the port
-of ``repro/core/rng.py``.
+"""RNG construction pipeline: RNG** -> RNG* -> exact RNG (paper §IV-E,
+Alg. 1), the port of ``repro/core/rng.py``.
 
-Variants: ``rng_ss`` (RNG**, the WSPD+SBCN supergraph, no filtering) and
+Variants: ``rng_ss`` (RNG**, the WSPD+SBCN supergraph, no filtering),
 ``rng_star`` (RNG*, + the kNN-lune filter and the core-distance
-certificate).  ``rng`` (exact) needs the ``lune_filter`` kernel and comes
-with a later slice of the port, as does the dual-tree tier for n at or
-above ``Plan.dualtree_min_n``.
+certificate) and ``rng`` (exact: + a scan of the whole point set for the
+edges the cheap filter could not certify either way, Alg. 1 lines 22-26,
+through the ``lune_filter`` kernel).  The dual-tree tier for n at or above
+``Plan.dualtree_min_n`` comes with a later slice of the port.
 
 Two data planes build the filtered graph, as in the reference:
 
@@ -19,7 +20,8 @@ Two data planes build the filtered graph, as in the reference:
     backend's path.
 
 Host syncs are the named ledger points only: ``candidate_count`` and
-``stage1_count`` (scalars sizing the compactions) and ``graph``.
+``stage1_count`` (scalars sizing the compactions), ``graph``, and
+``lune_exact`` for the exact variant.
 """
 
 from __future__ import annotations
@@ -60,13 +62,59 @@ def filter_cascade_device(x, cd2, knn_idx, knn_d2, lo, hi, valid, *, plan):
     The reference's ``_knn_lune_check`` (paper lines 14-17: is any kmax-NN
     of a or b strictly inside lune(a, b)?) plus the certificate is exactly
     ``edge_cascade`` over the full kNN lists, so the slot path runs that
-    kernel too.  Returns ``(keep, certified, inside_any, d2_e, w2)``;
-    invalid slots read point 0 and are masked.  Nothing is materialized.
+    kernel too, summing in the order of the reference's slot path.
+    Returns ``(keep, certified, inside_any, d2_e, w2)``; invalid slots read
+    point 0 and are masked.  Nothing is materialized.
     """
     inside_any, certified, d2_e, w2 = plan.edge_cascade(
-        x, cd2[:, -1], knn_idx, knn_d2, lo, hi, valid, k_check=knn_idx.shape[1]
+        x, cd2[:, -1], knn_idx, knn_d2, lo, hi, valid,
+        k_check=knn_idx.shape[1],
+        fma=fused_cascade.sum_order_fma(int(x.shape[1]), fused=False),
     )
     return valid & ~inside_any, certified, inside_any, d2_e, w2
+
+
+def _exact_lune_pass(keep, certified, ea_h, eb_h, w2_h, x, cd2k, plan, stats):
+    """variant="rng" (Alg. 1 lines 22-26): exact lune scan of the edges the
+    cheap filter could not certify either way.  ``w2_h`` holds the filter
+    stages' own weights (their verdicts carry the eps margins).  Updates
+    ``stats``; returns the new keep mask (host bool array)."""
+    unresolved = keep & ~certified
+    stats["m_unresolved"] = int(unresolved.sum())
+    if not unresolved.any():
+        return keep
+    keep = keep.copy()
+    ui = np.nonzero(unresolved)[0]
+    ea, eb, w2 = (
+        torch.as_tensor(v[ui], dtype=dt).to(x.device)
+        for v, dt in ((ea_h, torch.int32), (eb_h, torch.int32), (w2_h, torch.float32))
+    )
+    nonempty = engine.to_host(plan.lune_nonempty(ea, eb, w2, x, cd2k), "lune_exact")
+    keep[ui[nonempty]] = False
+    stats["m_removed_exact"] = int(nonempty.sum())
+    return keep
+
+
+def filter_edges(x, cd2, knn_idx, knn_d2, edges: np.ndarray, variant: str, *, plan) -> tuple[np.ndarray, dict]:
+    """Apply the paper's filter cascade to an explicit (m, 2) host edge
+    array; returns (kept edge array, stats dict)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    stats = {"m_candidates": int(len(edges))}
+    if variant == "rng_ss" or len(edges) == 0:
+        return edges, stats
+    lo = torch.as_tensor(edges[:, 0].astype(np.int32)).to(x.device)
+    hi = torch.as_tensor(edges[:, 1].astype(np.int32)).to(x.device)
+    valid = torch.ones((len(edges),), dtype=torch.bool, device=x.device)
+    keep_d, certified_d, inside_d, _, w2_d = filter_cascade_device(
+        x, cd2, knn_idx, knn_d2, lo, hi, valid, plan=plan
+    )
+    keep, certified, inside_any, w2 = engine.to_host((keep_d, certified_d, inside_d, w2_d), "graph")
+    stats["m_removed_knn"] = int(inside_any.sum())
+    stats["m_certified"] = int((keep & certified).sum())
+    if variant == "rng":
+        keep = _exact_lune_pass(keep, certified, edges[:, 0], edges[:, 1], w2, x, cd2[:, -1], plan, stats)
+    return edges[keep], stats
 
 
 def canonical_edge_weights(x, cd2k, ea, eb):
@@ -128,9 +176,10 @@ def _build_fused(x, cd2, knn_d2, knn_idx, tree, pu, pv, variant, plan) -> RngGra
     # strictly inside its lune, so it skips stage 2
     k_full = knn_idx.shape[1]
     k1 = min(plan.cascade_stage1_k, k_full)
+    fma = fused_cascade.sum_order_fma(int(x.shape[1]), fused=True)
     lo, hi, _, w2_1, surv_cert, surv_open, nc_d, no_d = fused_cascade.stage1_packed(
         x, cd2k, knn_idx, knn_d2, keys_sorted[:n_real], n,
-        k_check=k1, chunk=plan.cascade_chunk, block_e=plan.cascade_block_e,
+        k_check=k1, fma=fma, chunk=plan.cascade_chunk, block_e=plan.cascade_block_e,
     )
     n_cert, n_open = (int(v) for v in engine.to_host(torch.stack([nc_d, no_d]), "stage1_count"))
     if n_cert + n_open == 0:
@@ -141,28 +190,32 @@ def _build_fused(x, cd2, knn_d2, knn_idx, tree, pu, pv, variant, plan) -> RngGra
         posc = sbcn_mod.compact_idx(surv_cert, n_cert)
         d2c, w2c = canonical_edge_weights(x, cd2k, lo[posc], hi[posc])
         keepc = torch.ones((n_cert,), dtype=torch.bool, device=x.device)
-        parts_dev.append((lo[posc], hi[posc], keepc, keepc, d2c, w2c))
+        parts_dev.append((lo[posc], hi[posc], keepc, keepc, d2c, w2c, w2_1[posc]))
     if n_open:
         poso = sbcn_mod.compact_idx(surv_open, n_open)
         valido = torch.ones((n_open,), dtype=torch.bool, device=x.device)
-        killed2, _, _, _ = plan.edge_cascade(
-            x, cd2k, knn_idx, knn_d2, lo[poso], hi[poso], valido, k_check=k_full
+        killed2, _, _, w2_2 = plan.edge_cascade(
+            x, cd2k, knn_idx, knn_d2, lo[poso], hi[poso], valido, k_check=k_full, fma=fma
         )
         d2o, w2o = canonical_edge_weights(x, cd2k, lo[poso], hi[poso])
-        parts_dev.append((lo[poso], hi[poso], ~killed2, torch.zeros_like(valido), d2o, w2o))
+        # open survivors are never certified: every kept one is unresolved
+        parts_dev.append((lo[poso], hi[poso], ~killed2, torch.zeros_like(valido), d2o, w2o, w2_2))
 
     parts = engine.to_host(parts_dev, "graph")
-    lo_h, hi_h, keep, certified, d2_h, w2_h = (
-        np.concatenate([p[i] for p in parts]) for i in range(6)
+    lo_h, hi_h, keep, certified, d2_h, w2_h, w2_stage = (
+        np.concatenate([p[i] for p in parts]) for i in range(7)
     )
     # restore the slot path's sorted-(lo, hi) edge order: MST tie-breaks are
     # by edge id, so order parity keeps the two paths bit-equal
     order = np.lexsort((hi_h, lo_h))
-    lo_h, hi_h, keep, certified, d2_h, w2_h = (
-        v[order] for v in (lo_h, hi_h, keep, certified, d2_h, w2_h)
+    lo_h, hi_h, keep, certified, d2_h, w2_h, w2_stage = (
+        v[order] for v in (lo_h, hi_h, keep, certified, d2_h, w2_h, w2_stage)
     )
     stats["m_removed_knn"] = n_unique - int(keep.sum())
     stats["m_certified"] = int((keep & certified).sum())
+    if variant == "rng":
+        # the lune scan thresholds on the stage weights; exports stay canonical
+        keep = _exact_lune_pass(keep, certified, lo_h, hi_h, w2_stage, x, cd2k, plan, stats)
     edges = np.stack([lo_h[keep].astype(np.int64), hi_h[keep].astype(np.int64)], axis=1)
     stats["m_edges"] = int(len(edges))
     return RngGraph(
@@ -190,11 +243,6 @@ def build_rng_graph(
     """
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
-    if variant == "rng":
-        raise NotImplementedError(
-            "variant='rng' needs the exact lune scan (lune_filter kernel), "
-            "which the exact-variant slice of the port brings"
-        )
     n = int(x.shape[0])
     if n > 2 and plan.use_dualtree(n):
         raise NotImplementedError(
@@ -236,18 +284,21 @@ def build_rng_graph(
     if variant == "rng_ss":
         keep_d = valid
         certified_d = inside_d = torch.zeros_like(valid)
+        w2_d = torch.zeros((m_cand,), dtype=torch.float32, device=x.device)
     else:
-        keep_d, certified_d, inside_d, _, _ = filter_cascade_device(
+        keep_d, certified_d, inside_d, _, w2_d = filter_cascade_device(
             x, cd2, knn_idx, knn_d2, lo, hi, valid, plan=plan
         )
     d2c_d, w2c_d = canonical_edge_weights(x, cd2[:, -1], lo, hi)
-    lo_h, hi_h, keep, certified, inside_any, d2_h, w2_h = engine.to_host(
-        (lo, hi, keep_d, certified_d, inside_d, d2c_d, w2c_d), "graph"
+    lo_h, hi_h, keep, certified, inside_any, d2_h, w2_h, w2_stage = engine.to_host(
+        (lo, hi, keep_d, certified_d, inside_d, d2c_d, w2c_d, w2_d), "graph"
     )
     stats = {"m_candidates": m_cand, "n_wspd_pairs": int(len(pu))}
     if variant != "rng_ss":
         stats["m_removed_knn"] = int(inside_any.sum())
         stats["m_certified"] = int((keep & certified).sum())
+    if variant == "rng":
+        keep = _exact_lune_pass(keep, certified, lo_h, hi_h, w2_stage, x, cd2[:, -1], plan, stats)
     edges = np.stack([lo_h[keep].astype(np.int64), hi_h[keep].astype(np.int64)], axis=1)
     stats["m_edges"] = int(len(edges))
     return RngGraph(

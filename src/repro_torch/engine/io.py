@@ -9,10 +9,13 @@ at named materialization points, with the reference's tag names:
   ``candidate_slots`` — slot path only: the real SBCN slot count.
   ``stage1_count``    — fused path: the (certified, open) stage-1 survivor counts.
   ``graph``           — the RNG^kmax verdicts + edge arrays.
-  ``lune_exact``      — variant="rng" only (a later slice of the port).
+  ``lune_exact``      — variant="rng" only: the exact lune scan's verdicts
+                        over the unresolved edges (``core.rng._exact_lune_pass``).
   ``mst``             — the MST compaction, the MST stage's single sync.
   ``linkage``         — the batched single-linkage merge arrays.
-  ``predict``         — out-of-sample path (a later slice of the port).
+  ``predict``         — the out-of-sample path's single sync: per-row
+                        (lambdas, attachment neighbours) of a query batch
+                        (``core.predict.attach_queries``).
   ``candidates``      — the SBCN edge list's host view (debugging only).
   ``input``           — ``ensure_host`` normalizing a tensor handed to a
                         host-facing entry point.

@@ -36,8 +36,9 @@ class Plan:
         (the CUDA kernel's tiles are compile-time constants of its source).
       * ``cascade_block_e`` — threads per block of the ``edge_cascade``
         kernel; ``cascade_chunk`` — edges per chunk of its plain version.
-      * ``lune_block_e`` / ``lune_block_c`` — kept for the exact-variant
-        slice (the ``lune_filter`` kernel is not ported yet).
+      * ``lune_block_e`` / ``lune_block_c`` — the ``lune_filter`` kernel's
+        edges per block and points per shared-memory tile (upper bounds:
+        the kernel shrinks both until the tiles fit for the data's d).
     """
 
     backend: str
@@ -98,23 +99,37 @@ class Plan:
         )
 
     def query_knn(self, xq, x, k_top: int):
-        raise NotImplementedError(
-            "out-of-sample kNN belongs to the prediction slice of the port"
+        """Out-of-sample kNN: query rows ranked against the fitted set."""
+        from ..kernels import ops
+
+        return ops.query_knn(
+            xq, x, k_top,
+            backend=self.backend,
+            block_q=self.knn_block_q,
+            block_k=self.knn_block_k,
+            refine_slack=self.knn_refine_slack,
         )
 
     def lune_nonempty(self, ea, eb, w2, points, cd2):
-        raise NotImplementedError(
-            "the exact lune scan (lune_filter kernel, variant='rng') belongs "
-            "to the exact-variant slice of the port"
+        """Exact lune-emptiness verdicts for an edge list (``lune_filter``)."""
+        from ..kernels import ops
+
+        return ops.lune_nonempty(
+            ea, eb, w2, points, cd2,
+            backend=self.backend,
+            block_e=self.lune_block_e,
+            block_c=self.lune_block_c,
         )
 
-    def edge_cascade(self, x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int):
-        """Fused d2 + w2 + kNN-lune verdict + certificate over an edge list."""
+    def edge_cascade(self, x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool):
+        """Fused d2 + w2 + kNN-lune verdict + certificate over an edge list,
+        summing squares in the order ``fma`` picks."""
         from ..kernels import fused_cascade
 
         return fused_cascade.edge_cascade(
             x, cd2k, knn_idx, knn_d2, ea, eb, valid,
             k_check=k_check,
+            fma=fma,
             chunk=self.cascade_chunk,
             block_e=self.cascade_block_e,
         )

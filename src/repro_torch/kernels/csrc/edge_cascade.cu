@@ -25,9 +25,10 @@
 // Design: one thread per edge, gathering from x, knn_idx, knn_d2 and cd2k
 // itself, with no (m, k * d) candidate slabs built beforehand as the TPU
 // dispatch does: the contract is the four outputs.  Every sum of squares
-// runs in index order with __fmul_rn/__fadd_rn, which forbid FMA
-// contraction, so d2, w2 and the verdicts equal the plain PyTorch version
-// bit for bit.
+// runs in index order, either unfused (__fmul_rn/__fadd_rn, which forbid
+// FMA contraction) or as an fmaf chain, as the caller's `use_fma` flag says,
+// so d2, w2 and the verdicts equal the plain PyTorch version bit for bit
+// in both orders.
 
 #include <cuda_runtime.h>
 
@@ -35,19 +36,25 @@ namespace {
 
 constexpr float kEps = 7.62939453125e-06f;  // 64 * 2^-23
 
+// acc + t * t, unfused or with one rounding; the first term of a sum is
+// the rounded square in both orders.
+__device__ __forceinline__ float add_sq(float acc, float t, bool use_fma) {
+  return use_fma ? fmaf(t, t, acc) : __fadd_rn(acc, __fmul_rn(t, t));
+}
+
 __device__ __forceinline__ float sq_dist(const float* __restrict__ p,
-                                         const float* __restrict__ q, int d) {
-  float acc = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float t = __fsub_rn(p[j], q[j]);
-    acc = __fadd_rn(acc, __fmul_rn(t, t));
-  }
+                                         const float* __restrict__ q, int d,
+                                         bool use_fma) {
+  const float t0 = __fsub_rn(p[0], q[0]);
+  float acc = __fmul_rn(t0, t0);
+  for (int j = 1; j < d; ++j) acc = add_sq(acc, __fsub_rn(p[j], q[j]), use_fma);
   return acc;
 }
 
-__device__ __forceinline__ float sq_norm(const float* __restrict__ p, int d) {
-  float acc = 0.f;
-  for (int j = 0; j < d; ++j) acc = __fadd_rn(acc, __fmul_rn(p[j], p[j]));
+__device__ __forceinline__ float sq_norm(const float* __restrict__ p, int d,
+                                         bool use_fma) {
+  float acc = __fmul_rn(p[0], p[0]);
+  for (int j = 1; j < d; ++j) acc = add_sq(acc, p[j], use_fma);
   return acc;
 }
 
@@ -55,7 +62,7 @@ __global__ void edge_cascade_kernel(
     const float* __restrict__ x, const float* __restrict__ cd2k,
     const int* __restrict__ knn_idx, const float* __restrict__ knn_d2,
     int d, int k_full, const int* __restrict__ ea, const int* __restrict__ eb,
-    const unsigned char* __restrict__ valid, int m, int k_check,
+    const unsigned char* __restrict__ valid, int m, int k_check, bool use_fma,
     int* __restrict__ killed, int* __restrict__ cert,
     float* __restrict__ d2_out, float* __restrict__ w2_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -66,11 +73,11 @@ __global__ void edge_cascade_kernel(
   const float* xa = x + (size_t)a * d;
   const float* xb = x + (size_t)b * d;
 
-  const float d2 = sq_dist(xa, xb, d);
+  const float d2 = sq_dist(xa, xb, d, use_fma);
   const float cda = cd2k[a], cdb = cd2k[b];
   const float mcd = fmaxf(cda, cdb);
   const float w2 = fmaxf(mcd, d2);
-  const float an = sq_norm(xa, d), bn = sq_norm(xb, d);
+  const float an = sq_norm(xa, d, use_fma), bn = sq_norm(xb, d, use_fma);
 
   bool kill = false;
   for (int side = 0; side < 2; ++side) {
@@ -83,9 +90,9 @@ __global__ void edge_cascade_kernel(
     for (int j = 0; j < k_check; ++j) {
       const int c = cand[j];
       const float* xc = x + (size_t)c * d;
-      const float cn = sq_norm(xc, d);
+      const float cn = sq_norm(xc, d, use_fma);
       const float cdc = cd2k[c];
-      const float d2_oth = sq_dist(oth_x, xc, d);
+      const float d2_oth = sq_dist(oth_x, xc, d, use_fma);
       const float mrd_own = __fadd_rn(fmaxf(fmaxf(cand_d2[j], own_cd), cdc),
                                       __fmul_rn(kEps, __fadd_rn(own_n, cn)));
       const float mrd_oth = __fadd_rn(fmaxf(fmaxf(d2_oth, oth_cd), cdc),
@@ -102,17 +109,18 @@ __global__ void edge_cascade_kernel(
 }  // namespace
 
 // x: (n, d) f32; cd2k: (n,) f32; knn_idx: (n, k_full) i32; knn_d2: (n, k_full)
-// f32; ea, eb: (m,) i32; valid: (m,) bool; outputs (m,) i32, i32, f32, f32.
+// f32; ea, eb: (m,) i32; valid: (m,) bool; use_fma: 0 or 1 (summation order);
+// outputs (m,) i32, i32, f32, f32.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_edge_cascade(
     const float* x, const float* cd2k, const int* knn_idx, const float* knn_d2,
     int d, int k_full, const int* ea, const int* eb, const unsigned char* valid,
-    int m, int k_check, int block, int* killed, int* cert, float* d2_out,
-    float* w2_out, void* stream) {
+    int m, int k_check, int use_fma, int block, int* killed, int* cert,
+    float* d2_out, float* w2_out, void* stream) {
   if (m < 1 || d < 1 || k_check < 0 || k_check > k_full || block < 32 || block > 1024)
     return (int)cudaErrorInvalidValue;
   edge_cascade_kernel<<<(m + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-      x, cd2k, knn_idx, knn_d2, d, k_full, ea, eb, valid, m, k_check, killed,
-      cert, d2_out, w2_out);
+      x, cd2k, knn_idx, knn_d2, d, k_full, ea, eb, valid, m, k_check, use_fma != 0,
+      killed, cert, d2_out, w2_out);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,15 @@ certificate per edge, the port of ``repro/kernels/fused_cascade.py``.
 ``edge_cascade`` launches the hand-written CUDA kernel
 (``csrc/edge_cascade.cu``) for tensors on the card and takes the plain
 version ``edge_cascade_plain`` (the reference's ``_edge_cascade_jnp``
-counterpart) for tensors on the CPU; any other device raises.  The two
-compute every sum of squares in the same order with no fused multiply-add,
-so their outputs agree bit for bit.
+counterpart) for tensors on the CPU; any other device raises.
+
+Every sum of squares runs in index order, in one of two orders that the
+caller picks with ``fma`` (``sum_order_fma``): unfused (``sum_sq_seq``;
+``__fmul_rn``/``__fadd_rn`` in the kernel) or an FMA chain (``sum_sq_fma``;
+``fmaf`` in the kernel).  Kernel and plain version agree bit for bit in
+both, and the order XLA compiles the reference's cascade to on the CPU
+decides which one the RNG build asks for, so the certificate and the
+stage weights equal the reference's.
 
 The RNG build runs the cascade staged (``core.rng._build_fused``): stage 1
 checks each endpoint's ``stage1_k`` nearest neighbours, stage 2 the full
@@ -21,18 +27,37 @@ import ctypes
 import torch
 
 from . import _build
-from .ops import sum_sq_seq
+from .ops import sum_sq_fma, sum_sq_seq
 
 _EPS = 64.0 * 1.1920929e-07
 _SENTINEL = 2**31 - 1  # int32 max: the packed-key pad value
 
 
-def edge_cascade_plain(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, chunk: int = 65536):
+def sum_order_fma(d: int, *, fused: bool) -> bool:
+    """Whether the reference's cascade sums of squares are an FMA chain at
+    width ``d``.
+
+    XLA on the CPU compiles the fused cascade programs (``stage1_packed``,
+    ``_edge_cascade_jnp`` and ``edge_cascade`` under ``pallas_interpret``)
+    to an unfused index-order sum for d <= 8 and to an FMA chain for
+    9 <= d <= 32; the slot path's eager ``edge_d2`` sums unfused for
+    d <= 32 (on edge counts that fill XLA's vector loops, as the
+    reference's power-of-two buckets do).  Above 32 neither index order
+    is XLA's, and the port keeps the FMA chain: there stage weights may
+    differ from the reference's by an ulp, and with them a certificate.
+    """
+    return d > (8 if fused else 32)
+
+
+def edge_cascade_plain(
+    x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool = False, chunk: int = 65536
+):
     """Plain-torch cascade over an edge list, chunked to bound the working set.
 
     Returns ``(killed, certified, d2_e, w2)``: bool verdicts masked by
     ``valid``, float32 d2 and w2 (invalid slots read point 0).
     """
+    sum_sq = sum_sq_fma if fma else sum_sq_seq
     dev = x.device
     eps = torch.tensor(_EPS, dtype=torch.float32, device=dev)
     xf = x.float()
@@ -44,21 +69,21 @@ def edge_cascade_plain(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int,
     for c0 in range(0, ea.shape[0], chunk):
         a, b = ea_i[c0 : c0 + chunk], eb_i[c0 : c0 + chunk]
         xa, xb = xf[a], xf[b]
-        d2_e = sum_sq_seq(xa - xb)
+        d2_e = sum_sq(xa - xb)
         cda, cdb = cd2k[a], cd2k[b]
         mcd = torch.maximum(cda, cdb)
         w2 = torch.maximum(mcd, d2_e)
         # lint: allow[float-eq] certificate is bit-exact by construction: w2 is max() of the compared value itself
         certified = w2 == mcd
-        an, bn = sum_sq_seq(xa), sum_sq_seq(xb)
+        an, bn = sum_sq(xa), sum_sq(xb)
         killed = torch.zeros_like(certified)
         sides = ((a, xb, cda, cdb, an, bn), (b, xa, cdb, cda, bn, an))
         for own, oth_x, own_cd, oth_cd, own_n, oth_n in sides:
             cand = kidx[own]                                   # (c, k)
             xc = xf[cand]                                      # (c, k, d)
-            cn = sum_sq_seq(xc)
+            cn = sum_sq(xc)
             cdc = cd2k[cand]
-            d2_oth = sum_sq_seq(oth_x[:, None, :] - xc)
+            d2_oth = sum_sq(oth_x[:, None, :] - xc)
             mrd_own = torch.maximum(torch.maximum(kd2[own], own_cd[:, None]), cdc) + eps * (own_n[:, None] + cn)
             mrd_oth = torch.maximum(torch.maximum(d2_oth, oth_cd[:, None]), cdc) + eps * (oth_n[:, None] + cn)
             not_ep = (cand != a[:, None]) & (cand != b[:, None])
@@ -71,7 +96,7 @@ def edge_cascade_plain(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int,
     return killed & valid, certified & valid, d2_e, w2
 
 
-def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, block_e: int):
+def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool, block_e: int):
     dev = x.device
     n, d = x.shape
     m = ea.shape[0]
@@ -103,14 +128,14 @@ def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, block_e: i
     )
     fn = _build.load("edge_cascade").repro_edge_cascade
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     xs, cds, kis, kds, eas, ebs, vs = args
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
             xs.data_ptr(), cds.data_ptr(), kis.data_ptr(), kds.data_ptr(), d, k_full,
-            eas.data_ptr(), ebs.data_ptr(), vs.data_ptr(), m, k_check, block_e,
+            eas.data_ptr(), ebs.data_ptr(), vs.data_ptr(), m, k_check, int(fma), block_e,
             killed.data_ptr(), cert.data_ptr(), d2_e.data_ptr(), w2.data_ptr(), stream,
         )
     _build.check(status, "edge_cascade")
@@ -128,22 +153,24 @@ def edge_cascade(
     valid: torch.Tensor,
     *,
     k_check: int,
+    fma: bool = False,
     chunk: int = 65536,
     block_e: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused per-edge cascade: ``(killed, certified, d2_e, w2)``.
 
     CUDA tensors run the kernel (``block_e`` threads per block); CPU
-    tensors run the plain version (``chunk`` edges per step).  Invalid
-    slots are False in the bool outputs and hold garbage floats.
+    tensors run the plain version (``chunk`` edges per step).  ``fma``
+    picks the summation order (module docstring).  Invalid slots are False
+    in the bool outputs and hold garbage floats.
     """
     if x.device.type == "cpu":
         return edge_cascade_plain(
-            x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, chunk=chunk
+            x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, fma=fma, chunk=chunk
         )
     if x.device.type != "cuda":
         raise ValueError(f"edge_cascade runs on CUDA or CPU tensors; got {x.device}")
-    return _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, block_e=block_e)
+    return _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, fma=fma, block_e=block_e)
 
 
 edge_cascade.launches = 0
@@ -158,7 +185,9 @@ def unpack_keys(ks: torch.Tensor, n_pack: int):
     return valid, first, torch.div(safe, n_pack, rounding_mode="floor"), safe % n_pack
 
 
-def stage1_packed(x, cd2k, knn_idx, knn_d2, ks, n_pack: int, *, k_check: int, chunk: int, block_e: int):
+def stage1_packed(
+    x, cd2k, knn_idx, knn_d2, ks, n_pack: int, *, k_check: int, chunk: int, block_e: int, fma: bool = False
+):
     """Stage 1 of the fused build: unpack sorted keys, run ``edge_cascade``
     (the kernel on the card), split survivors on the certificate.
 
@@ -168,7 +197,7 @@ def stage1_packed(x, cd2k, knn_idx, knn_d2, ks, n_pack: int, *, k_check: int, ch
     valid, first, lo, hi = unpack_keys(ks, n_pack)
     killed, cert, d2_e, w2 = edge_cascade(
         x, cd2k, knn_idx, knn_d2, lo, hi, valid,
-        k_check=k_check, chunk=chunk, block_e=block_e,
+        k_check=k_check, fma=fma, chunk=chunk, block_e=block_e,
     )
     surv = valid & first & ~killed
     surv_cert = surv & cert

@@ -1,19 +1,23 @@
-"""Public kNN wrapper with backend dispatch, the port of ``repro/kernels/ops.py``.
+"""Public kernel wrappers with backend dispatch, the port of
+``repro/kernels/ops.py``: the fit's kNN (``knn``), out-of-sample kNN
+(``query_knn``) and the exact lune scan (``lune_nonempty``).
 
-Backends: ``"cuda"`` and ``"torch"`` both call ``pairwise_topk``, which
-launches the CUDA kernel for tensors on the card and runs its plain
-version for tensors on the CPU; ``"ref"`` runs the full-matrix oracle.
-Every backend over-selects candidates and runs the same diff-form
-``_refine_knn``, so near-tie neighbour order is identical across backends.
+Backends: ``"cuda"`` and ``"torch"`` both call the kernel wrappers
+(``pairwise_topk``, ``lune_filter``), which launch the CUDA kernel for
+tensors on the card and run the plain version for tensors on the CPU;
+``"ref"`` runs the full-matrix oracles.  ``query_knn`` has no kernel: the
+reference computes it outside any Pallas kernel, and so does the port, in
+torch ops on either device.  Every kNN backend over-selects candidates and
+runs the same diff-form ``_refine_knn``, so near-tie neighbour order is
+identical across backends.
 
 Sums of squares come in two fixed orders, so that the port reproduces the
 reference's float32 bits and agrees with itself across devices:
 
   * ``sum_sq_seq`` — index order, one rounding per product and per add.
   * ``sum_sq_fma`` — index order with each add fused into the product, as
-    XLA compiles the reference's refine and canonical-weight programs.  The
-    fused step is computed in float64 (the product of two float32 values is
-    exact there) and rounded once to float32.
+    XLA compiles the reference's refine and canonical-weight programs, and
+    as ``fmaf`` computes it on the card (``fma_f32``).
 """
 
 from __future__ import annotations
@@ -34,12 +38,29 @@ def sum_sq_seq(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` over float32 tensors with one rounding, as ``fmaf``.
+
+    The product of two float32 values is exact in float64.  The float64 sum
+    is rounded to odd (a two-sum error term says whether it was inexact),
+    and a value rounded to odd with 53 bits rounds to the nearest float32
+    exactly as the unrounded sum would.
+    """
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, away), s).float()
+
+
 def sum_sq_fma(v: torch.Tensor) -> torch.Tensor:
     """Sum of squares over the last axis, in index order, each add fused."""
     acc = v[..., 0] * v[..., 0]
-    v64 = v.double()
     for j in range(1, v.shape[-1]):
-        acc = (acc.double() + v64[..., j] * v64[..., j]).float()
+        acc = fma_f32(v[..., j], v[..., j], acc)
     return acc
 
 
@@ -84,3 +105,110 @@ def knn(
     else:
         _, idx = pairwise_topk(x, k_eff, block_q=block_q, block_k=block_k)
     return _refine_knn(x, x, idx, k_top=k_top)
+
+
+def _query_knn_blocked(xq, x, *, k_top: int, block_q: int = 1024, block_k: int = 2048):
+    """Blocked cross-set kNN: rows of ``xq`` against all rows of ``x``.
+
+    A query-block loop with a streaming merge over key blocks, as the
+    reference's ``_query_knn_blocked``: matmul-form d2 clamped at 0 and a
+    stable sort over [running state, new tile], so among equal d2 the
+    lower index comes first.  No self-exclusion: queries are not fitted
+    points.  Returns (d2 ascending, int32 idx), each (q, k_top).
+    """
+    q, n = xq.shape[0], x.shape[0]
+    dev = x.device
+    xqf, xf = xq.float(), x.float()
+    qn, kn = (xqf * xqf).sum(-1), (xf * xf).sum(-1)
+    out_d, out_i = [], []
+    for q0 in range(0, q, block_q):
+        qb = xqf[q0 : q0 + block_q]
+        bq = qb.shape[0]
+        top_d = torch.full((bq, k_top), float("inf"), device=dev)
+        top_i = torch.full((bq, k_top), -1, dtype=torch.int32, device=dev)
+        for k0 in range(0, n, block_k):
+            kb = xf[k0 : k0 + block_k]
+            d2 = qn[q0 : q0 + bq, None] + kn[None, k0 : k0 + kb.shape[0]] - 2.0 * (qb @ kb.T)
+            d2 = torch.clamp_min(d2, 0.0)
+            col = torch.arange(k0, k0 + kb.shape[0], dtype=torch.int32, device=dev)
+            sd, order = torch.sort(torch.cat([top_d, d2], dim=1), dim=1, stable=True)
+            top_d = sd[:, :k_top]
+            top_i = torch.cat([top_i, col[None, :].expand(bq, -1)], dim=1).gather(1, order[:, :k_top])
+        out_d.append(top_d)
+        out_i.append(top_i)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
+def _query_knn_ref(xq, x, *, k_top: int):
+    """Exact cross-set kNN oracle: full (q, n) matrix + stable sort."""
+    d2s, idx = torch.sort(ref.pairwise_d2_ref(xq, x), dim=1, stable=True)
+    return d2s[:, :k_top], idx[:, :k_top].to(torch.int32)
+
+
+def query_knn(
+    xq: torch.Tensor,
+    x: torch.Tensor,
+    k_top: int,
+    *,
+    backend: str = "cuda",
+    block_q: int = 1024,
+    block_k: int = 2048,
+    refine_slack: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest *fitted* neighbours of each query row: (d2 ascending, idx).
+
+    The out-of-sample twin of ``knn``: queries in ``xq`` are ranked
+    against the fitted set ``x`` with no self-exclusion, and every backend
+    routes its over-selected candidates through the same ``_refine_knn``.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    n = x.shape[0]
+    if k_top > n:
+        raise ValueError(f"k_top={k_top} must be <= n={n} fitted points")
+    if xq.shape[0] == 0:
+        raise ValueError("query set is empty (callers handle q=0 upstream)")
+    k_eff = min(n, k_top + refine_slack)
+    if backend == "ref":
+        _, idx = _query_knn_ref(xq, x, k_top=k_eff)
+    else:
+        _, idx = _query_knn_blocked(xq, x, k_top=k_eff, block_q=block_q, block_k=block_k)
+    return _refine_knn(xq, x, idx, k_top=k_top)
+
+
+def _lune_ref_chunked(a_xyz, b_xyz, a_cd2, b_cd2, ea, eb, w2, points, cd2):
+    """The oracle over 4096 edges at a time, bounding the (m, n) matrices."""
+    parts = [
+        ref.lune_filter_ref(a_xyz[s], b_xyz[s], a_cd2[s], b_cd2[s], ea[s], eb[s], w2[s], points, cd2)
+        for s in (slice(c0, c0 + 4096) for c0 in range(0, ea.shape[0], 4096))
+    ]
+    return torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.bool, device=points.device)
+
+
+def lune_nonempty(
+    ea: torch.Tensor,
+    eb: torch.Tensor,
+    w2: torch.Tensor,
+    points: torch.Tensor,
+    cd2: torch.Tensor,
+    *,
+    backend: str = "cuda",
+    block_e: int = 256,
+    block_c: int = 512,
+) -> torch.Tensor:
+    """(m,) bool: True where lune(a, b) holds a point strictly inside.
+
+    Gathers the endpoints' coordinates and squared core distances from
+    ``points`` (n, d) and ``cd2`` (n,) itself.  The reference pads the edge
+    count to a power of two for XLA's program cache; the port compiles
+    nothing per shape and passes the edges as they are.
+    """
+    from .lune_filter import lune_filter  # lune_filter imports this module
+
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    ea_l, eb_l = ea.long(), eb.long()
+    args = (points[ea_l], points[eb_l], cd2[ea_l], cd2[eb_l], ea, eb, w2, points, cd2)
+    if backend == "ref":
+        return _lune_ref_chunked(*args)
+    return lune_filter(*args, block_e=block_e, block_c=block_c)

@@ -73,12 +73,35 @@ def test_plan_backends_and_later_slices():
     assert t_engine.resolve_plan(device="cpu", backend="ref").backend == "ref"
     with pytest.raises(ValueError, match="does not run on"):
         t_engine.resolve_plan(device="cpu", backend="cuda")
+    with pytest.raises(NotImplementedError, match="slice"):
+        t_engine.resolve_plan("mesh", device="cpu")
     plan = t_engine.resolve_plan(device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
-        plan.lune_nonempty(None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="slice"):
-        plan.query_knn(None, None, 3)
+        plan.knn(torch.zeros((plan.dualtree_min_n, 2)), 3)
+    # the exact lune scan and out-of-sample kNN are in: the plan runs both
+    x = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 0.0]])
+    e = torch.tensor([0], dtype=torch.int32)
+    assert plan.lune_nonempty(e, e + 1, torch.tensor([5.0]), x, torch.zeros(3)).tolist() == [True]
+    d2, idx = plan.query_knn(torch.tensor([[0.9, 0.0]]), x, 2)
+    assert idx.tolist() == [[1, 0]]
     with pytest.raises(NotImplementedError, match="dual-tree"):
         plan.knn(torch.zeros((25000, 2)), 3)
     with pytest.raises(NotImplementedError, match="slice"):
         t_engine.resolve_plan("mesh", device="cpu")
+
+
+def test_the_exact_and_prediction_modules_are_covered():
+    assert {"repro_torch.kernels.lune_filter", "repro_torch.core.predict", "repro_torch.core.dbcv"} <= set(MODULES)
+
+
+def test_exact_fit_and_loaded_model_need_a_card_unless_cpu_is_asked_for(monkeypatch, blobs, tmp_path):
+    x = blobs[0]
+    path = t_api.FittedModel.fit(x, kmax=4, variant="rng", device="cpu").save(str(tmp_path / "m.npz"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.MultiHDBSCAN(kmax=4, variant="rng").fit(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_api.FittedModel.load(path)
+    model = t_api.FittedModel.load(path, device="cpu")
+    labels, _ = model.approximate_predict(x[:5], mpts=4)
+    np.testing.assert_array_equal(labels, model.select(4).labels[:5])

@@ -137,6 +137,51 @@ def test_stage1_packed_matches_reference(blobs_candidates):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
 
 
+@pytest.mark.parametrize("d", [2, 8, 9, 16, 32])
+def test_cascade_sum_order_matches_the_reference_programs(d):
+    """``sum_order_fma`` picks, at each width, the order in which XLA sums
+    the reference's cascade squares: the fused programs (stage 1 in one
+    program, the jnp twin, the Pallas kernel in interpret mode) and the
+    slot path's eager ``edge_d2``.  The stage d2 and w2 are bit-equal.
+
+    The edge count is a multiple of 16, as the reference's power-of-two
+    buckets make it in a fit: XLA's vectorised loops leave a scalar
+    remainder for a ragged count, and that remainder fuses its adds."""
+    from repro.core import mrd as j_mrd
+
+    rng = np.random.default_rng(d)
+    n, m, k = 300, 2000, 4
+    x = (rng.normal(size=(n, d)) * 3).astype(np.float32)
+    lo = rng.integers(0, n - 1, m).astype(np.int32)
+    hi = (lo + rng.integers(1, n - lo)).astype(np.int32)
+    keys = np.unique(lo * n + hi).astype(np.int32)
+    keys = keys[: len(keys) // 16 * 16]
+    lo, hi = keys // n, keys % n
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    kd2 = np.sort(np.abs(rng.normal(size=(n, k))), axis=1).astype(np.float32)
+    cd2k = kd2[:, -1]
+    valid = np.ones(len(lo), bool)
+    J = jnp.asarray
+    fused = {
+        "stage1_packed": j_fc.stage1_packed(
+            J(x), J(cd2k), J(idx), J(kd2), J(keys), jnp.int32(n), k_check=2, chunk=65536
+        )[2],
+        "jnp twin": j_fc.edge_cascade(J(x), J(cd2k), J(idx), J(kd2), J(lo), J(hi), J(valid), k_check=k)[2],
+        "pallas_interpret": j_fc.edge_cascade(
+            J(x), J(cd2k), J(idx), J(kd2), J(lo), J(hi), J(valid), k_check=k, backend="pallas_interpret"
+        )[2],
+    }
+    t = torch.from_numpy
+    for is_fused, programs in ((True, fused), (False, {"slot edge_d2": j_mrd.edge_d2(J(x), J(lo), J(hi))})):
+        _, _, d2_t, w2_t = t_fc.edge_cascade(
+            t(x), t(cd2k), t(idx), t(kd2), t(lo), t(hi), t(valid), k_check=k,
+            fma=t_fc.sum_order_fma(d, fused=is_fused),
+        )
+        for name, d2_j in programs.items():
+            np.testing.assert_array_equal(d2_t.numpy(), np.asarray(d2_j), err_msg=name)
+        np.testing.assert_array_equal(w2_t.numpy(), np.maximum(cd2k[lo], np.maximum(cd2k[hi], d2_t.numpy())))
+
+
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
     """A tensor on any device but the CPU never reaches a plain version:
     a CUDA tensor launches the kernel, anything else raises."""
