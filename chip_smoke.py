@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3 and the kernel times
 
 Phases (any failure exits non-zero):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-     ``nvcc`` per source, all at once);
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the fit gives it: ``pairwise_topk`` at n = 16000 and a ragged
-     n = 1007 (d = 8 and d = 100), ``edge_cascade`` on the stage-1 and
-     stage-2 edges of the n = 16000 fit in both summation orders;
+     ``nvcc`` per source, all at once), with each template instance's
+     registers and spills (``-Xptxas -v``) and its resident blocks per SM;
+  3. each kernel against its plain PyTorch version on the card:
+     ``pairwise_topk`` at every templated width and a generic one
+     (d = 2, 4, 8, 16, 32, 100), at n = 16000 and a ragged n = 1007, with
+     K = 23, 72 and 128 (the kmax = 16, 64 and 120 lists), on exact ties
+     and with K = n - 1; ``lune_filter`` at the same widths and sizes, and
+     below 32 points, on edges whose lunes hold points and edges whose
+     lunes are empty, with duplicates, endpoint hits and padded edges;
+     ``edge_cascade`` on the stage-1 and stage-2 edges of the n = 16000
+     fit in both summation orders;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it, held against
      the port's own ``device="cpu"`` fit (graph edges, MST edge ids and
@@ -25,13 +32,19 @@ Phases (any failure exits non-zero):
      plain version on the fit's own unresolved edges and on a ragged
      n = 1007, d = 100 case; the exact variant on the card against its CPU
      run at n = 3000;
-  6. prediction: 4096 queries against the exact fit on the card, and the
+  6. the wide fit, ``MultiHDBSCAN(kmax=64)`` at n = 16000 on the card: its
+     MST weight multisets for mpts 2..16 equal the kmax = 16 fit's bit for
+     bit (the RNG^64 graph holds every smaller mpts' MST, and the canonical
+     weights do not depend on kmax), with its stage seconds;
+  7. prediction: 4096 queries against the exact fit on the card, and the
      same queries against its saved artifact loaded on the CPU (labels and
      attachment neighbours equal, probabilities and lambdas to rtol 1e-5,
      equal DBCV profiles), with the rate in queries per second;
-  7. warm per-stage seconds, each kernel's time beside its plain version,
-     a library yardstick and its bound, the count of implicit syncs in
-     one warm fit, the device's busy share of a fit and a host profile.
+  8. warm per-stage seconds, each kernel's time beside its plain version,
+     a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
+     ``lune_filter`` over its edges per block and its point tile), the
+     count of implicit syncs in one warm fit, the device's busy share of a
+     fit and a host profile.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -50,6 +63,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N, D, KMAX = 16000, 8, 16
+KMAX_WIDE = 64
+WIDTHS = (2, 4, 8, 16, 32, 100)   # the kernels' templated widths and a generic one
+K_LISTS = (23, 72, 128)           # top-K lengths of kmax = 16, 64 and 120
 N_RAGGED = 1007
 N_DENSE = 2000
 N_EXACT_CPU = 3000
@@ -98,9 +114,11 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_pairwise_topk(x, k_eff: int, k_top: int) -> dict:
-    """Kernel vs plain at one shape: refined indices equal, raw d2 within
-    1e-5 * (|q|^2 + |k|^2)."""
+def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
+    """Kernel vs plain at one shape: raw d2 within 1e-5 * (|q|^2 + |k|^2)
+    and, as both run the same float32 arithmetic, the raw lists (d2 and
+    indices) bit-equal; refined indices equal.  Returns the largest raw d2
+    difference."""
     import torch
     from repro_torch.kernels import ops, pairwise_topk as pt
 
@@ -115,11 +133,14 @@ def check_pairwise_topk(x, k_eff: int, k_top: int) -> dict:
     xn = (x * x).sum(1)
     tol = RTOL * (xn[:, None] + xn[i_k.long()])
     err = (d_k - d_p).abs()
-    check(bool((err <= tol).all()), f"pairwise_topk raw d2 off by up to {float(err.max())} at n={n}")
+    what = f"n={n}, d={x.shape[1]}, K={k_eff}"
+    check(bool((err <= tol).all()), f"pairwise_topk raw d2 off by up to {float(err.max())} at {what}")
+    n_rows = int(((d_k != d_p) | (i_k != i_p)).any(1).sum())
+    check(n_rows == 0, f"pairwise_topk raw lists differ from the plain version's in {n_rows} rows at {what}")
     _, r_k = ops._refine_knn(x, x, i_k, k_top=k_top)
     _, r_p = ops._refine_knn(x, x, i_p, k_top=k_top)
-    check(bool((r_k == r_p).all()), f"pairwise_topk refined indices differ at n={n}")
-    return {"max_abs_err": float(err.max())}
+    check(bool((r_k == r_p).all()), f"pairwise_topk refined indices differ at {what}")
+    return float(err.max())
 
 
 def make_queries(x_np, n_q: int, seed: int):
@@ -151,20 +172,21 @@ def check_lune_filter(args, what: str, *, block_e: int, block_c: int):
     return out_k
 
 
-def ragged_lune_case(dev):
-    """n = 1007, d = 100: clustered points with exact duplicates, edges to
-    near and far points at their mrd, edges weighted above their own mrd
-    (an endpoint would lie inside if it counted), edges between a point and
-    its duplicate, and padded edges (w2 = -inf)."""
+def lune_case(n: int, d: int, dev):
+    """n points in d dimensions, clustered, with exact duplicates, and
+    4000 edges: to near and far points at their mrd, weighted above their
+    own mrd (an endpoint would lie inside if it counted), between a point
+    and its duplicate, and padded (w2 = -inf).  Core distances are the
+    7th-neighbour d2 of the plain top-K, on ``dev``."""
     import numpy as np
     import torch
+    from repro_torch.kernels import pairwise_topk as pt
 
-    rng = np.random.default_rng(SEED + 4)
-    n, d = N_RAGGED, 100
+    rng = np.random.default_rng(SEED + 4 + d)
     centers = rng.uniform(-3.0, 3.0, size=(6, d))
     x = centers[rng.integers(0, 6, n - 100)] + rng.normal(0.0, 0.5, size=(n - 100, d))
     x = np.concatenate([x, x[:100]]).astype(np.float32)
-    cd2 = np.sort(((x[:, None, :] - x[None, :, :]) ** 2).sum(-1), axis=1)[:, 7].astype(np.float32)
+    cd2 = pt.pairwise_topk_plain(torch.from_numpy(x).to(dev), 7)[0][:, -1].cpu().numpy()
     m = 4000
     ea = rng.integers(0, n, m).astype(np.int32)
     eb = np.where(rng.random(m) < 0.5, (ea + rng.integers(1, 30, m)) % n, rng.integers(0, n, m)).astype(np.int32)
@@ -174,6 +196,127 @@ def ragged_lune_case(dev):
     w2[::29] = -np.inf
     t = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
     return lune_args(t(ea), t(eb), t(w2), t(x), t(cd2))
+
+
+def check_lune_cases(dev, block_e: int, block_c: int) -> dict:
+    """``lune_filter`` kernel vs plain (verdict bits equal) at every width
+    of ``WIDTHS``, at n = 16000 and the ragged n = 1007; each case has both
+    verdicts, and padded edges are never removed.  Returns the cases."""
+    import torch
+
+    cases = {}
+    for d in WIDTHS:
+        for n in (N, N_RAGGED):
+            args = cases[(n, d)] = lune_case(n, d, dev)
+            out = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
+            w2 = args[6]
+            check(bool(out.any()) and not bool(out[torch.isfinite(w2)].all()),
+                  f"the lune case n={n}, d={d} has both verdicts")
+            check(not bool(out[torch.isneginf(w2)].any()), "padded edges (w2 = -inf) are never removed")
+    # fewer points than a warp's lanes, at a generic width and at d = 1
+    for n, d in ((20, 3), (24, 1)):
+        args = small_lune_case(n, d, dev)
+        out = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
+        check(not bool(out[torch.isneginf(args[6])].any()), "padded edges (w2 = -inf) are never removed")
+    print(f"lune_filter: kernel == plain (verdict bits) at d={list(WIDTHS)}, n={N} and n={N_RAGGED} "
+          f"({len(cases)} cases of 4000 edges), and at n=20, d=3 and n=24, d=1", flush=True)
+    return cases
+
+
+def small_lune_case(n: int, d: int, dev):
+    """n < 32 points, half of them duplicates of the other half, and 64
+    edges weighted at or above their mrd, every 7th padded (w2 = -inf)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pairwise_topk as pt
+
+    rng = np.random.default_rng(SEED + 8 + d)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[n // 2 :] = x[: n - n // 2]
+    cd2 = pt.pairwise_topk_plain(torch.from_numpy(x), 3)[0][:, -1].numpy()
+    ea = rng.integers(0, n, 64).astype(np.int32)
+    eb = ((ea + rng.integers(1, n, 64)) % n).astype(np.int32)
+    w2 = np.maximum(((x[ea] - x[eb]) ** 2).sum(-1), np.maximum(cd2[ea], cd2[eb]))
+    w2 = (w2 * rng.choice([1.0, 4.0], 64)).astype(np.float32)
+    w2[::7] = -np.inf
+    t = lambda v: torch.from_numpy(v).to(dev)  # noqa: E731
+    return lune_args(t(ea), t(eb), t(w2), t(x), t(cd2))
+
+
+def check_topk_cases(dev, x) -> dict:
+    """``pairwise_topk`` kernel vs plain at every width of ``WIDTHS``, at
+    n = 16000 and the ragged n = 1007, for every K of ``K_LISTS``.  The
+    d = 8 points are the fit's own ``x``.  Returns the largest raw d2
+    difference per case."""
+    import numpy as np
+    import torch
+
+    errs = {}
+    for d in WIDTHS:
+        xd = x if d == D else torch.from_numpy(make_points(N, d, SEED + d)).to(dev)
+        for n in (N, N_RAGGED):
+            for k_eff in K_LISTS:
+                errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xd[:n], k_eff, k_eff - 8)
+    # exact ties (each point 8 times) at every K, and lists as long as the
+    # row (K = n - 1) at a generic width and at d = 1
+    rng = np.random.default_rng(SEED + 7)
+    t = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)  # noqa: E731
+    x_dup = t(np.repeat(rng.normal(size=(40, 2)), 8, axis=0))
+    for xs, k_eff in [(x_dup, k) for k in K_LISTS] + [(t(rng.normal(size=(20, 3))), 19),
+                                                      (t(rng.normal(size=(40, 1))), 39)]:
+        n, d = xs.shape
+        errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xs, k_eff, max(1, k_eff - 8))
+    print(f"pairwise_topk: kernel == plain (raw lists bit-equal, refined indices equal) at d={list(WIDTHS)}, "
+          f"n={N} and n={N_RAGGED}, K={list(K_LISTS)}; and with exact ties (n=320) and K = n - 1 "
+          f"(n=20, d=3; n=40, d=1)", flush=True)
+    return errs
+
+
+def kernel_resources(record: dict) -> None:
+    """Registers and spills of every kernel instance (nvcc -Xptxas -v) and
+    the resident blocks per SM of the ``pairwise_topk`` and ``lune_filter``
+    instances at their launch configurations."""
+    import re
+
+    from repro_torch.kernels import _build, lune_filter as lf, pairwise_topk as pt
+
+    usage = []
+    for log in _build.LOGS.values():
+        for u in _build.ptxas_usage(log):
+            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                          u["function"])
+            u["kernel"] = m.group(1) if m else u["function"]
+            u["d"] = (int(m.group(2)) or "generic") if m and m.group(2) else None
+            u["slots"] = int(m.group(3)) if m and m.group(3) else None
+            usage.append(u)
+    for u in usage:
+        if u["kernel"] == "pairwise_topk_kernel":
+            d = 100 if u["d"] == "generic" else u["d"]
+            u.update(pt.kernel_config(N, d, 32 * u["slots"]))
+        elif u["kernel"] == "lune_filter_kernel":
+            d = 100 if u["d"] == "generic" else u["d"]
+            u.update(lf.kernel_config(d, 8, 512))
+    record["kernel_resources"] = usage
+    for u in usage:
+        print("  " + json.dumps({k: v for k, v in u.items() if k != "function"}), flush=True)
+
+
+def topk_times(x) -> dict:
+    """``pairwise_topk`` milliseconds on ``x`` at K = 1 (the distance sweep
+    with a few merges a row) and at every K of ``K_LISTS``."""
+    from repro_torch.kernels import pairwise_topk as pt
+
+    return {k_eff: cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5) for k_eff in (1, *K_LISTS)}
+
+
+def lune_sweep(args, block_e: int, block_c: int) -> tuple[dict, dict]:
+    """``lune_filter`` milliseconds on ``args`` by edges per block (at
+    ``block_c``) and by points per tile (at ``block_e``)."""
+    from repro_torch.kernels import lune_filter as lf
+
+    by_e = {be: cuda_ms(lambda: lf.lune_filter(*args, block_e=be, block_c=block_c), 10) for be in (2, 4, 8, 16, 32)}
+    by_c = {bc: cuda_ms(lambda: lf.lune_filter(*args, block_e=block_e, block_c=bc), 10) for bc in (128, 256, 512, 1024)}
+    return by_e, by_c
 
 
 def stage_inputs(x, plan):
@@ -285,9 +428,10 @@ def where_the_time_goes(fit, record: dict) -> None:
         f"{r['fn']} {r['cum_s']:.2f}" for r in record["host_profile"][:14]), flush=True)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
+    kernels_only = "--kernels-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -317,6 +461,9 @@ def main() -> int:
     per_kernel = _build.build_all()
     record["build_s"] = time.monotonic() - t0
     print(f"build: {record['build_s']:.1f} s wall, per source {per_kernel}", flush=True)
+    print("kernel instances (registers a thread, spills, resident blocks per SM at n=16000 or the "
+          "default tiles; generic d read at d=100):", flush=True)
+    kernel_resources(record)
 
     # -- 3. kernels against their plain versions -----------------------------
     dev = torch.device("cuda")
@@ -324,11 +471,17 @@ def main() -> int:
     x = torch.from_numpy(x_np).to(dev)
     plan = engine.resolve_plan(device="cuda")
     k_eff = min(N - 1, KMAX - 1 + plan.knn_refine_slack)
-    topk = check_pairwise_topk(x, k_eff, KMAX - 1)
-    check_pairwise_topk(x[:N_RAGGED].contiguous(), k_eff, KMAX - 1)
-    # d = 100: the query tile outgrows the 48 KB default of shared memory
-    check_pairwise_topk(torch.from_numpy(make_points(N_RAGGED, 100, SEED + 2)).to(dev), k_eff, KMAX - 1)
-    print(f"pairwise_topk: kernel == plain at n={N} and n={N_RAGGED} (d={D}, d=100; K={k_eff})", flush=True)
+    topk_errs = check_topk_cases(dev, x)
+    record["pairwise_topk_max_abs_err"] = topk_errs
+    lune_cases = check_lune_cases(dev, plan.lune_block_e, plan.lune_block_c)
+    if kernels_only:
+        record["pairwise_topk_ms_by_k"] = topk_times(x)
+        record["lune_filter_ms_by_block_e"], record["lune_filter_ms_by_block_c"] = lune_sweep(
+            lune_cases[(N, D)], plan.lune_block_e, plan.lune_block_c)
+        print(f"kernel times on {smi} (pairwise_topk at n={N}, d={D} by K; lune_filter on the n={N}, "
+              f"d={D} case): " + json.dumps({k: record[k] for k in (
+                  "pairwise_topk_ms_by_k", "lune_filter_ms_by_block_e", "lune_filter_ms_by_block_c")}), flush=True)
+        return 0
 
     base, stages = stage_inputs(x, plan)
     fma_main = fc.sum_order_fma(D, fused=True)
@@ -348,16 +501,6 @@ def main() -> int:
                 casc_err = max(casc_err, float((a - b).abs().max()) if a.numel() else 0.0)
             print(f"edge_cascade: kernel == plain (bit for bit) on {lo.shape[0]} edges at {what} "
                   f"({int(out_k[0].sum())} killed, {int(out_k[1].sum())} certified)", flush=True)
-
-    ragged = ragged_lune_case(dev)
-    out_r = check_lune_filter(ragged, f"ragged n={N_RAGGED}, d=100", block_e=plan.lune_block_e,
-                              block_c=plan.lune_block_c)
-    w2_r = ragged[6]
-    check(bool(out_r.any()) and not bool(out_r[torch.isfinite(w2_r)].all()),
-          "the ragged lune case has both verdicts")
-    check(not bool(out_r[torch.isneginf(w2_r)].any()), "padded edges (w2 = -inf) are never removed")
-    print(f"lune_filter: kernel == plain on the ragged case (n={N_RAGGED}, d=100, {w2_r.shape[0]} edges, "
-          f"{int(out_r.sum())} with a point inside)", flush=True)
 
     # -- 4. the main path ----------------------------------------------------
     pt.pairwise_topk.launches = 0
@@ -476,7 +619,31 @@ def main() -> int:
     record["exact_stages_s"] = stages_x
     print(f"exact fit, warm stages (s) on {smi}: " + json.dumps(stages_x), flush=True)
 
-    # -- 6. prediction ---------------------------------------------------------
+    # -- 6. the wide fit -------------------------------------------------------
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    t0 = time.monotonic()
+    est_wide = MultiHDBSCAN(kmax=KMAX_WIDE).fit(x_np)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches_w = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches}
+    t0 = time.monotonic()
+    views_w = est_wide.select_all()
+    stages_w = {k: est_wide.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    stages_w["hierarchy"] = time.monotonic() - t0
+    record["wide_fit"] = {"kmax": KMAX_WIDE, "n": N, "fit_s": fit_s, "stages_s": stages_w,
+                          "graph": est_wide.graph_.stats, "launches": launches_w}
+    check(launches_w["pairwise_topk"] >= 1 and launches_w["edge_cascade"] >= 2,
+          "the kmax=64 fit launched pairwise_topk and edge_cascade")
+    check(len(views_w) == KMAX_WIDE - 1 and all(v.labels.shape == (N,) for v in views_w), "kmax=64 labels")
+    for mpts in est.mpts_values_:
+        w_16, w_64 = est.mst_for(mpts)[2], est_wide.mst_for(mpts)[2]
+        check(np.array_equal(np.sort(w_16), np.sort(w_64)),
+              f"the kmax={KMAX_WIDE} fit keeps the kmax={KMAX} fit's MST weight multiset bit for bit at mpts={mpts}")
+    print(f"wide fit: kmax={KMAX_WIDE} at n={N} on the card in {fit_s:.2f} s (one run, process warm), "
+          f"launches {launches_w}, graph {est_wide.graph_.stats}; MST weight multisets == the kmax={KMAX} "
+          f"fit's for mpts 2..{KMAX}; stages (s) on {smi}: " + json.dumps(stages_w), flush=True)
+
+    # -- 7. prediction ---------------------------------------------------------
     q = make_queries(x_np, N_QUERIES, SEED + 6)
     pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
     res_g = est_x.approximate_predict(q)
@@ -512,7 +679,7 @@ def main() -> int:
           f"query kNN {record['predict_query_knn_ms']:.3f} ms a batch), "
           f"{record['predict_qps_cpu']:.0f} queries/s on the host CPU (warm); launches {launches_p}", flush=True)
 
-    # -- 7. timings ----------------------------------------------------------
+    # -- 8. timings ----------------------------------------------------------
     est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     t0 = time.monotonic()
     est_w.select_all()
@@ -534,7 +701,8 @@ def main() -> int:
     where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record)
 
     kernels = []
-    ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+    by_k = record["pairwise_topk_ms_by_k"] = topk_times(x)
+    ms = by_k[k_eff]
     plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 3)
 
     def library_topk():
@@ -545,11 +713,13 @@ def main() -> int:
 
     library_ms = cuda_ms(library_topk, 3)
     b_ms, b_by = bound(N * N * (2 * D + 3), 4 * N * D + 8 * N * k_eff)
+    print(f"pairwise_topk at n={N}, d={D} on {smi}: {ms:.4f} ms at K={k_eff} (bound {b_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms); by K {json.dumps(by_k)}", flush=True)
     kernels.append({
         "name": "pairwise_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
         "replaces": "src/repro/kernels/pairwise_topk.py:37",
-        "launches": launches["pairwise_topk"], "max_abs_err": topk["max_abs_err"],
+        "launches": launches["pairwise_topk"], "max_abs_err": topk_errs[f"n={N},d={D},K={k_eff}"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     })
 
@@ -581,12 +751,11 @@ def main() -> int:
     l_ms = cuda_ms(lambda: lf.lune_filter(*lune_main, **lune_kw), 10)
     l_plain = cuda_ms(lambda: lf.lune_filter_plain(*lune_main), 3)
     l_bound, l_by = bound(*lune_flops_bytes(N, D, m_unres, m_removed))
-    sweep = {be: cuda_ms(lambda: lf.lune_filter(*lune_main, block_e=be, block_c=lune_kw["block_c"]), 10)
-             for be in (32, 64, 128, 256)}
-    record["lune_filter_block_e_ms"] = sweep
+    by_e, by_c = lune_sweep(lune_main, **lune_kw)
+    record["lune_filter_block_e_ms"], record["lune_filter_block_c_ms"] = by_e, by_c
     print(f"lune_filter on {m_unres} edges x {N} points, {smi}: {l_ms:.4f} ms (bound {l_bound:.4f} ms, "
-          f"plain {l_plain:.3f} ms);"
-          f" by edges per block {json.dumps(sweep)}", flush=True)
+          f"plain {l_plain:.3f} ms); by edges per block {json.dumps(by_e)}, by points per tile "
+          f"{json.dumps(by_c)}", flush=True)
     kernels.append({
         "name": "lune_filter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lune_filter.cu",
@@ -609,4 +778,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

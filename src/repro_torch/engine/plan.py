@@ -37,8 +37,9 @@ class Plan:
       * ``cascade_block_e`` — threads per block of the ``edge_cascade``
         kernel; ``cascade_chunk`` — edges per chunk of its plain version.
       * ``lune_block_e`` / ``lune_block_c`` — the ``lune_filter`` kernel's
-        edges per block and points per shared-memory tile (upper bounds:
-        the kernel shrinks both until the tiles fit for the data's d).
+        edges per block (one warp each, 1 to 32) and points per
+        shared-memory tile (an upper bound: the kernel shrinks the tile
+        until it fits for the data's d).
     """
 
     backend: str
@@ -46,7 +47,7 @@ class Plan:
     knn_block_q: int = 1024
     knn_block_k: int = 2048
     knn_refine_slack: int = 8
-    lune_block_e: int = 256
+    lune_block_e: int = 8
     lune_block_c: int = 512
     filter_chunk: int = 16384
     sbcn_tile_elems: int = 1 << 22

@@ -6,6 +6,8 @@ at the root of the checkout, where ``<hash>`` covers the source and the
 flags: a changed source builds anew, an unchanged one loads the library
 already there.  ``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing is built when a module is imported; the first launch builds.
+``-Xptxas -v`` makes nvcc report each kernel instance's registers, spills
+and shared memory; ``LOGS`` keeps that output (``ptxas_usage`` parses it).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 KERNEL_SOURCES = ("pairwise_topk", "edge_cascade", "lune_filter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+LOGS: dict[str, str] = {}  # nvcc's output per source built by this process
 _LOCK = threading.Lock()
 
 
@@ -71,6 +75,7 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         times[name] = time.monotonic() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
@@ -78,6 +83,27 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Per kernel instance in an ``nvcc -Xptxas -v`` log: its mangled name,
+    registers a thread, and bytes of spill stores and loads."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": m.group(1), "registers": None, "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,135 +9,322 @@
 // as the reference's stable streaming merge orders them (its running state
 // sits before each new key tile, and tiles arrive in ascending index).
 //
-// What bounds it on the H100: operations.  The distance sweep is n^2 * d FMAs
-// (n = 16000, d = 8: 2.05e9) on the float32 pipes, 67 TFLOP/s at most; the
-// bytes are n * d * 4 in and n * K * 8 out, negligible beside that.  The top-K
-// adds one compare per (row, key) and a K-long compare-swap per accepted key.
+// What bounds it on the H100: operations.  The distance sweep is n^2 (2d + 3)
+// float32 operations (n = 16000, d = 8: 4.9e9) on the FMA pipes, 67 TFLOP/s
+// at most; the bytes are n * d * 4 in and n * K * 8 out, negligible beside
+// that.  The top-K adds one compare per (row, key) and, per accepted key, a
+// merge step; after the list fills, a key is accepted with probability about
+// K / (keys seen), so a row accepts about K ln(n / K) keys of its n.
 //
-// Design: one thread per query row, BQ = 128 rows per block.  The query tile
-// (up to 200 KB of dynamic shared memory, so d <= 256) and key tiles of up to
-// 128 rows are staged through shared memory with coalesced loads, so each key
-// is read from device memory once per block and broadcast to every thread.
+// Design: a warp owns R query rows (R = 4 for d <= 8, 2 for d = 16, else 1),
+// held in registers for the fixed widths d in {2, 4, 8, 16, 32} (a template
+// per width, so the dot products unroll) and in shared memory otherwise
+// (d <= 256).  The block's 8 warps share each key tile: one thread stages one
+// key row and its norm into shared memory, transposed in float4 (float2 at
+// d = 2) chunks, (d / 4, tile, 4), so lane l reads key l of a 32-key round
+// with 16-byte loads and no bank conflicts.  Each lane computes d2 for its
+// key against the warp's R rows (independent FMA chains) and compares it with
+// the d2 of each row's K-th entry, a warp-uniform register; only the rounds
+// at the end of the keys, over the warp's own rows (self) or in the last
+// block run the masks, the others a copy without them.  A ballot collects a
+// round's candidates and the warp merges them one at a time into the row's
+// sorted list, then reads the new K-th entry once: a key that an earlier
+// merge of the round pushed past the threshold, or a tie on d2 that loses on
+// the index, only moves entries beyond K.  An entry is one 64-bit key, d2's
+// float bits above the index, whose unsigned order is the strict (d2, idx)
+// order, so the result does not depend on the order in which keys merge.
+// The list is spread over the lanes: entry p sits in lane p / S, slot p % S,
+// with S <= 4 slots, so K <= 128; a merge moves entry p - 1 to p where the
+// new key orders before it, register moves within a lane and one shuffle-up
+// between lanes, whatever S.  A warp owns its rows, so there are no atomics
+// and no second pass.
+//
+// Arithmetic per pair, as the first version of this kernel: |q|^2, |k|^2 and
+// q.k as fmaf chains in index order from 0, then fmaxf(qn + kn - 2 dot, 0).
 // Products are plain float32 FFMA: no tensor cores, hence no TF32, which the
-// downstream tie tolerances do not allow for.  Each thread keeps its sorted
-// (d2, idx) list of K <= 32 entries in registers: the insertion is a fully
-// unrolled compare-swap pass, so every list index is a compile-time constant.
-// The grid is only ceil(n / 128) blocks, a few warps per SM at n = 16000, so
-// the sweep is latency-bound; splitting the key range over more blocks (with
-// a merge pass), wgmma, TMA and a warp-cooperative top-K are later work.
+// downstream tie tolerances do not allow for (and at d = 8 a depth-8 product
+// gains nothing from wgmma).
 
 #include <cuda_runtime.h>
+#include <cfloat>
+#include <type_traits>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int BQ = 128;
-constexpr int KMAX = 32;
-constexpr int KEY_TILE = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int KMAX = 128;                // 4 slots of 32 lanes
+constexpr int KEY_TILE = 1024;           // keys staged per tile at most
 constexpr int SMEM_DEFAULT = 48 * 1024;  // above this, dynamic smem needs an opt-in
-constexpr int SMEM_MAX = 200 * 1024;     // of the 227 KB a block may have
+constexpr int SMEM_BUDGET = 96 * 1024;   // two blocks per SM
 
-__global__ void __launch_bounds__(BQ) pairwise_topk_kernel(
-    const float* __restrict__ x, int n, int d, int k, int kt,
-    float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* qs = smem;            // (d, BQ): query tile, transposed (conflict-free)
-  float* ks = qs + d * BQ;     // (kt, d): key tile
-  float* kn = ks + kt * d;     // (kt,):   key norms
+template <int D>
+__host__ __device__ constexpr int vec_width() { return D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1); }
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BQ;
-  const int row = row0 + tid;
+template <int D>
+__host__ __device__ constexpr int rows_per_warp() { return D == 0 || D >= 32 ? 1 : (D >= 16 ? 2 : 4); }
 
-  for (int e = tid; e < BQ * d; e += BQ) {
-    const int r = e / d, j = e - r * d;
-    qs[j * BQ + r] = (row0 + r < n) ? x[(size_t)(row0 + r) * d + j] : 0.f;
-  }
-  __syncthreads();
-  float qn = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float v = qs[j * BQ + tid];
-    qn = fmaf(v, v, qn);
-  }
-
-  float bd[KMAX];
-  int bi[KMAX];
+// Merge key c into the warp's sorted list (entry p in lane p / S, slot
+// p % S).  A key is d2's float bits above the index (d2 is +0 or more and
+// finite, so its bits order as an unsigned integer); ~0 is the empty entry.  Entry p keeps its key where that orders before c, takes c where
+// entry p - 1 does (or p = 0), else takes entry p - 1: within a lane a move
+// between registers, across lanes one shuffle-up of the last slot.  A key
+// that orders after entry K - 1 only moves entries past K, or none.
+template <int S>
+__device__ __forceinline__ void merge(unsigned long long (&e)[S], unsigned long long c, int lane) {
+  unsigned long long prev = __shfl_up_sync(FULL, e[S - 1], 1);
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    bd[j] = CUDART_INF_F;
-    bi[j] = -1;
+  for (int s = 0; s < S; ++s) {
+    const unsigned long long cur = e[s];
+    if (!(cur < c)) e[s] = prev < c || (s == 0 && lane == 0) ? c : prev;
+    prev = cur;
   }
-  float worst = CUDART_INF_F;
+}
+
+// Stage key row `r` of the tile: coordinates into shared memory, transposed
+// in chunks of V floats, and |k|^2 as an fmaf chain in index order.
+template <int D>
+__device__ __forceinline__ void stage_key(const float* __restrict__ src, int r, int kt, int d,
+                                          float* sk, float* skn) {
+  float s = 0.f;
+  if constexpr (D > 0) {
+    constexpr int V = vec_width<D>();
+    float v[D];
+#pragma unroll
+    for (int c = 0; c < D / V; ++c) {
+      if constexpr (V == 4) {
+        const float4 t = reinterpret_cast<const float4*>(src)[c];
+        v[4 * c] = t.x, v[4 * c + 1] = t.y, v[4 * c + 2] = t.z, v[4 * c + 3] = t.w;
+        reinterpret_cast<float4*>(sk)[c * kt + r] = t;
+      } else {
+        const float2 t = reinterpret_cast<const float2*>(src)[c];
+        v[2 * c] = t.x, v[2 * c + 1] = t.y;
+        reinterpret_cast<float2*>(sk)[c * kt + r] = t;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) s = fmaf(v[j], v[j], s);
+  } else {
+    for (int j = 0; j < d; ++j) {
+      const float v = src[j];
+      sk[j * kt + r] = v;
+      s = fmaf(v, v, s);
+    }
+  }
+  skn[r] = s;
+}
+
+template <int D, int S>
+__global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
+    const float* __restrict__ x, int n, int d_rt, int k, int kt,
+    float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int R = rows_per_warp<D>();
+  constexpr int V = vec_width<D>();
+  constexpr int DR = D > 0 ? D : 1;  // register extent of a row
+  const int d = D > 0 ? D : d_rt;
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;           // (d / V, kt, V): key tile
+  float* skn = sk + kt * d;   // (kt,): key norms
+  float* sq = skn + kt;       // (WARPS, d): the warp's query row (generic d only)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = (blockIdx.x * WARPS + warp) * R;
+
+  float q[R][DR];
+  float qn[R];
+  int row[R];
+  bool live[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = row0 + r;
+    live[r] = row[r] < n;
+    qn[r] = 0.f;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) q[r][j] = live[r] ? x[(size_t)row[r] * D + j] : 0.f;
+#pragma unroll
+      for (int j = 0; j < D; ++j) qn[r] = fmaf(q[r][j], q[r][j], qn[r]);
+    }
+  }
+  if constexpr (D == 0) {
+    float* qs = sq + warp * d;
+    for (int j = lane; j < d; j += 32) qs[j] = live[0] ? x[(size_t)row[0] * d + j] : 0.f;
+    __syncwarp();
+    for (int j = 0; j < d; ++j) qn[0] = fmaf(qs[j], qs[j], qn[0]);
+  }
+
+  // the rows' lists, and the d2 of each row's K-th entry (FLT_MAX while
+  // the list has room: a key with d2 = +inf never enters)
+  unsigned long long e[R][S];
+  float wd[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) e[r][s] = ~0ull;
+    wd[r] = FLT_MAX;
+  }
+  const int klane = (k - 1) / S, kslot = (k - 1) % S;
 
   for (int k0 = 0; k0 < n; k0 += kt) {
     const int rows = min(kt, n - k0);
     __syncthreads();  // the previous key tile is consumed
-    for (int e = tid; e < rows * d; e += BQ) ks[e] = x[(size_t)k0 * d + e];
+    for (int r = tid; r < rows; r += THREADS) stage_key<D>(x + (size_t)(k0 + r) * d, r, kt, d, sk, skn);
     __syncthreads();
-    for (int r = tid; r < rows; r += BQ) {
-      float s = 0.f;
-      for (int j = 0; j < d; ++j) s = fmaf(ks[r * d + j], ks[r * d + j], s);
-      kn[r] = s;
-    }
-    __syncthreads();
-    if (row >= n) continue;
-    for (int r = 0; r < rows; ++r) {
-      float dot = 0.f;
-      for (int j = 0; j < d; ++j) dot = fmaf(qs[j * BQ + tid], ks[r * d + j], dot);
-      float d2 = fmaxf(qn + kn[r] - 2.f * dot, 0.f);
-      const int col = k0 + r;
-      if (col == row) d2 = CUDART_INF_F;
-      if (!(d2 < worst)) continue;
-      // insert (d2, col): carry it down the sorted list, swapping wherever
-      // it orders before the entry; the last entry falls off
-      float cd = d2;
-      int ci = col;
+    // One 32-key round: lane l takes key b + l against the warp's R rows.
+    // Only a round at the end of the keys, over the warp's own rows or in
+    // the last block needs the masks; the others run a copy without them.
+    auto sweep_round = [&](const int b, auto masked) {
+      constexpr bool MASKED = decltype(masked)::value;
+      const int kr = b + lane;  // < kt: kt is a multiple of 32
+      const int c0 = k0 + b;
+      float kc[DR];
+      if constexpr (D > 0) {
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < k) {
-          const bool lt = cd < bd[j] || (cd == bd[j] && ci < bi[j]);
-          if (lt) {
-            const float td = bd[j];
-            const int ti = bi[j];
-            bd[j] = cd;
-            bi[j] = ci;
-            cd = td;
-            ci = ti;
+        for (int c = 0; c < D / V; ++c) {
+          if constexpr (V == 4) {
+            const float4 t = reinterpret_cast<const float4*>(sk)[c * kt + kr];
+            kc[4 * c] = t.x, kc[4 * c + 1] = t.y, kc[4 * c + 2] = t.z, kc[4 * c + 3] = t.w;
+          } else {
+            const float2 t = reinterpret_cast<const float2*>(sk)[c * kt + kr];
+            kc[2 * c] = t.x, kc[2 * c + 1] = t.y;
           }
-          if (j == k - 1) worst = bd[j];
         }
       }
+      const float kn = skn[kr];
+      // the R rows' distances first (independent FMA chains), then their
+      // candidates: keys whose d2 is at most the row's K-th d2.  A tie on
+      // d2 that loses on the index is merged too and only moves entries
+      // past K.
+      float d2[R];
+      bool cand[R];
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float dot = 0.f;
+        if constexpr (D > 0) {
+#pragma unroll
+          for (int j = 0; j < D; ++j) dot = fmaf(q[r][j], kc[j], dot);
+        } else {
+          const float* qs = sq + warp * d;
+          for (int j = 0; j < d; ++j) dot = fmaf(qs[j], sk[j * kt + kr], dot);
+        }
+        d2[r] = fmaxf(qn[r] + kn - 2.f * dot, 0.f);
+        cand[r] = d2[r] <= wd[r];
+        if constexpr (MASKED) cand[r] = cand[r] && live[r] && kr < rows && c0 + lane != row[r];
+        any |= cand[r];
+      }
+      if (!__any_sync(FULL, any)) return;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        unsigned m = __ballot_sync(FULL, cand[r]);
+        if (m == 0u) continue;
+        // merge every candidate of the round, then move the threshold: one
+        // that a merge in this round would have rejected only moves
+        // entries past K.  A candidate's key is (its d2's bits, its column).
+        do {
+          const int src = __ffs(m) - 1;
+          m &= m - 1;
+          const unsigned hi = __shfl_sync(FULL, __float_as_uint(d2[r]), src);
+          merge<S>(e[r], (unsigned long long)hi << 32 | (unsigned)(c0 + src), lane);
+        } while (m != 0u);
+        unsigned long long v = e[r][0];
+#pragma unroll
+        for (int s = 1; s < S; ++s) v = s == kslot ? e[r][s] : v;
+        v = __shfl_sync(FULL, v, klane);
+        wd[r] = v == ~0ull ? FLT_MAX : __uint_as_float((unsigned)(v >> 32));
+      }
+    };
+    for (int b = 0; b < rows; b += 32) {
+      const int c0 = k0 + b;
+      // a vote, so that the compiler sees a warp-uniform branch
+      if (__all_sync(FULL, b + 32 <= rows && row0 + R <= n && (row0 + R <= c0 || row0 >= c0 + 32)))
+        sweep_round(b, std::false_type{});
+      else
+        sweep_round(b, std::true_type{});
     }
   }
-  if (row < n) {
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
-        out_d[(size_t)row * k + j] = bd[j];
-        out_i[(size_t)row * k + j] = bi[j];
+  for (int r = 0; r < R; ++r) {
+    if (!live[r]) continue;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int p = lane * S + s;
+      if (p < k) {
+        const unsigned long long v = e[r][s];
+        out_d[(size_t)row[r] * k + p] = v == ~0ull ? CUDART_INF_F : __uint_as_float((unsigned)(v >> 32));
+        out_i[(size_t)row[r] * k + p] = v == ~0ull ? -1 : (int)(unsigned)v;
       }
     }
   }
 }
 
-}  // namespace
-
-// x: (n, d) float32 row-major; out_d: (n, k) float32; out_i: (n, k) int32.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int repro_pairwise_topk(const float* x, int n, int d, int k,
-                                   float* out_d, int* out_i, void* stream) {
-  if (n < 2 || d < 1 || k < 1 || k > KMAX || k > n - 1) return (int)cudaErrorInvalidValue;
-  const int free_floats = SMEM_MAX / (int)sizeof(float) - BQ * d;
-  const int fit = free_floats / (d + 1);
-  const int kt = fit < KEY_TILE ? fit : KEY_TILE;
-  if (kt < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(BQ * d + kt * d + kt) * sizeof(float);
+// Launches the <D, S> instance, or with `occ` set only reports its blocks per
+// SM, threads per block, dynamic shared memory and key tile into occ[0..3].
+template <int D, int S>
+int launch(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream,
+           int* occ) {
+  constexpr int R = rows_per_warp<D>();
+  const int q_floats = D > 0 ? 0 : WARPS * d;
+  int kt = (SMEM_BUDGET / (int)sizeof(float) - q_floats) / (d + 1);
+  kt = (kt < KEY_TILE ? kt : KEY_TILE) / 32 * 32;
+  if (kt < 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kt * d + kt + q_floats) * sizeof(float);
   if (smem > (size_t)SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pairwise_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pairwise_topk_kernel<D, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pairwise_topk_kernel<<<(n + BQ - 1) / BQ, BQ, smem, (cudaStream_t)stream>>>(
+  if (occ != nullptr) {
+    occ[1] = THREADS, occ[2] = (int)smem, occ[3] = kt;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, pairwise_topk_kernel<D, S>, THREADS, smem);
+  }
+  const int rows_per_block = WARPS * R;
+  pairwise_topk_kernel<D, S><<<(n + rows_per_block - 1) / rows_per_block, THREADS, smem, stream>>>(
       x, n, d, k, kt, out_d, out_i);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream,
+             int* occ) {
+  switch ((k + 31) / 32) {
+    case 1: return launch<D, 1>(x, n, d, k, out_d, out_i, stream, occ);
+    case 2: return launch<D, 2>(x, n, d, k, out_d, out_i, stream, occ);
+    case 3: return launch<D, 3>(x, n, d, k, out_d, out_i, stream, occ);
+    default: return launch<D, 4>(x, n, d, k, out_d, out_i, stream, occ);
+  }
+}
+
+int dispatch(const float* x, int n, int d, int k, float* out_d, int* out_i, void* stream,
+             int* occ) {
+  if (n < 2 || d < 1 || d > 256 || k < 1 || k > KMAX || k > n - 1 ||
+      reinterpret_cast<size_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 2: return launch_d<2>(x, n, d, k, out_d, out_i, s, occ);
+    case 4: return launch_d<4>(x, n, d, k, out_d, out_i, s, occ);
+    case 8: return launch_d<8>(x, n, d, k, out_d, out_i, s, occ);
+    case 16: return launch_d<16>(x, n, d, k, out_d, out_i, s, occ);
+    case 32: return launch_d<32>(x, n, d, k, out_d, out_i, s, occ);
+    default: return launch_d<0>(x, n, d, k, out_d, out_i, s, occ);
+  }
+}
+
+}  // namespace
+
+// x: (n, d) float32 row-major, 16-byte aligned; out_d: (n, k) float32;
+// out_i: (n, k) int32.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int repro_pairwise_topk(const float* x, int n, int d, int k,
+                                   float* out_d, int* out_i, void* stream) {
+  return dispatch(x, n, d, k, out_d, out_i, stream, nullptr);
+}
+
+// The launch configuration the kernel takes for (n, d, k), without launching:
+// occ = {blocks per SM, threads per block, dynamic shared memory bytes, key tile}.
+extern "C" int repro_pairwise_topk_occupancy(int n, int d, int k, int* occ) {
+  return dispatch(nullptr, n, d, k, nullptr, nullptr, nullptr, occ);
 }

@@ -26,7 +26,7 @@ from . import _build
 from .ops import sum_sq_seq
 
 _EPS = 64.0 * 1.1920929e-07
-MAX_D = 256  # the kernel's endpoint and point tiles must fit shared memory
+MAX_D = 256  # a point tile of at least 32 rows must fit the kernel's shared memory
 
 
 def _dot_seq(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -71,6 +71,11 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
     dev = points.device
     if d > MAX_D:
         raise ValueError(f"the lune_filter kernel takes d <= {MAX_D}; got d={d}")
+    if not 1 <= block_e <= 32 or block_c < 32:
+        raise ValueError(
+            f"the lune_filter kernel takes 1 <= block_e <= 32 edges (warps) per block and "
+            f"block_c >= 32 points per tile; got block_e={block_e}, block_c={block_c}"
+        )
     args = [a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2]
     for t in args:
         if t.device != dev:
@@ -81,6 +86,8 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
     ax, bx, acd, bcd, w, pts, pcd = (
         t.float().contiguous() for t in (a_xyz, b_xyz, a_cd2, b_cd2, w2, points, cd2)
     )
+    if pts.data_ptr() % 16:  # the kernel reads point rows as float4
+        pts = pts.clone()
     ai, bi = (t.to(torch.int32).contiguous() for t in (a_idx, b_idx))
     fn = _build.load("lune_filter").repro_lune_filter
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -98,6 +105,18 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
     return out.bool()
 
 
+def kernel_config(d: int, block_e: int, block_c: int) -> dict:
+    """The kernel's launch configuration for (d, block_e, block_c) on the
+    current card, without launching: resident blocks per SM, threads per
+    block, dynamic shared memory bytes and points per shared-memory tile."""
+    occ = (ctypes.c_int * 4)()
+    fn = _build.load("lune_filter").repro_lune_filter_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(d, block_e, block_c, ctypes.addressof(occ)), "lune_filter occupancy")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "point_tile"), occ))
+
+
 def lune_filter(
     a_xyz: torch.Tensor,
     b_xyz: torch.Tensor,
@@ -109,7 +128,7 @@ def lune_filter(
     points: torch.Tensor,
     cd2: torch.Tensor,
     *,
-    block_e: int = 256,
+    block_e: int = 8,
     block_c: int = 512,
     chunk: int = 1024,
 ) -> torch.Tensor:
@@ -120,8 +139,9 @@ def lune_filter(
     ``b_cd2`` their squared core distances, ``a_idx``/``b_idx`` their
     indices into ``points`` (n, d) and ``cd2`` (n,).  An edge with
     ``w2 = -inf`` never has a point inside.  CUDA tensors run the kernel
-    (at most ``block_e`` edges per block, ``block_c`` points per tile);
-    CPU tensors run the plain version (``chunk`` edges per step).
+    (``block_e`` edges per block, one warp each, 1 to 32; at most
+    ``block_c`` points per shared-memory tile, rounded down to a multiple
+    of 32); CPU tensors run the plain version (``chunk`` edges per step).
     """
     m = a_xyz.shape[0]
     if a_xyz.ndim != 2 or b_xyz.shape != a_xyz.shape or points.ndim != 2 or points.shape[1] != a_xyz.shape[1]:

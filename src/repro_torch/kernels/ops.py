@@ -193,7 +193,7 @@ def lune_nonempty(
     cd2: torch.Tensor,
     *,
     backend: str = "cuda",
-    block_e: int = 256,
+    block_e: int = 8,
     block_c: int = 512,
 ) -> torch.Tensor:
     """(m,) bool: True where lune(a, b) holds a point strictly inside.

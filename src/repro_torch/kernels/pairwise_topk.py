@@ -10,7 +10,12 @@ matrix is never materialized.
 
 Both order candidates by (d2, index): ``torch.sort(..., stable=True)`` over
 [running state, new tile] keeps the lower index first among equal d2, as
-the reference's stable ``jax.lax.top_k`` merge does.
+the reference's stable ``jax.lax.top_k`` merge does.  Both compute d2 with
+the same float32 arithmetic: |q|^2, |k|^2 and q.k as fused multiply-add
+chains in index order (``ops.fma_f32`` here, ``fmaf`` in the kernel), then
+``max(qn + kn - 2 dot, 0)``, so their lists are equal bit for bit.  The
+refine re-sorts the candidates in exact diff form and breaks its exact ties
+by candidate order, so equal lists give equal neighbours on both devices.
 """
 
 from __future__ import annotations
@@ -21,17 +26,29 @@ import torch
 
 from . import _build
 
-KMAX = 32   # the kernel's register-resident top-k list holds at most 32
-MAX_D = 256  # the (128, d) query tile and a key tile must fit 200 KB of shared memory
+KMAX = 128  # the kernel's top-k list: 4 register slots in each of a warp's 32 lanes
+MAX_D = 256  # a key tile of at least 32 rows must fit the kernel's shared memory
+
+
+def _dot_fma(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(bq, d) x (bk, d) -> (bq, bk) dot products, an FMA chain in index order."""
+    from .ops import fma_f32  # ops imports this module
+
+    acc = q[:, None, 0] * k[None, :, 0]
+    for j in range(1, q.shape[1]):
+        acc = fma_f32(q[:, None, j], k[None, :, j], acc)
+    return acc
 
 
 def pairwise_topk_plain(
     x: torch.Tensor, k_top: int, *, block_q: int = 1024, block_k: int = 2048
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blocked plain-torch self-kNN: (d2 ascending, int32 idx), self excluded."""
+    from .ops import sum_sq_fma  # ops imports this module
+
     n = x.shape[0]
     xf = x.float()
-    xn = (xf * xf).sum(-1)
+    xn = sum_sq_fma(xf)
     out_d = torch.empty((n, k_top), dtype=torch.float32, device=x.device)
     out_i = torch.empty((n, k_top), dtype=torch.int32, device=x.device)
     inf = torch.tensor(float("inf"), device=x.device)
@@ -43,7 +60,7 @@ def pairwise_topk_plain(
         top_i = torch.full((bq, k_top), -1, dtype=torch.int32, device=x.device)
         for k0 in range(0, n, block_k):
             kk = xf[k0 : k0 + block_k]
-            d2 = xn[q0 : q0 + bq, None] + xn[None, k0 : k0 + kk.shape[0]] - 2.0 * (q @ kk.T)
+            d2 = xn[q0 : q0 + bq, None] + xn[None, k0 : k0 + kk.shape[0]] - 2.0 * _dot_fma(q, kk)
             d2 = torch.clamp_min(d2, 0.0)
             col = torch.arange(k0, k0 + kk.shape[0], dtype=torch.int32, device=x.device)
             d2 = torch.where(col[None, :] == rows, inf, d2)
@@ -62,11 +79,13 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     if k_top > KMAX:
         raise ValueError(
             f"the pairwise_topk kernel keeps at most {KMAX} neighbours (kmax - 1 plus "
-            f"the refine slack, so kmax <= 25 on the card); got k_top={k_top}"
+            f"the refine slack of 8, so kmax <= 120 on the card); got k_top={k_top}"
         )
     if d > MAX_D:
         raise ValueError(f"the pairwise_topk kernel takes d <= {MAX_D}; got d={d}")
     xf = x.float().contiguous()
+    if xf.data_ptr() % 16:  # the kernel reads rows as float4
+        xf = xf.clone()
     out_d = torch.empty((n, k_top), dtype=torch.float32, device=x.device)
     out_i = torch.empty((n, k_top), dtype=torch.int32, device=x.device)
     fn = _build.load("pairwise_topk").repro_pairwise_topk
@@ -81,6 +100,18 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     _build.check(status, "pairwise_topk")
     pairwise_topk.launches += 1
     return out_d, out_i
+
+
+def kernel_config(n: int, d: int, k_top: int) -> dict:
+    """The kernel's launch configuration for (n, d, k_top) on the current
+    card, without launching: resident blocks per SM, threads per block,
+    dynamic shared memory bytes and keys per shared-memory tile."""
+    occ = (ctypes.c_int * 4)()
+    fn = _build.load("pairwise_topk").repro_pairwise_topk_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(n, d, k_top, ctypes.addressof(occ)), "pairwise_topk occupancy")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "key_tile"), occ))
 
 
 def pairwise_topk(

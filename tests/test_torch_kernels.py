@@ -18,6 +18,7 @@ from repro.core import wspd as j_wspd
 from repro.engine.plan import Plan as JPlan
 from repro.kernels import fused_cascade as j_fc
 from repro.kernels import ops as j_ops
+from repro.kernels.pairwise_topk import pairwise_topk as j_pairwise_topk
 
 from repro_torch.kernels import fused_cascade as t_fc
 from repro_torch.kernels import ops as t_ops
@@ -36,10 +37,21 @@ def _points(n, d, seed):
     return (centers[rng.integers(0, 3, n)] + rng.normal(0, 0.5, size=(n, d))).astype(np.float32)
 
 
+# (n, d, k): the kmax = 16 widths, and k = 72 and 128, whose over-selected
+# lists (k + 8) need the card kernel's second to fifth list slots
+KNN_CASES = [(n, d, k) for n in (64, 257) for d in (2, 8) for k in (4, 15)] + [
+    (300, d, k) for d in (3, 8) for k in (72, 128)
+]
+
+
+def _raw_d2_tol(x, idx):
+    """The matmul form's error scale per entry: 1e-5 * (|q|^2 + |k|^2)."""
+    xn = (x.astype(np.float64) ** 2).sum(1)
+    return RTOL * (xn[:, None] + xn[idx])
+
+
 @pytest.mark.parametrize("backend", ["pallas_interpret", "jnp"])
-@pytest.mark.parametrize("k", [4, 15])
-@pytest.mark.parametrize("d", [2, 8])
-@pytest.mark.parametrize("n", [64, 257])
+@pytest.mark.parametrize("n,d,k", KNN_CASES)
 def test_knn_matches_reference(n, d, k, backend):
     x = _points(n, d, seed=n + d)
     d_j, i_j = j_ops.knn(jnp.asarray(x), k, backend=backend)
@@ -56,18 +68,39 @@ def test_knn_ref_backend_matches_torch_backend(blobs):
     np.testing.assert_array_equal(d_r.numpy(), d_t.numpy())
 
 
-def test_pairwise_topk_plain_orders_ties_by_index():
+@pytest.mark.parametrize("k", [7, 60])
+def test_pairwise_topk_plain_orders_ties_by_index(k):
     """Duplicated points tie exactly; the lower index comes first, as the
-    reference's stable streaming merge orders them."""
+    reference's stable streaming merge orders them, at every list position
+    (k = 60 reaches the card kernel's second list slot)."""
     base = np.random.default_rng(3).normal(size=(30, 2)).astype(np.float32)
-    x = torch.from_numpy(np.repeat(base, 4, axis=0))
-    d2, idx = t_pt.pairwise_topk_plain(x, 7, block_q=16, block_k=24)
-    d2_r, idx_r = t_pt.pairwise_topk_plain(x, 7, block_q=1024, block_k=2048)
+    x_np = np.repeat(base, 4, axis=0)
+    x = torch.from_numpy(x_np)
+    d2, idx = t_pt.pairwise_topk_plain(x, k, block_q=16, block_k=24)
+    d2_r, idx_r = t_pt.pairwise_topk_plain(x, k, block_q=1024, block_k=2048)
     np.testing.assert_array_equal(idx.numpy(), idx_r.numpy())
     np.testing.assert_array_equal(d2.numpy(), d2_r.numpy())
     same = d2[:, :-1] == d2[:, 1:]  # duplicated points tie exactly
-    assert same.any()
+    assert same[:, 32:].any() if k > 33 else same.any()
     assert (idx[:, :-1][same] < idx[:, 1:][same]).all()
+    _, idx_j = j_pairwise_topk(jnp.asarray(x_np), k, block_q=32, block_k=32, interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+
+
+@pytest.mark.parametrize("k", [7, 72, 128])
+@pytest.mark.parametrize("d", [3, 8])
+def test_pairwise_topk_plain_matches_reference(d, k):
+    """The raw lists against the reference's Pallas kernel in interpret
+    mode: d2 within the matmul form's error scale; indices equal but at
+    near-ties, which that error may order either way."""
+    x = _points(300, d, seed=k + d)
+    d_j, i_j = j_pairwise_topk(jnp.asarray(x), k, block_q=128, block_k=128, interpret=True)
+    d_t, i_t = t_pt.pairwise_topk(torch.from_numpy(x), k)
+    d_j, i_j, d_t, i_t = np.asarray(d_j), np.asarray(i_j), d_t.numpy(), i_t.numpy()
+    assert d_t.shape == i_t.shape == (300, k)
+    assert (np.abs(d_t - d_j) <= _raw_d2_tol(x, i_t)).all()
+    assert ((i_t >= 0) & (i_t != np.arange(300)[:, None])).all()
+    assert (i_t == i_j).mean() > 0.99
 
 
 @pytest.fixture(scope="module")
@@ -203,6 +236,10 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
 
 
 def test_pairwise_topk_rejects_bad_input():
+    # the kernel's list holds 128 entries; its launch path says so before
+    # it touches the card
+    with pytest.raises(ValueError, match=r"at most 128 neighbours .* kmax <= 120 on the card"):
+        t_pt._launch(torch.zeros((200, 2)), 129)
     with pytest.raises(ValueError, match="k_top"):
         t_pt.pairwise_topk(torch.zeros((5, 2)), 5)
     with pytest.raises(ValueError, match="float"):
