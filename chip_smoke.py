@@ -17,8 +17,11 @@ Phases (any failure exits non-zero):
      and with K = n - 1; ``lune_filter`` at the same widths and sizes, and
      below 32 points, on edges whose lunes hold points and edges whose
      lunes are empty, with duplicates, endpoint hits and padded edges;
-     ``edge_cascade`` on the stage-1 and stage-2 edges of the n = 16000
-     fit in both summation orders;
+     ``edge_cascade`` bit for bit on the stage-1 and stage-2 edges of the
+     n = 16000 fits at kmax = 16 and 64, in every summation order, at every
+     lane count, and on synthetic unsorted edge lists (d = 2, 4, 8, 16, 32,
+     64, 100; k_check = 2, 15, 63; invalid slots, duplicates, neighbours
+     that are endpoints, core distances tied with edge lengths);
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it, held against
      the port's own ``device="cpu"`` fit (graph edges, MST edge ids and
@@ -42,9 +45,10 @@ Phases (any failure exits non-zero):
      equal DBCV profiles), with the rate in queries per second;
   8. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
-     ``lune_filter`` over its edges per block and its point tile), the
-     count of implicit syncs in one warm fit, the device's busy share of a
-     fit and a host profile.
+     ``lune_filter`` over its edges per block and its point tile,
+     ``edge_cascade`` per stage at kmax = 16 and 64 and over its lanes per
+     edge), the count of implicit syncs in one warm fit, the device's busy
+     share of a fit and a host profile.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -65,6 +69,9 @@ SEED = 0
 N, D, KMAX = 16000, 8, 16
 KMAX_WIDE = 64
 WIDTHS = (2, 4, 8, 16, 32, 100)   # the kernels' templated widths and a generic one
+CASCADE_WIDTHS = (2, 4, 8, 16, 32, 64, 100)
+CASCADE_K = (2, 15, 63)           # stage 1, and the full lists of kmax = 16 and 64
+N_CASCADE = 4000
 K_LISTS = (23, 72, 128)           # top-K lengths of kmax = 16, 64 and 120
 N_RAGGED = 1007
 N_DENSE = 2000
@@ -105,6 +112,27 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card alone, warm (one call
+    first): the card sleeps while the host enqueues the calls, so the
+    events time the device back to back.  ``cuda_ms`` counts the host's
+    time to enqueue a call wherever that is the slower."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not start.query(), "the host enqueued every call before the card reached the first")
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -274,31 +302,37 @@ def check_topk_cases(dev, x) -> dict:
 
 def kernel_resources(record: dict) -> None:
     """Registers and spills of every kernel instance (nvcc -Xptxas -v) and
-    the resident blocks per SM of the ``pairwise_topk`` and ``lune_filter``
-    instances at their launch configurations."""
+    the resident blocks per SM of each instance at its launch configuration
+    (``edge_cascade``: 256 threads a block)."""
     import re
 
-    from repro_torch.kernels import _build, lune_filter as lf, pairwise_topk as pt
+    from repro_torch.kernels import _build, fused_cascade as fc, lune_filter as lf, pairwise_topk as pt
 
     usage = []
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
-            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
-                          u["function"])
+            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel|edge_cascade_prologue)"
+                          r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
             u["d"] = (int(m.group(2)) or "generic") if m and m.group(2) else None
-            u["slots"] = int(m.group(3)) if m and m.group(3) else None
+            second = int(m.group(3)) if m and m.group(3) else None
+            u["lanes" if u["kernel"] == "edge_cascade_kernel" else "slots"] = second
             usage.append(u)
     for u in usage:
+        d = 100 if u["d"] == "generic" else u["d"]
         if u["kernel"] == "pairwise_topk_kernel":
-            d = 100 if u["d"] == "generic" else u["d"]
             u.update(pt.kernel_config(N, d, 32 * u["slots"]))
         elif u["kernel"] == "lune_filter_kernel":
-            d = 100 if u["d"] == "generic" else u["d"]
             u.update(lf.kernel_config(d, 8, 512))
+        elif u["kernel"] == "edge_cascade_kernel":
+            cfg = fc.kernel_config(d, u["lanes"], 256)
+            u.update(blocks_per_sm=cfg["blocks_per_sm"], threads=cfg["threads"])
+        elif u["kernel"] == "edge_cascade_prologue":
+            cfg = fc.kernel_config(d, 1, 256)
+            u.update(blocks_per_sm=cfg["prologue_blocks_per_sm"], threads=cfg["prologue_threads"])
     record["kernel_resources"] = usage
     for u in usage:
-        print("  " + json.dumps({k: v for k, v in u.items() if k != "function"}), flush=True)
+        print("  " + json.dumps({k: v for k, v in u.items() if k != "function" and v is not None}), flush=True)
 
 
 def topk_times(x) -> dict:
@@ -319,16 +353,18 @@ def lune_sweep(args, block_e: int, block_c: int) -> tuple[dict, dict]:
     return by_e, by_c
 
 
-def stage_inputs(x, plan):
-    """The edge lists the fit hands ``edge_cascade``: stage 1 (every unique
-    SBCN candidate) and stage 2 (the open stage-1 survivors)."""
+def stage_inputs(x, plan, kmax: int):
+    """The edge lists a kmax fit on ``x`` hands ``edge_cascade``: stage 1
+    (every SBCN candidate, sorted packed keys) and stage 2 (the open
+    stage-1 survivors).  Returns the shared operands and the two stages as
+    ((lo, hi, valid), k_check)."""
     import numpy as np
     import torch
     from repro_torch.core import mrd, sbcn, wspd
-    from repro_torch.kernels import fused_cascade as fc
+    from repro_torch.kernels import fused_cascade as fc, ops
 
     n = x.shape[0]
-    knn_d2, knn_idx = plan.knn(x, KMAX - 1)
+    knn_d2, knn_idx = plan.knn(x, kmax - 1)
     cd2k = mrd.core_distances2(knn_d2)[:, -1]
     x_host = x.cpu().numpy().astype(np.float64)
     tree = wspd.build_fair_split_tree(x_host, np.sqrt(cd2k.cpu().numpy().astype(np.float64)))
@@ -343,13 +379,169 @@ def stage_inputs(x, plan):
     stage1 = (lo, hi, valid)
     killed, cert, _, _ = fc.edge_cascade(
         x, cd2k, knn_idx, knn_d2, lo, hi, valid, k_check=plan.cascade_stage1_k,
-        fma=fc.sum_order_fma(x.shape[1], fused=True),
+        order=ops.sum_order(x.shape[1], "cascade"),
     )
     surv_open = valid & first & ~killed & ~cert
     n_open = int(surv_open.sum())
     pos = sbcn.compact_idx(surv_open, n_open)
     stage2 = (lo[pos], hi[pos], torch.ones((n_open,), dtype=torch.bool, device=x.device))
-    return (x, cd2k, knn_idx, knn_d2), [(stage1, plan.cascade_stage1_k), (stage2, KMAX - 1)]
+    return (x, cd2k, knn_idx, knn_d2), [(stage1, plan.cascade_stage1_k), (stage2, kmax - 1)]
+
+
+def orders_at(d: int) -> tuple:
+    """The summation orders that differ at width d (``win32`` is ``seq`` up to 32)."""
+    return ("seq", "fma") if d <= 32 else ("seq", "fma", "win32")
+
+
+def check_cascade(base, lo, hi, valid, k_check: int, order: str, what: str, lanes=(0,), chunk: int = 65536):
+    """Kernel vs plain on one edge list: verdicts equal and d2, w2 bit-equal
+    on the valid slots, at each lane count of ``lanes`` (0: the default).
+    Returns the (killed, certified, valid) counts of the plain run and the
+    largest d2 or w2 difference (0 when bit-equal)."""
+    import torch
+    from repro_torch.kernels import fused_cascade as fc
+
+    out_p = fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check, order=order, chunk=chunk)
+    err = 0.0
+    for g in lanes:
+        out_k = fc.edge_cascade(*base, lo, hi, valid, k_check=k_check, order=order, lanes=g)
+        torch.cuda.synchronize()
+        at = f"{what}, k_check={k_check}, order={order}, lanes={g or fc.pick_lanes(k_check)}"
+        check(out_k[0].dtype == out_k[1].dtype == torch.bool, "edge_cascade verdicts are bool")
+        check(torch.equal(out_k[0], out_p[0]), f"edge_cascade killed differs at {at}")
+        check(torch.equal(out_k[1], out_p[1]), f"edge_cascade cert differs at {at}")
+        for j, name in ((2, "d2"), (3, "w2")):
+            a, b = out_k[j][valid], out_p[j][valid]
+            check(bool(torch.isfinite(a).all()), f"edge_cascade {name} finite at {at}")
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+            check(torch.equal(a, b), f"edge_cascade {name} not bit-equal to the plain version at {at}")
+    return (int(out_p[0].sum()), int(out_p[1].sum()), int(valid.sum())), err
+
+
+def check_cascade_stages(fits: dict) -> tuple[dict, float]:
+    """``edge_cascade`` on each fit's stage edge lists, every order, the
+    default lanes; the fit's own order also at every lane count.  Returns
+    the (killed, certified, valid) counts per (kmax, k_check) in the fit's
+    order, and the largest d2 or w2 difference."""
+    from repro_torch.kernels import fused_cascade as fc, ops
+
+    counts, err = {}, 0.0
+    for kmax, (base, stages) in fits.items():
+        fit_order = ops.sum_order(base[0].shape[1], "cascade")
+        for (lo, hi, valid), k_check in stages:
+            for order in orders_at(base[0].shape[1]):
+                lanes = (0, *fc.LANES) if order == fit_order else (0,)
+                c, e = check_cascade(base, lo, hi, valid, k_check, order, f"the kmax={kmax} fit's edges", lanes)
+                err = max(err, e)
+                if order == fit_order:
+                    counts[(kmax, k_check)] = c
+            killed, cert, n_valid = counts[(kmax, k_check)]
+            print(f"edge_cascade: kernel == plain (bit for bit) on the kmax={kmax} fit's {lo.shape[0]} edges at "
+                  f"k_check={k_check}, orders {list(orders_at(base[0].shape[1]))}, lanes {list(fc.LANES)} "
+                  f"({killed} killed, {cert} certified of {n_valid} valid)", flush=True)
+    return counts, err
+
+
+def cascade_case(d: int, k_full: int, dev):
+    """N_CASCADE clustered points in d dimensions with 200 exact duplicates,
+    their k_full-NN lists (the card's ``knn``), core distances at the 4th
+    neighbour (below the k_full-th, so that fewer edges are certified and
+    more reach the checks),
+    and an unsorted edge list: each point to its 3 nearest neighbours (a
+    neighbour is an endpoint), to its duplicate (d2 = 0), to its 4th
+    neighbour (d2 ties its core distance where the orders agree), random
+    pairs, and 5% invalid slots."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+
+    n = N_CASCADE
+    rng = np.random.default_rng(SEED + 9 + d)
+    centers = rng.uniform(-4.0, 4.0, size=(8, d))
+    x = centers[rng.integers(0, 8, n - 200)] + rng.normal(0.0, 0.7, size=(n - 200, d))
+    x = torch.from_numpy(np.concatenate([x, x[:200]]).astype(np.float32)).to(dev)
+    knn_d2, knn_idx = ops.knn(x, k_full, backend="cuda")
+    rows = torch.arange(n, device=dev)
+    pairs = torch.cat([
+        torch.stack([rows.repeat_interleave(3), knn_idx[:, :3].reshape(-1).long()], 1),
+        torch.stack([rows[:200], rows[n - 200:]], 1),
+        torch.stack([rows, knn_idx[:, 3].long()], 1),
+        torch.from_numpy(rng.integers(0, n, size=(2 * n, 2))).to(dev),
+    ])
+    pairs = pairs[torch.from_numpy(rng.permutation(pairs.shape[0])).to(dev)].to(torch.int32)
+    valid = torch.from_numpy(rng.random(pairs.shape[0]) > 0.05).to(dev)
+    return (x, knn_d2[:, 3].contiguous(), knn_idx, knn_d2), pairs[:, 0].contiguous(), pairs[:, 1].contiguous(), valid
+
+
+def check_cascade_cases(dev) -> None:
+    """``edge_cascade`` kernel vs plain on the synthetic cases of
+    ``cascade_case``: every width of ``CASCADE_WIDTHS``, every k_check of
+    ``CASCADE_K``, every order at the width, every lane count.  Each case
+    has killed and certified edges, and at k_check = 2 open ones (neither:
+    they run every check)."""
+    from repro_torch.kernels import fused_cascade as fc
+
+    n_cases = 0
+    for d in CASCADE_WIDTHS:
+        base, ea, eb, valid = cascade_case(d, max(CASCADE_K), dev)
+        for k_check in CASCADE_K:
+            for order in orders_at(d):
+                (killed, cert, n_valid), _ = check_cascade(base, ea, eb, valid, k_check, order,
+                                                           f"the d={d} case", (0, *fc.LANES), chunk=4096)
+                check(0 < killed and 0 < cert, f"the d={d}, k_check={k_check} case has killed and certified edges")
+                check(k_check > 2 or killed + cert < n_valid, f"the d={d}, k_check=2 case has open edges")
+                n_cases += 1
+    print(f"edge_cascade: kernel == plain (bit for bit) on {n_cases} synthetic cases: d={list(CASCADE_WIDTHS)}, "
+          f"k_check={list(CASCADE_K)}, every order at each width, lanes {list(fc.LANES)}; n={N_CASCADE}, "
+          f"unsorted edges with invalid slots, duplicates and endpoint neighbours", flush=True)
+
+
+def cascade_times(fits: dict, counts: dict, record: dict) -> dict:
+    """Milliseconds of ``edge_cascade`` per stage of each fit: the device
+    time of its two kernels (``device_ms``) at the default lanes and at
+    every lane count, and the time per call with the host's enqueue
+    (``cuda_ms``, ``wrapper_ms``), beside the plain
+    version and the bound; and the kmax = 16 stage 1 with no checks
+    (k_check = 0: the prologue and the d2, w2 and certificate alone).
+    Returns the kmax = 16 kernel row's numbers."""
+    from repro_torch.kernels import fused_cascade as fc, ops
+
+    per_stage, by_lanes = [], {}
+    row = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    for kmax, (base, stages) in fits.items():
+        n, d = base[0].shape
+        order = ops.sum_order(d, "cascade")
+        for (lo, hi, valid), k_check in stages:
+            run = lambda g=0: fc.edge_cascade(*base, lo, hi, valid, k_check=k_check, order=order, lanes=g)  # noqa: E731
+            t_k = device_ms(run, 20)
+            t_w = cuda_ms(run, 20)
+            t_p = cuda_ms(lambda: fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check, order=order), 3)
+            killed, cert, n_valid = counts[(kmax, k_check)]
+            flops, nbytes = cascade_flops_bytes(n, d, int(lo.shape[0]), k_check, n_valid, killed, cert)
+            b_ms, b_by = bound(flops, nbytes)
+            by_g = {g: device_ms(lambda: run(g), 20) for g in fc.LANES}
+            by_lanes[f"kmax={kmax},k_check={k_check}"] = by_g
+            per_stage.append({"kmax": kmax, "k_check": k_check, "edges": int(lo.shape[0]), "killed": killed,
+                              "certified": cert, "lanes": fc.pick_lanes(k_check), "ms": t_k, "wrapper_ms": t_w,
+                              "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "ms_by_lanes": by_g})
+            if kmax == KMAX:
+                row["ms"] += t_k
+                row["plain_ms"] += t_p
+                row["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
+                row["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
+    base, stages = fits[KMAX]
+    (lo, hi, valid), _ = stages[0]
+    order = ops.sum_order(base[0].shape[1], "cascade")
+    record["edge_cascade_no_checks_ms"] = device_ms(
+        lambda: fc.edge_cascade(*base, lo, hi, valid, k_check=0, order=order), 20)
+    record["edge_cascade_stages"] = per_stage
+    record["edge_cascade_ms_by_lanes"] = by_lanes
+    for st in per_stage:
+        print("edge_cascade per launch (ms on the device alone; wrapper_ms with the host's enqueue): "
+              + json.dumps(st), flush=True)
+    print(f"edge_cascade on the kmax={KMAX} stage-1 edges with k_check=0 (prologue, d2, w2, certificate): "
+          f"{record['edge_cascade_no_checks_ms']:.4f} ms on the device", flush=True)
+    return row
 
 
 def lune_flops_bytes(n: int, d: int, m: int, m_removed: int) -> tuple[float, float]:
@@ -366,14 +558,20 @@ def lune_flops_bytes(n: int, d: int, m: int, m_removed: int) -> tuple[float, flo
     return pairs * (4 * d + 16), 4 * (m * (2 * d + 5) + n * (d + 1) + m)
 
 
-def cascade_flops_bytes(n: int, d: int, m: int, k: int) -> tuple[float, float]:
-    """Operations and bytes of one ``edge_cascade`` launch over m edges:
-    d2 and both endpoint norms, then per checked neighbour (2k of them) its
-    norm, its cross d2 and the mrd arithmetic; every input read once (x,
-    cd2k, the first k columns of knn_idx and knn_d2, ea, eb, valid) and
-    the four outputs written once."""
-    flops = m * (7 * d + 2 * k * (5 * d + 10))
-    nbytes = 4 * (n * d + n + 2 * n * k) + m * (4 + 4 + 1) + m * 16
+def cascade_flops_bytes(n: int, d: int, m: int, k: int, m_valid: int, m_killed: int, m_cert: int):
+    """Operations and bytes of one ``edge_cascade`` launch over m edges, as
+    the function needs them on this run's data: every point's norm once
+    (2 d); per edge its d2, w2 and certificate (3 d + 3); per check its
+    cross d2 and both mrd terms with their margins (3 d + 13).  An open
+    edge (valid, neither certified nor killed) needs all 2 k checks, a
+    killed one at least its first hit, a certified one none (it cannot be
+    killed: both mrd terms are at least its endpoints' core distances).
+    Every input is read once (x, cd2k, the first k columns of knn_idx and
+    knn_d2, ea, eb, valid) and every output written once at the type the
+    wrapper returns: two bools and two float32 an edge."""
+    checks = (m_valid - m_killed - m_cert) * 2 * k + m_killed
+    flops = n * 2 * d + m * (3 * d + 3) + checks * (3 * d + 13)
+    nbytes = 4 * (n * d + n + 2 * n * k) + m * (4 + 4 + 1) + m * (1 + 1 + 4 + 4)
     return flops, nbytes
 
 
@@ -474,33 +672,22 @@ def main(argv: list[str]) -> int:
     topk_errs = check_topk_cases(dev, x)
     record["pairwise_topk_max_abs_err"] = topk_errs
     lune_cases = check_lune_cases(dev, plan.lune_block_e, plan.lune_block_c)
+    t0 = time.monotonic()
+    fits = {kmax: stage_inputs(x, plan, kmax) for kmax in (KMAX, KMAX_WIDE)}
+    print(f"stage edge lists of the kmax={KMAX} and kmax={KMAX_WIDE} fits built in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    casc_counts, casc_err = check_cascade_stages(fits)
+    check_cascade_cases(dev)
     if kernels_only:
         record["pairwise_topk_ms_by_k"] = topk_times(x)
         record["lune_filter_ms_by_block_e"], record["lune_filter_ms_by_block_c"] = lune_sweep(
             lune_cases[(N, D)], plan.lune_block_e, plan.lune_block_c)
+        cascade_times(fits, casc_counts, record)
         print(f"kernel times on {smi} (pairwise_topk at n={N}, d={D} by K; lune_filter on the n={N}, "
-              f"d={D} case): " + json.dumps({k: record[k] for k in (
-                  "pairwise_topk_ms_by_k", "lune_filter_ms_by_block_e", "lune_filter_ms_by_block_c")}), flush=True)
+              f"d={D} case; edge_cascade per fit stage by lanes): " + json.dumps({k: record[k] for k in (
+                  "pairwise_topk_ms_by_k", "lune_filter_ms_by_block_e", "lune_filter_ms_by_block_c",
+                  "edge_cascade_ms_by_lanes")}), flush=True)
         return 0
-
-    base, stages = stage_inputs(x, plan)
-    fma_main = fc.sum_order_fma(D, fused=True)
-    casc_err = 0.0
-    for (lo, hi, valid), k_check in stages:
-        # both summation orders: the fit's (unfused at d = 8) and the FMA chain
-        for fma in (fma_main, not fma_main):
-            out_k = fc.edge_cascade(*base, lo, hi, valid, k_check=k_check, fma=fma)
-            out_p = fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check, fma=fma)
-            what = f"k_check={k_check}, fma={fma}"
-            check(bool((out_k[0] == out_p[0]).all()), f"edge_cascade killed differs at {what}")
-            check(bool((out_k[1] == out_p[1]).all()), f"edge_cascade cert differs at {what}")
-            for j, name in ((2, "d2"), (3, "w2")):
-                a, b = out_k[j][valid], out_p[j][valid]
-                check(bool(torch.isfinite(a).all()), f"edge_cascade {name} finite")
-                check(torch.equal(a, b), f"edge_cascade {name} not bit-equal to the plain version at {what}")
-                casc_err = max(casc_err, float((a - b).abs().max()) if a.numel() else 0.0)
-            print(f"edge_cascade: kernel == plain (bit for bit) on {lo.shape[0]} edges at {what} "
-                  f"({int(out_k[0].sum())} killed, {int(out_k[1].sum())} certified)", flush=True)
 
     # -- 4. the main path ----------------------------------------------------
     pt.pairwise_topk.launches = 0
@@ -723,28 +910,15 @@ def main(argv: list[str]) -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     })
 
-    c_ms = c_plain = c_bound_ops = c_bound_bytes = 0.0
-    per_stage = []
-    for (lo, hi, valid), k_check in stages:
-        m = int(lo.shape[0])
-        t_k = cuda_ms(lambda: fc.edge_cascade(*base, lo, hi, valid, k_check=k_check), 10)
-        t_p = cuda_ms(lambda: fc.edge_cascade_plain(*base, lo, hi, valid, k_check=k_check), 3)
-        flops, nbytes = cascade_flops_bytes(N, D, m, k_check)
-        c_ms, c_plain = c_ms + t_k, c_plain + t_p
-        c_bound_ops += flops / PEAK_F32_FLOPS * 1e3
-        c_bound_bytes += nbytes / PEAK_BYTES * 1e3
-        per_stage.append({"k_check": k_check, "edges": m, "ms": t_k, "plain_ms": t_p,
-                          "bound_ms": bound(flops, nbytes)[0]})
-    record["edge_cascade_stages"] = per_stage
-    print("edge_cascade per launch: " + json.dumps(per_stage), flush=True)
+    c = cascade_times(fits, casc_counts, record)
     kernels.append({
         "name": "edge_cascade", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/edge_cascade.cu",
         "replaces": "src/repro/kernels/fused_cascade.py:129",
         "launches": launches["edge_cascade"], "max_abs_err": casc_err,
-        "ms": c_ms, "plain_ms": c_plain,
-        "bound_ms": max(c_bound_ops, c_bound_bytes),
-        "bound_by": "operations" if c_bound_ops >= c_bound_bytes else "bytes",
+        "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": max(c["ops_ms"], c["bytes_ms"]),
+        "bound_by": "operations" if c["ops_ms"] >= c["bytes_ms"] else "bytes",
         "library_ms": None,
     })
     m_unres, m_removed = int(lune_main[0].shape[0]), gx["m_removed_exact"]

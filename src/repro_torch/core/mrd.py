@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.ops import sum_sq_seq
+from ..kernels.ops import sum_order, sum_sq
 
 
 def core_distances2(knn_d2: torch.Tensor) -> torch.Tensor:
@@ -27,8 +27,9 @@ def mrd2_from_parts(d2, cd2_a, cd2_b):
 
 
 def edge_d2(x: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
-    """Squared Euclidean distance for an explicit edge list (index order)."""
-    return sum_sq_seq(x[ea.long()].float() - x[eb.long()].float())
+    """Squared Euclidean distance for an explicit edge list, summed in the
+    order of the reference's slot path."""
+    return sum_sq(x[ea.long()].float() - x[eb.long()].float(), sum_order(int(x.shape[1]), "slot"))
 
 
 def reweight_all_mpts(d2_e, cd2, ea, eb):

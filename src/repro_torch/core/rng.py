@@ -36,7 +36,7 @@ from . import mrd as mrd_mod
 from . import sbcn as sbcn_mod
 from . import wspd as wspd_mod
 from ..kernels import fused_cascade
-from ..kernels.ops import sum_sq_fma
+from ..kernels.ops import sum_order, sum_sq
 
 VARIANTS = ("rng_ss", "rng_star", "rng")
 
@@ -69,7 +69,7 @@ def filter_cascade_device(x, cd2, knn_idx, knn_d2, lo, hi, valid, *, plan):
     inside_any, certified, d2_e, w2 = plan.edge_cascade(
         x, cd2[:, -1], knn_idx, knn_d2, lo, hi, valid,
         k_check=knn_idx.shape[1],
-        fma=fused_cascade.sum_order_fma(int(x.shape[1]), fused=False),
+        order=sum_order(int(x.shape[1]), "slot"),
     )
     return valid & ~inside_any, certified, inside_any, d2_e, w2
 
@@ -126,7 +126,7 @@ def canonical_edge_weights(x, cd2k, ea, eb):
     weights are bitwise the reference's and do not depend on the path.
     """
     ea, eb = ea.long(), eb.long()
-    d2 = sum_sq_fma(x[ea].float() - x[eb].float())
+    d2 = sum_sq(x[ea].float() - x[eb].float(), sum_order(int(x.shape[1]), "weights"))
     return d2, mrd_mod.mrd2_from_parts(d2, cd2k[ea], cd2k[eb])
 
 
@@ -176,10 +176,10 @@ def _build_fused(x, cd2, knn_d2, knn_idx, tree, pu, pv, variant, plan) -> RngGra
     # strictly inside its lune, so it skips stage 2
     k_full = knn_idx.shape[1]
     k1 = min(plan.cascade_stage1_k, k_full)
-    fma = fused_cascade.sum_order_fma(int(x.shape[1]), fused=True)
+    order = sum_order(int(x.shape[1]), "cascade")
     lo, hi, _, w2_1, surv_cert, surv_open, nc_d, no_d = fused_cascade.stage1_packed(
         x, cd2k, knn_idx, knn_d2, keys_sorted[:n_real], n,
-        k_check=k1, fma=fma, chunk=plan.cascade_chunk, block_e=plan.cascade_block_e,
+        k_check=k1, order=order, chunk=plan.cascade_chunk, block_e=plan.cascade_block_e,
     )
     n_cert, n_open = (int(v) for v in engine.to_host(torch.stack([nc_d, no_d]), "stage1_count"))
     if n_cert + n_open == 0:
@@ -195,7 +195,7 @@ def _build_fused(x, cd2, knn_d2, knn_idx, tree, pu, pv, variant, plan) -> RngGra
         poso = sbcn_mod.compact_idx(surv_open, n_open)
         valido = torch.ones((n_open,), dtype=torch.bool, device=x.device)
         killed2, _, _, w2_2 = plan.edge_cascade(
-            x, cd2k, knn_idx, knn_d2, lo[poso], hi[poso], valido, k_check=k_full, fma=fma
+            x, cd2k, knn_idx, knn_d2, lo[poso], hi[poso], valido, k_check=k_full, order=order
         )
         d2o, w2o = canonical_edge_weights(x, cd2k, lo[poso], hi[poso])
         # open survivors are never certified: every kept one is unresolved

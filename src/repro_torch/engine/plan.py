@@ -35,7 +35,8 @@ class Plan:
       * ``knn_block_q`` / ``knn_block_k`` — tiles of the plain blocked kNN
         (the CUDA kernel's tiles are compile-time constants of its source).
       * ``cascade_block_e`` — threads per block of the ``edge_cascade``
-        kernel; ``cascade_chunk`` — edges per chunk of its plain version.
+        kernel (a multiple of 32, at most 256); ``cascade_chunk`` — edges
+        per chunk of its plain version.
       * ``lune_block_e`` / ``lune_block_c`` — the ``lune_filter`` kernel's
         edges per block (one warp each, 1 to 32) and points per
         shared-memory tile (an upper bound: the kernel shrinks the tile
@@ -122,15 +123,15 @@ class Plan:
             block_c=self.lune_block_c,
         )
 
-    def edge_cascade(self, x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool):
+    def edge_cascade(self, x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, order: str):
         """Fused d2 + w2 + kNN-lune verdict + certificate over an edge list,
-        summing squares in the order ``fma`` picks."""
+        summing squares in ``order`` (``kernels.ops.SUM_ORDERS``)."""
         from ..kernels import fused_cascade
 
         return fused_cascade.edge_cascade(
             x, cd2k, knn_idx, knn_d2, ea, eb, valid,
             k_check=k_check,
-            fma=fma,
+            order=order,
             chunk=self.cascade_chunk,
             block_e=self.cascade_block_e,
         )

@@ -1,18 +1,24 @@
 """Fused filter cascade: d2 + mrd weight + kNN-lune verdict + core-distance
 certificate per edge, the port of ``repro/kernels/fused_cascade.py``.
 
-``edge_cascade`` launches the hand-written CUDA kernel
-(``csrc/edge_cascade.cu``) for tensors on the card and takes the plain
-version ``edge_cascade_plain`` (the reference's ``_edge_cascade_jnp``
-counterpart) for tensors on the CPU; any other device raises.
+``edge_cascade`` launches the hand-written CUDA kernels
+(``csrc/edge_cascade.cu``: a per-point prologue, then the per-edge kernel)
+for tensors on the card and takes the plain version ``edge_cascade_plain``
+(the reference's ``_edge_cascade_jnp`` counterpart) for tensors on the CPU;
+any other device raises.
 
-Every sum of squares runs in index order, in one of two orders that the
-caller picks with ``fma`` (``sum_order_fma``): unfused (``sum_sq_seq``;
-``__fmul_rn``/``__fadd_rn`` in the kernel) or an FMA chain (``sum_sq_fma``;
-``fmaf`` in the kernel).  Kernel and plain version agree bit for bit in
-both, and the order XLA compiles the reference's cascade to on the CPU
-decides which one the RNG build asks for, so the certificate and the
-stage weights equal the reference's.
+Both split the reference's lune test the same way.  A check of neighbour c
+of endpoint ``own`` (the other endpoint ``oth``) kills the edge when
+``max(mrd_own, mrd_oth) < w2``.  ``mrd_own`` depends on the point and the
+slot alone, so ``own_table`` computes it once per (point, slot); for finite
+inputs the test is ``mrd_own < w2 and mrd_oth < w2``, and only a check that
+passes the first half needs c's coordinates for the second.
+
+Every sum of squares runs in the order the caller names
+(``kernels.ops.SUM_ORDERS``, picked per program by ``ops.sum_order``):
+``seq``, ``fma`` or ``win32``.  Kernel and plain version agree bit for bit
+in each, and each is the order XLA compiles the reference's cascade to at
+some width, so the certificate and the stage weights equal the reference's.
 
 The RNG build runs the cascade staged (``core.rng._build_fused``): stage 1
 checks each endpoint's ``stage1_k`` nearest neighbours, stage 2 the full
@@ -27,67 +33,72 @@ import ctypes
 import torch
 
 from . import _build
-from .ops import sum_sq_fma, sum_sq_seq
+from .ops import SUM_ORDERS, sum_sq
 
 _EPS = 64.0 * 1.1920929e-07
 _SENTINEL = 2**31 - 1  # int32 max: the packed-key pad value
+LANES = (1, 2, 4, 8, 16, 32)  # the kernel's lanes per edge (template instances)
 
 
-def sum_order_fma(d: int, *, fused: bool) -> bool:
-    """Whether the reference's cascade sums of squares are an FMA chain at
-    width ``d``.
+def pick_lanes(k_check: int) -> int:
+    """Lanes per edge for ``k_check``: the least power of two of at least
+    k_check / 8, at most a warp, so a lane runs up to 16 of the edge's
+    checks in rounds.  More lanes end a killed edge's checks sooner but
+    repeat the edge's own gathers and d2 in each lane; ``chip_smoke.py``
+    prints the sweep over every lane count at the fit's stages."""
+    lanes = 1
+    while lanes * 8 < k_check and lanes < 32:
+        lanes *= 2
+    return lanes
 
-    XLA on the CPU compiles the fused cascade programs (``stage1_packed``,
-    ``_edge_cascade_jnp`` and ``edge_cascade`` under ``pallas_interpret``)
-    to an unfused index-order sum for d <= 8 and to an FMA chain for
-    9 <= d <= 32; the slot path's eager ``edge_d2`` sums unfused for
-    d <= 32 (on edge counts that fill XLA's vector loops, as the
-    reference's power-of-two buckets do).  Above 32 neither index order
-    is XLA's, and the port keeps the FMA chain: there stage weights may
-    differ from the reference's by an ulp, and with them a certificate.
-    """
-    return d > (8 if fused else 32)
+
+def own_table(x, cd2k, knn_idx, knn_d2, *, k_check: int, order: str):
+    """Per point p: ``|x_p|^2`` (n,) and, for slot j < k_check with
+    c = knn_idx[p, j], ``mrd_own[p, j] = max(knn_d2[p, j], cd2k[p], cd2k[c])
+    + eps * (|x_p|^2 + |x_c|^2)`` (n, k_check): the half of every lune
+    check that does not depend on the edge."""
+    eps = torch.tensor(_EPS, dtype=torch.float32, device=x.device)
+    xn = sum_sq(x.float(), order)
+    c = knn_idx[:, :k_check].long()
+    kd2 = knn_d2[:, :k_check].float()
+    mrd_own = torch.maximum(torch.maximum(kd2, cd2k[:, None]), cd2k[c]) + eps * (xn[:, None] + xn[c])
+    return xn, mrd_own
 
 
 def edge_cascade_plain(
-    x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool = False, chunk: int = 65536
+    x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, order: str = "seq", chunk: int = 65536
 ):
     """Plain-torch cascade over an edge list, chunked to bound the working set.
 
     Returns ``(killed, certified, d2_e, w2)``: bool verdicts masked by
     ``valid``, float32 d2 and w2 (invalid slots read point 0).
     """
-    sum_sq = sum_sq_fma if fma else sum_sq_seq
     dev = x.device
     eps = torch.tensor(_EPS, dtype=torch.float32, device=dev)
     xf = x.float()
+    xn, mrd_own = own_table(x, cd2k, knn_idx, knn_d2, k_check=k_check, order=order)
     kidx = knn_idx[:, :k_check].long()
-    kd2 = knn_d2[:, :k_check]
     ea_i = torch.where(valid, ea, 0).long()
     eb_i = torch.where(valid, eb, 0).long()
     outs = []
     for c0 in range(0, ea.shape[0], chunk):
         a, b = ea_i[c0 : c0 + chunk], eb_i[c0 : c0 + chunk]
         xa, xb = xf[a], xf[b]
-        d2_e = sum_sq(xa - xb)
+        d2_e = sum_sq(xa - xb, order)
         cda, cdb = cd2k[a], cd2k[b]
         mcd = torch.maximum(cda, cdb)
         w2 = torch.maximum(mcd, d2_e)
         # lint: allow[float-eq] certificate is bit-exact by construction: w2 is max() of the compared value itself
         certified = w2 == mcd
-        an, bn = sum_sq(xa), sum_sq(xb)
         killed = torch.zeros_like(certified)
-        sides = ((a, xb, cda, cdb, an, bn), (b, xa, cdb, cda, bn, an))
-        for own, oth_x, own_cd, oth_cd, own_n, oth_n in sides:
+        for own, oth, oth_x, oth_cd in ((a, b, xb, cdb), (b, a, xa, cda)):
             cand = kidx[own]                                   # (c, k)
-            xc = xf[cand]                                      # (c, k, d)
-            cn = sum_sq(xc)
-            cdc = cd2k[cand]
-            d2_oth = sum_sq(oth_x[:, None, :] - xc)
-            mrd_own = torch.maximum(torch.maximum(kd2[own], own_cd[:, None]), cdc) + eps * (own_n[:, None] + cn)
-            mrd_oth = torch.maximum(torch.maximum(d2_oth, oth_cd[:, None]), cdc) + eps * (oth_n[:, None] + cn)
-            not_ep = (cand != a[:, None]) & (cand != b[:, None])
-            killed |= ((torch.maximum(mrd_own, mrd_oth) < w2[:, None]) & not_ep).any(dim=1)
+            own_ok = (mrd_own[own] < w2[:, None]) & (cand != a[:, None]) & (cand != b[:, None])
+            d2_oth = sum_sq(oth_x[:, None, :] - xf[cand], order)
+            mrd_oth = torch.maximum(torch.maximum(d2_oth, oth_cd[:, None]), cd2k[cand]) + eps * (
+                xn[oth][:, None] + xn[cand]
+            )
+            killed |= (own_ok & (mrd_oth < w2[:, None])).any(dim=1)
         outs.append((killed, certified, d2_e, w2))
     if not outs:
         z = torch.zeros((0,), dtype=torch.float32, device=dev)
@@ -96,15 +107,14 @@ def edge_cascade_plain(
     return killed & valid, certified & valid, d2_e, w2
 
 
-def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool, block_e: int):
-    dev = x.device
-    n, d = x.shape
+def _check_operands(x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check: int, order: str):
+    n, _ = x.shape
     m = ea.shape[0]
     k_full = knn_idx.shape[1]
     for name, t in (("cd2k", cd2k), ("knn_idx", knn_idx), ("knn_d2", knn_d2),
                     ("ea", ea), ("eb", eb), ("valid", valid)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if cd2k.shape != (n,) or knn_idx.shape != (n, k_full) or knn_d2.shape != (n, k_full):
         raise ValueError(
             f"shapes: cd2k {tuple(cd2k.shape)}, knn_idx {tuple(knn_idx.shape)}, "
@@ -114,33 +124,63 @@ def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, fma: bool,
         raise ValueError("ea, eb and valid must be (m,) with valid of dtype bool")
     if not 0 <= k_check <= k_full:
         raise ValueError(f"k_check={k_check} must lie in [0, {k_full}]")
-    killed = torch.empty((m,), dtype=torch.int32, device=dev)
-    cert = torch.empty((m,), dtype=torch.int32, device=dev)
+    if order not in SUM_ORDERS:
+        raise ValueError(f"order must be one of {SUM_ORDERS}; got {order!r}")
+
+
+def _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, *, k_check: int, order: str, block_e: int, lanes: int):
+    dev = x.device
+    n, d = x.shape
+    m = ea.shape[0]
+    k_full = knn_idx.shape[1]
+    lanes = lanes or pick_lanes(k_check)
+    if lanes not in LANES or block_e % 32 or not 32 <= block_e <= 256:
+        raise ValueError(
+            f"the edge_cascade kernel takes lanes in {LANES} and a multiple of 32 threads per "
+            f"block up to 256; got lanes={lanes}, block_e={block_e}"
+        )
+    killed = torch.empty((m,), dtype=torch.bool, device=dev)
+    cert = torch.empty((m,), dtype=torch.bool, device=dev)
     d2_e = torch.empty((m,), dtype=torch.float32, device=dev)
     w2 = torch.empty((m,), dtype=torch.float32, device=dev)
     if m == 0:
-        return killed.bool(), cert.bool(), d2_e, w2
-    args = (
-        x.float().contiguous(), cd2k.float().contiguous(),
-        knn_idx.to(torch.int32).contiguous(), knn_d2.float().contiguous(),
-        ea.to(torch.int32).contiguous(), eb.to(torch.int32).contiguous(),
-        valid.contiguous(),
-    )
+        return killed, cert, d2_e, w2
+    xs = x.float().contiguous()
+    if xs.data_ptr() % 16:  # the kernel reads point rows as float4 (float2 at d = 2)
+        xs = xs.clone()
+    cds, kds = cd2k.float().contiguous(), knn_d2.float().contiguous()
+    kis, eas, ebs = (t.to(torch.int32).contiguous() for t in (knn_idx, ea, eb))
+    vs = valid.contiguous()
+    # the prologue's tables: (|x_p|^2, cd2k[p]) and (mrd_own, c) per (p, slot)
+    pn = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    tab = torch.empty((n, max(k_check, 1), 2), dtype=torch.int32, device=dev)
     fn = _build.load("edge_cascade").repro_edge_cascade
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
-    xs, cds, kis, kds, eas, ebs, vs = args
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
-            xs.data_ptr(), cds.data_ptr(), kis.data_ptr(), kds.data_ptr(), d, k_full,
-            eas.data_ptr(), ebs.data_ptr(), vs.data_ptr(), m, k_check, int(fma), block_e,
+            xs.data_ptr(), cds.data_ptr(), kis.data_ptr(), kds.data_ptr(), n, d, k_full,
+            eas.data_ptr(), ebs.data_ptr(), vs.data_ptr(), m, k_check, SUM_ORDERS.index(order),
+            lanes, block_e, pn.data_ptr(), tab.data_ptr(),
             killed.data_ptr(), cert.data_ptr(), d2_e.data_ptr(), w2.data_ptr(), stream,
         )
     _build.check(status, "edge_cascade")
     edge_cascade.launches += 1
-    return killed.bool(), cert.bool(), d2_e, w2
+    return killed, cert, d2_e, w2
+
+
+def kernel_config(d: int, lanes: int, block_e: int) -> dict:
+    """The launch configuration for (d, lanes, block_e) on the current card,
+    without launching: resident blocks per SM of the per-edge kernel and of
+    the prologue, and the threads per block of each."""
+    occ = (ctypes.c_int * 4)()
+    fn = _build.load("edge_cascade").repro_edge_cascade_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(d, lanes, block_e, ctypes.addressof(occ)), "edge_cascade occupancy")
+    return dict(zip(("blocks_per_sm", "threads", "prologue_blocks_per_sm", "prologue_threads"), occ))
 
 
 def edge_cascade(
@@ -153,24 +193,30 @@ def edge_cascade(
     valid: torch.Tensor,
     *,
     k_check: int,
-    fma: bool = False,
+    order: str = "seq",
     chunk: int = 65536,
     block_e: int = 256,
+    lanes: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused per-edge cascade: ``(killed, certified, d2_e, w2)``.
 
-    CUDA tensors run the kernel (``block_e`` threads per block); CPU
-    tensors run the plain version (``chunk`` edges per step).  ``fma``
-    picks the summation order (module docstring).  Invalid slots are False
-    in the bool outputs and hold garbage floats.
+    CUDA tensors run the kernels (``block_e`` threads per block, ``lanes``
+    of them per edge; 0 picks ``pick_lanes(k_check)``); CPU tensors run the
+    plain version (``chunk`` edges per step).  ``order`` is the summation
+    order (module docstring).  Invalid slots are False in the bool outputs
+    and hold garbage floats.  Sorted edges make the kernel faster (their
+    first endpoint's reads are shared by a warp), never more right.
     """
+    _check_operands(x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check, order)
     if x.device.type == "cpu":
         return edge_cascade_plain(
-            x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, fma=fma, chunk=chunk
+            x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, order=order, chunk=chunk
         )
     if x.device.type != "cuda":
         raise ValueError(f"edge_cascade runs on CUDA or CPU tensors; got {x.device}")
-    return _launch(x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, fma=fma, block_e=block_e)
+    return _launch(
+        x, cd2k, knn_idx, knn_d2, ea, eb, valid, k_check=k_check, order=order, block_e=block_e, lanes=lanes
+    )
 
 
 edge_cascade.launches = 0
@@ -186,7 +232,7 @@ def unpack_keys(ks: torch.Tensor, n_pack: int):
 
 
 def stage1_packed(
-    x, cd2k, knn_idx, knn_d2, ks, n_pack: int, *, k_check: int, chunk: int, block_e: int, fma: bool = False
+    x, cd2k, knn_idx, knn_d2, ks, n_pack: int, *, k_check: int, chunk: int, block_e: int, order: str = "seq"
 ):
     """Stage 1 of the fused build: unpack sorted keys, run ``edge_cascade``
     (the kernel on the card), split survivors on the certificate.
@@ -197,7 +243,7 @@ def stage1_packed(
     valid, first, lo, hi = unpack_keys(ks, n_pack)
     killed, cert, d2_e, w2 = edge_cascade(
         x, cd2k, knn_idx, knn_d2, lo, hi, valid,
-        k_check=k_check, fma=fma, chunk=chunk, block_e=block_e,
+        k_check=k_check, order=order, chunk=chunk, block_e=block_e,
     )
     surv = valid & first & ~killed
     surv_cert = surv & cert

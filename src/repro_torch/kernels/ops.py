@@ -11,13 +11,18 @@ torch ops on either device.  Every kNN backend over-selects candidates and
 runs the same diff-form ``_refine_knn``, so near-tie neighbour order is
 identical across backends.
 
-Sums of squares come in two fixed orders, so that the port reproduces the
-reference's float32 bits and agrees with itself across devices:
+Sums of squares come in three fixed orders (``SUM_ORDERS``), so that the
+port reproduces the reference's float32 bits and agrees with itself across
+devices:
 
   * ``sum_sq_seq`` — index order, one rounding per product and per add.
   * ``sum_sq_fma`` — index order with each add fused into the product, as
-    XLA compiles the reference's refine and canonical-weight programs, and
-    as ``fmaf`` computes it on the card (``fma_f32``).
+    XLA compiles the reference's refine and canonical-weight programs at
+    d <= 32, and as ``fmaf`` computes it on the card (``fma_f32``).
+  * ``sum_sq_win32`` — windows of 32, as XLA's CPU pipeline rewrites every
+    row sum longer than 32; it equals ``sum_sq_seq`` at d <= 32.
+
+``sum_order`` says which one each reference program compiles to at width d.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from . import ref
 from .pairwise_topk import pairwise_topk
 
 BACKENDS = ("cuda", "torch", "ref")
+SUM_ORDERS = ("seq", "fma", "win32")
+# the programs whose sums of squares the port reproduces (``sum_order``)
+SUM_PROGRAMS = ("cascade", "slot", "refine", "weights")
 
 
 def sum_sq_seq(v: torch.Tensor) -> torch.Tensor:
@@ -64,6 +72,66 @@ def sum_sq_fma(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def sum_sq_win32(v: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis in XLA's CPU order for rows longer
+    than 32: ``reduce-window`` then ``reduce``.
+
+    With W = ceil(d / 32) windows, the row is padded with zeros to 32 W
+    elements, (32 W - d) // 2 of them in front and the rest behind.  Window
+    w sums its real elements in index order, unfused, each square rounded
+    (the squares are a separate fusion, so no add is fused into a product);
+    the W window sums are then added in order.  At d <= 32 there is one
+    window and this is ``sum_sq_seq``.
+    """
+    d = v.shape[-1]
+    n_win = -(-d // 32)
+    pad_lo = (32 * n_win - d) // 2
+    total = None
+    for w in range(n_win):
+        s0, s1 = max(0, 32 * w - pad_lo), min(d, 32 * w + 32 - pad_lo)
+        acc = v[..., s0] * v[..., s0]
+        for j in range(s0 + 1, s1):
+            acc = acc + v[..., j] * v[..., j]
+        total = acc if total is None else total + acc
+    return total
+
+
+_SUM_SQ = {"seq": sum_sq_seq, "fma": sum_sq_fma, "win32": sum_sq_win32}
+
+
+def sum_sq(v: torch.Tensor, order: str) -> torch.Tensor:
+    """Sum of squares over the last axis in ``order`` (one of ``SUM_ORDERS``)."""
+    if order not in _SUM_SQ:
+        raise ValueError(f"order must be one of {SUM_ORDERS}; got {order!r}")
+    return _SUM_SQ[order](v)
+
+
+def sum_order(d: int, program: str) -> str:
+    """The order in which XLA on the CPU sums the squares of a reference
+    program at width ``d``, read from its optimised HLO and LLVM IR:
+
+      * ``"cascade"`` — the fused cascade programs (``stage1_packed``,
+        ``_edge_cascade_jnp``, ``edge_cascade`` under ``pallas_interpret``),
+        their d2, norms and cross d2: unfused for d <= 8, an FMA chain for
+        9 <= d <= 32;
+      * ``"slot"`` — the slot path's eager ``edge_d2`` and its kNN-lune
+        check: unfused for d <= 32 (on edge counts that fill XLA's vector
+        loops, as the reference's power-of-two buckets do);
+      * ``"refine"`` and ``"weights"`` — ``_refine_knn`` and the canonical
+        edge weights: an FMA chain for d <= 32.
+
+    Above 32 every one of them is ``"win32"``: the row sum becomes a
+    ``reduce-window`` of 32 fed by a separate multiply fusion.
+    """
+    if program not in SUM_PROGRAMS:
+        raise ValueError(f"program must be one of {SUM_PROGRAMS}; got {program!r}")
+    if d > 32:
+        return "win32"
+    if program == "cascade":
+        return "seq" if d <= 8 else "fma"
+    return "seq" if program == "slot" else "fma"
+
+
 def _refine_knn(xq: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, *, k_top: int):
     """Diff-form re-evaluation of over-selected candidates.
 
@@ -73,13 +141,14 @@ def _refine_knn(xq: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, *, k_top: 
     re-sorts them (stable: candidate order breaks ties) and keeps ``k_top``.
     """
     rows = 4096
+    sq_order = sum_order(int(x.shape[1]), "refine")
     xqf = xq.float()
     xf = x.float()
     d2_out, i_out = [], []
     for r0 in range(0, xq.shape[0], rows):
         ic = idx[r0 : r0 + rows]
         diff = xqf[r0 : r0 + rows, None, :] - xf[ic.clamp_min(0).long()]
-        d2r = torch.where(ic < 0, float("inf"), sum_sq_fma(diff))
+        d2r = torch.where(ic < 0, float("inf"), sum_sq(diff, sq_order))
         d2s, order = torch.sort(d2r, dim=1, stable=True)
         d2_out.append(d2s[:, :k_top])
         i_out.append(ic.gather(1, order[:, :k_top]))

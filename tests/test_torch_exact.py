@@ -256,34 +256,41 @@ def test_filter_edges_matches_reference(blobs, variant):
     assert 0 < len(kept_t) < len(edges)
 
 
-def _gauss64d():
-    rng = np.random.default_rng(64)
-    centers = rng.uniform(-6, 6, size=(5, 64))
-    return np.concatenate([rng.normal(c, 1.0, size=(120, 64)) for c in centers]).astype(np.float32)
+def _gauss(d: int, per_cluster: int):
+    rng = np.random.default_rng(d)
+    centers = rng.uniform(-6, 6, size=(5, d))
+    return np.concatenate([rng.normal(c, 1.0, size=(per_cluster, d)) for c in centers]).astype(np.float32)
 
 
-def test_d64_exact_fit_matches_reference():
-    """d = 64, past the widths (d <= 32) where the port reproduces XLA's
-    float32 sums of squares.  Everything integer is equal: graph edges, the
-    filter counts, MST edge ids and labels for every mpts.  The core
-    distances and MST weights agree to rtol 1e-5, the roadmap's float
-    tolerance, not bit for bit: above d = 32 XLA's summation order for the
-    squares is not a lane-strided index order, and the port's FMA chain in
-    index order can land an ulp away."""
-    x = _gauss64d()
-    ref = j_multi.multi_hdbscan(x, 8, variant="rng", backend="jnp")
-    port = t_multi.multi_hdbscan(x, 8, variant="rng", device="cpu")
+def _wide_exact_fit_matches_reference(x, kmax):
+    ref = j_multi.multi_hdbscan(x, kmax, variant="rng", backend="jnp")
+    port = t_multi.multi_hdbscan(x, kmax, variant="rng", device="cpu")
     assert port.graph.stats.get("path") == ref.graph.stats.get("path") == "fused"
     np.testing.assert_array_equal(port.graph.edges, ref.graph.edges)
     for key in STATS:
         assert port.graph.stats[key] == ref.graph.stats[key], key
     assert port.graph.stats["m_unresolved"] > 0
     np.testing.assert_array_equal(port.knn_idx, ref.knn_idx)
-    np.testing.assert_allclose(port.cd2, ref.cd2, rtol=1e-5)
-    assert port.mpts_values == ref.mpts_values == list(range(2, 9))
+    np.testing.assert_array_equal(port.cd2, ref.cd2)
+    np.testing.assert_array_equal(port.graph.d2, ref.graph.d2)
+    np.testing.assert_array_equal(port.graph.w2_kmax, ref.graph.w2_kmax)
+    assert port.mpts_values == ref.mpts_values == list(range(2, kmax + 1))
     for h_j, h_t in zip(ref.hierarchies, port.hierarchies):
-        msg = f"d=64 mpts={h_j.mpts}"
+        msg = f"d={x.shape[1]} mpts={h_j.mpts}"
         np.testing.assert_array_equal(h_t.mst_ea, h_j.mst_ea, err_msg=msg)
         np.testing.assert_array_equal(h_t.mst_eb, h_j.mst_eb, err_msg=msg)
         np.testing.assert_array_equal(h_t.labels, h_j.labels, err_msg=msg)
-        np.testing.assert_allclose(h_t.mst_w, h_j.mst_w, rtol=1e-5, atol=0, err_msg=msg)
+        np.testing.assert_array_equal(h_t.mst_w, h_j.mst_w, err_msg=msg)
+
+
+def test_d64_exact_fit_matches_reference():
+    """d = 64, where XLA sums every row of squares in windows of 32
+    (``ops.sum_order``).  Everything integer is equal: graph edges, the
+    filter counts, MST edge ids and labels for every mpts; the core
+    distances, the graph's d2 and w2 and the MST weights bit for bit."""
+    _wide_exact_fit_matches_reference(_gauss(64, 120), 8)
+
+
+def test_d100_exact_fit_matches_reference():
+    """d = 100: four windows of 32, the row padded 14 + 14."""
+    _wide_exact_fit_matches_reference(_gauss(100, 120), 8)

@@ -170,9 +170,9 @@ def test_stage1_packed_matches_reference(blobs_candidates):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
 
 
-@pytest.mark.parametrize("d", [2, 8, 9, 16, 32])
+@pytest.mark.parametrize("d", [2, 8, 9, 16, 32, 33, 48, 64, 100])
 def test_cascade_sum_order_matches_the_reference_programs(d):
-    """``sum_order_fma`` picks, at each width, the order in which XLA sums
+    """``ops.sum_order`` picks, at each width, the order in which XLA sums
     the reference's cascade squares: the fused programs (stage 1 in one
     program, the jnp twin, the Pallas kernel in interpret mode) and the
     slot path's eager ``edge_d2``.  The stage d2 and w2 are bit-equal.
@@ -205,14 +205,132 @@ def test_cascade_sum_order_matches_the_reference_programs(d):
         )[2],
     }
     t = torch.from_numpy
-    for is_fused, programs in ((True, fused), (False, {"slot edge_d2": j_mrd.edge_d2(J(x), J(lo), J(hi))})):
+    for program, programs in (("cascade", fused), ("slot", {"slot edge_d2": j_mrd.edge_d2(J(x), J(lo), J(hi))})):
+        order = t_ops.sum_order(d, program)
+        assert order == ("win32" if d > 32 else order)
         _, _, d2_t, w2_t = t_fc.edge_cascade(
-            t(x), t(cd2k), t(idx), t(kd2), t(lo), t(hi), t(valid), k_check=k,
-            fma=t_fc.sum_order_fma(d, fused=is_fused),
+            t(x), t(cd2k), t(idx), t(kd2), t(lo), t(hi), t(valid), k_check=k, order=order,
         )
         for name, d2_j in programs.items():
             np.testing.assert_array_equal(d2_t.numpy(), np.asarray(d2_j), err_msg=name)
         np.testing.assert_array_equal(w2_t.numpy(), np.maximum(cd2k[lo], np.maximum(cd2k[hi], d2_t.numpy())))
+
+
+@pytest.mark.parametrize("d", [33, 40, 48, 64, 100, 256])
+def test_sum_sq_win32_matches_jnp_sum(d):
+    """Above 32, XLA on the CPU sums a row in windows of 32 (``sum_sq_win32``):
+    bit for bit equal to ``jnp.sum(v * v, -1)`` under ``jit``, where no
+    index order is."""
+    import jax
+
+    rng = np.random.default_rng(d)
+    a = (rng.normal(size=(4096, d)) * 3).astype(np.float32)
+    b = rng.normal(size=(4096, d)).astype(np.float32)
+    ref_diff = np.asarray(jax.jit(lambda a, b: jnp.sum((a - b) * (a - b), -1))(a, b))
+    ref_norm = np.asarray(jax.jit(lambda a: jnp.sum(a * a, -1))(a))
+    np.testing.assert_array_equal(t_ops.sum_sq_win32(torch.from_numpy(a - b)).numpy(), ref_diff)
+    np.testing.assert_array_equal(t_ops.sum_sq_win32(torch.from_numpy(a)).numpy(), ref_norm)
+    assert (t_ops.sum_sq_seq(torch.from_numpy(a)).numpy() != ref_norm).any()
+
+
+def test_sum_sq_win32_is_the_index_order_up_to_32():
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 32)).astype(np.float32))
+    for d in (1, 2, 7, 8, 31, 32):
+        assert torch.equal(t_ops.sum_sq_win32(v[:, :d]), t_ops.sum_sq_seq(v[:, :d]))
+
+
+@pytest.mark.parametrize("d", [48, 100])
+def test_refine_and_weights_sum_in_the_reference_order_above_32(d):
+    """The refine (kNN d2, hence the core distances) and the canonical edge
+    weights equal the reference's bit for bit above d = 32."""
+    from repro.core import rng as j_rng
+
+    from repro_torch.core import rng as t_rng
+
+    x = _points(300, d, seed=d)
+    d_j, i_j = j_ops.knn(jnp.asarray(x), 15, backend="jnp")
+    d_t, i_t = t_ops.knn(torch.from_numpy(x), 15, backend="torch")
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    rng = np.random.default_rng(d + 1)
+    ea = rng.integers(0, 300, 1000).astype(np.int32)
+    eb = rng.integers(0, 300, 1000).astype(np.int32)
+    cd2k = np.array(d_j)[:, -1]
+    w_j = j_rng.canonical_edge_weights(jnp.asarray(x), jnp.asarray(cd2k), ea, eb)
+    w_t = t_rng.canonical_edge_weights(torch.from_numpy(x), torch.from_numpy(cd2k), torch.from_numpy(ea),
+                                       torch.from_numpy(eb))
+    for a, b in zip(w_t, w_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _tie_case(d: int, k_full: int):
+    """Clustered points with 40 exact duplicates, the reference's kNN, and
+    an unsorted edge list: kNN edges (a neighbour is an endpoint), edges
+    from a point to its duplicate (d2 = 0), each point to its k-th
+    neighbour (d2 equal to its core distance, so w2 ties cd2), random
+    pairs, and invalid slots."""
+    rng = np.random.default_rng(d + k_full)
+    centers = rng.uniform(-4, 4, size=(3, d))
+    x = (centers[rng.integers(0, 3, 260)] + rng.normal(0, 0.6, size=(260, d))).astype(np.float32)
+    x = np.concatenate([x, x[:40]])
+    n = len(x)
+    d2, idx = (np.array(v) for v in j_ops.knn(jnp.asarray(x), k_full, backend="jnp"))
+    rows = np.arange(n)
+    pairs = np.concatenate([
+        np.stack([np.repeat(rows, 3), idx[:, :3].ravel()], 1),
+        np.stack([rows[:40], rows[260:]], 1),
+        np.stack([rows, idx[:, -1]], 1),
+        rng.integers(0, n, size=(600, 2)),
+    ])
+    pairs = pairs[rng.permutation(len(pairs))]
+    valid = rng.random(len(pairs)) > 0.05
+    return x, d2, idx, pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32), valid
+
+
+@pytest.mark.parametrize("backend", ["pallas_interpret", "jnp"])
+@pytest.mark.parametrize("k_check", [2, 15])
+@pytest.mark.parametrize("d", [48, 64])
+def test_edge_cascade_plain_matches_reference_above_32(d, k_check, backend):
+    """The plain cascade (own-side table, split test, windows of 32) against
+    the reference's ``edge_cascade`` above d = 32, on unsorted edges with
+    ties: verdicts equal, d2 and w2 bit-equal."""
+    x, d2, idx, ea, eb, valid = _tie_case(d, 15)
+    cd2k = d2[:, -1]
+    J, t = jnp.asarray, torch.from_numpy
+    out_j = j_fc.edge_cascade(J(x), J(cd2k), J(idx), J(d2), J(ea), J(eb), J(valid),
+                              k_check=k_check, backend=backend)
+    out_t = t_fc.edge_cascade(t(x), t(cd2k), t(idx), t(d2), t(ea), t(eb), t(valid),
+                              k_check=k_check, order=t_ops.sum_order(d, "cascade"))
+    killed_j, cert_j, d2_j, w2_j = (np.asarray(v) for v in out_j)
+    killed_t, cert_t, d2_t, w2_t = (v.numpy() for v in out_t)
+    np.testing.assert_array_equal(killed_t, killed_j)
+    np.testing.assert_array_equal(cert_t, cert_j)
+    np.testing.assert_array_equal(d2_t[valid], d2_j[valid])
+    np.testing.assert_array_equal(w2_t[valid], w2_j[valid])
+    # both verdicts occur, and the k-th-neighbour edges tie w2 with cd2
+    assert killed_t.any() and cert_t.any() and (~killed_t & ~cert_t & valid).any()
+    kth = (eb == idx[ea, -1]) & valid
+    assert (w2_t[kth] == cd2k[ea[kth]]).any()
+
+
+def test_own_table_is_the_own_half_of_each_check(blobs):
+    """``own_table`` holds, per (point, slot), the own-side mrd of the
+    reference's check, with the norms of the order asked for."""
+    x = torch.from_numpy(blobs[0])
+    d2, idx = t_ops.knn(x, 7, backend="torch")
+    cd2k = d2[:, -1]
+    xn, mrd_own = t_fc.own_table(x, cd2k, idx, d2, k_check=5, order="fma")
+    assert mrd_own.shape == (len(x), 5)
+    assert torch.equal(xn, t_ops.sum_sq_fma(x))
+    c = idx[:, :5].long()
+    eps = torch.tensor(t_fc._EPS, dtype=torch.float32)
+    expect = torch.maximum(torch.maximum(d2[:, :5], cd2k[:, None]), cd2k[c]) + eps * (xn[:, None] + xn[c])
+    assert torch.equal(mrd_own, expect)
+
+
+@pytest.mark.parametrize("k_check,lanes", [(0, 1), (2, 1), (8, 1), (9, 2), (15, 2), (63, 8), (64, 8), (127, 16), (300, 32)])
+def test_pick_lanes_gives_a_lane_at_most_16_checks_up_to_a_warp(k_check, lanes):
+    assert t_fc.pick_lanes(k_check) == lanes
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
@@ -233,6 +351,27 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors(monkeypatch):
             torch.empty((16, 3), device="meta"), i, i,
             torch.empty((16,), dtype=torch.bool, device="meta"), k_check=2,
         )
+
+
+def test_edge_cascade_rejects_bad_input():
+    x = torch.zeros((16, 2))
+    idx = torch.zeros((16, 3), dtype=torch.int32)
+    e = torch.zeros((4,), dtype=torch.int32)
+    valid = torch.ones((4,), dtype=torch.bool)
+    args = (x, x[:, 0], idx, x[:, :1].expand(16, 3).contiguous(), e, e, valid)
+    with pytest.raises(ValueError, match="order"):
+        t_fc.edge_cascade(*args, k_check=2, order="pairwise")
+    with pytest.raises(ValueError, match="k_check"):
+        t_fc.edge_cascade(*args, k_check=4)
+    with pytest.raises(ValueError, match="valid"):
+        t_fc.edge_cascade(*args[:6], valid.int(), k_check=2)
+    # the launch path refuses a lane count or block size the kernel has no instance for
+    with pytest.raises(ValueError, match="lanes"):
+        t_fc._launch(*args, k_check=2, order="seq", block_e=256, lanes=3)
+    with pytest.raises(ValueError, match="block"):
+        t_fc._launch(*args, k_check=2, order="seq", block_e=100, lanes=4)
+    with pytest.raises(ValueError, match="block"):
+        t_fc._launch(*args, k_check=2, order="seq", block_e=512, lanes=4)
 
 
 def test_pairwise_topk_rejects_bad_input():
