@@ -43,12 +43,27 @@ Phases (any failure exits non-zero):
      same queries against its saved artifact loaded on the CPU (labels and
      attachment neighbours equal, probabilities and lambdas to rtol 1e-5,
      equal DBCV profiles), with the rate in queries per second;
-  8. warm per-stage seconds, each kernel's time beside its plain version,
+  8. the dual-tree tier: ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` at
+     n = 24000 (at or above ``Plan.dualtree_min_n``, so the default plan
+     takes the tier), with the ledger's tags exactly ``knn``, ``graph``,
+     ``mst``; held bit for bit against the port's own ``device="cpu"`` fit
+     (graph edges, d2, w2, MST edge ids, MST weights, labels) and against a
+     ``candidate_method="wspd"`` fit on the card (kNN bit-equal, sorted MST
+     weights bit-equal, labels equal), with both tiers' stage seconds;
+  9. serving: ``ClusterServeEngine.load`` of phase 7's artifact on the card,
+     eight client threads sending phase 7's queries in requests of 1-64
+     rows (a quarter over the full range, the rest at one mpts, one in
+     eight with the leaf policy): every answer bit-equal to the card
+     model's direct prediction of the same rows, mean batch above 1, bad
+     requests failing alone, the extraction cache bounded, labels,
+     membership and profiles equal to direct calls; p50/p95 latency,
+     queries/s and the mean batch;
+  10. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
      ``edge_cascade`` per stage at kmax = 16 and 64 and over its lanes per
      edge), the count of implicit syncs in one warm fit, the device's busy
-     share of a fit and a host profile.
+     share of a fit and of a dual-tree fit, and a host profile.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -77,6 +92,8 @@ N_RAGGED = 1007
 N_DENSE = 2000
 N_EXACT_CPU = 3000
 N_QUERIES = 4096
+N_DUALTREE = 24000                # at or above Plan.dualtree_min_n
+N_CLIENTS = 8
 RTOL = 1e-5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -575,42 +592,241 @@ def cascade_flops_bytes(n: int, d: int, m: int, k: int, m_valid: int, m_killed: 
     return flops, nbytes
 
 
-def where_the_time_goes(fit, record: dict) -> None:
-    """Device busy share of one warm fit (``torch.profiler``: the union of
-    the device activity intervals over the host wall time) and the host
-    functions with the most cumulative time in another (``cProfile``)."""
+def dualtree_phase(smi: str, record: dict) -> None:
+    """The dual-tree tier at n = N_DUALTREE on the card, with the default
+    plan: against the port's own CPU fit (bit for bit) and against the
+    card's WSPD tier (the cross-tier oracle)."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.kernels import fused_cascade as fc, lune_filter as lf, pairwise_topk as pt
+
+    def fit(**kw):
+        """The fit, its views, its stage seconds and the fit's ledger tags."""
+        t0 = time.monotonic()
+        with engine.transfer_ledger() as led:
+            est = MultiHDBSCAN(kmax=KMAX, **kw).fit(x)
+        t1 = time.monotonic()
+        views = est.select_all()
+        stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+        stages["hierarchy"] = time.monotonic() - t1
+        stages["fit_s"] = t1 - t0
+        return est, views, stages, engine.io.tags(led)
+
+    x = make_points(N_DUALTREE, D, SEED)
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    est, views, stages, tags = fit()
+    torch.cuda.synchronize()
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                "lune_filter": lf.lune_filter.launches}
+    g = est.graph_.stats
+    print(f"dual-tree tier: n={N_DUALTREE}, d={D}, kmax={KMAX} on the card, default plan: graph {g}, "
+          f"ledger {tags}, launches {launches}", flush=True)
+    check(est.plan_.backend == "cuda", "the dual-tree fit ran on the cuda backend")
+    check(g.get("path") == "dualtree", f"n={N_DUALTREE} takes the dual-tree tier with the default plan")
+    check(tags == ["knn", "graph", "mst"], f"the dual-tree fit syncs at knn, graph and mst only; got {tags}")
+    check(all(v == 0 for v in launches.values()), "the dual-tree tier launches none of the three kernels")
+
+    est_c, views_c, stages_c, _ = fit(device="cpu")
+    m, mc = est.model_.msts, est_c.model_.msts
+    for name, a, b in (("graph edges", est.graph_.edges, est_c.graph_.edges), ("graph d2", est.graph_.d2,
+                       est_c.graph_.d2), ("graph w2_kmax", est.graph_.w2_kmax, est_c.graph_.w2_kmax),
+                       ("kNN d2", m.knn_d2, mc.knn_d2), ("kNN idx", m.knn_idx, mc.knn_idx),
+                       ("MST ea", m.mst_ea, mc.mst_ea), ("MST eb", m.mst_eb, mc.mst_eb), ("MST w", m.mst_w, mc.mst_w)):
+        check(np.array_equal(a, b), f"dual-tree tier: {name} bit-equal to the CPU fit")
+    for v_g, v_c in zip(views, views_c):
+        check(v_g.labels.shape == (N_DUALTREE,), "dual-tree labels shape")
+        check(np.array_equal(v_g.labels, v_c.labels), f"dual-tree tier: labels equal the CPU fit at mpts={v_g.mpts}")
+    print(f"dual-tree tier: card == CPU fit bit for bit (graph, kNN, MSTs, labels for mpts 2..{KMAX}; "
+          f"CPU fit {stages_c['fit_s']:.1f} s)", flush=True)
+
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = 0
+    est_w, views_w, stages_w, _ = fit(plan=engine.resolve_plan(device="cuda", candidate_method="wspd"))
+    launches_w = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches}
+    mw = est_w.model_.msts
+    check(est_w.graph_.stats.get("path") == "fused", "the wspd fit at n=24000 takes the fused path")
+    check(launches_w["pairwise_topk"] >= 1 and launches_w["edge_cascade"] >= 2, "the wspd fit launched its kernels")
+    check(np.array_equal(m.knn_d2, mw.knn_d2) and np.array_equal(m.knn_idx, mw.knn_idx),
+          "both tiers' kNN bit-equal")
+    check(np.array_equal(np.sort(m.mst_w, axis=1), np.sort(mw.mst_w, axis=1)),
+          "both tiers' sorted MST weights bit-equal for every mpts")
+    for v_d, v_w in zip(views, views_w):
+        check(np.array_equal(v_d.labels, v_w.labels), f"both tiers' labels equal at mpts={v_d.mpts}")
+    record["dualtree"] = {"n": N_DUALTREE, "d": D, "kmax": KMAX, "graph": g, "ledger": tags,
+                          "stages_s": stages, "cpu_stages_s": stages_c, "wspd_stages_s": stages_w,
+                          "wspd_graph": est_w.graph_.stats, "wspd_launches": launches_w}
+    print(f"dual-tree tier == WSPD tier on the card (kNN, sorted MST weights, labels for mpts 2..{KMAX}); "
+          f"stage seconds at n={N_DUALTREE} on {smi} (one fit each, process warm): dual-tree "
+          f"{json.dumps(stages)}, wspd {json.dumps(stages_w)}", flush=True)
+
+
+def serving_requests(n_rows: int):
+    """Requests over rows [0, n_rows): (start, stop, mpts or None, leaf)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    out, r0 = [], 0
+    while r0 < n_rows:
+        r1 = min(n_rows, r0 + int(rng.integers(1, 65)))
+        mpts = None if rng.random() < 0.25 else int(rng.integers(2, KMAX + 1))
+        out.append((r0, r1, mpts, bool(rng.random() < 0.125)))
+        r0 = r1
+    return out
+
+
+def serving_phase(path: str, q, smi: str, record: dict) -> None:
+    """``ClusterServeEngine`` booted from a saved artifact on the card,
+    under N_CLIENTS concurrent client threads; every answer against the
+    card model's direct prediction of the same rows."""
+    import threading
+
+    import numpy as np
+    from repro_torch.api import FittedModel, SelectionPolicy
+    from repro_torch.serve import ClusterServeEngine
+
+    leaf = SelectionPolicy(method="leaf")
+    direct = FittedModel.load(path)
+    want = {False: direct.approximate_predict(q), True: direct.approximate_predict(q, policy=leaf)}
+    requests = serving_requests(len(q))
+    eng = ClusterServeEngine.load(
+        path, serve_options={"max_batch": 512, "max_delay_ms": 2.0, "hierarchy_cache_size": 4})
+    answers, latency, errors, cache_sizes = {}, {}, [], []
+    try:
+        check(eng.device.type == "cuda" and eng.model.plan.backend == "cuda", "the engine serves on the card")
+        eng.predict(q[:8])  # extracts the levels once, so the timed traffic is warm
+        eng.reset_stats()
+
+        def client(c: int):
+            try:
+                for i in range(c, len(requests), N_CLIENTS):
+                    r0, r1, mpts, use_leaf = requests[i]
+                    t0 = time.monotonic()
+                    answers[i] = eng.predict(q[r0:r1], mpts, leaf if use_leaf else None, timeout=300)
+                    latency[i] = time.monotonic() - t0
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        # bad requests in the middle of the traffic: each fails alone at submit time
+        bad_nan = q[:3].copy()
+        bad_nan[1, 2] = np.nan
+        for bad, mpts, kind in ((bad_nan, None, ValueError), (q[:4, :5], 5, ValueError), (q[:2], 99, KeyError)):
+            try:
+                eng.submit_predict(bad, mpts)
+                check(False, f"a bad request ({kind.__name__}) was accepted")
+            except kind:
+                pass
+        while any(t.is_alive() for t in threads):
+            cache_sizes.append(len(eng.model._cache))
+            time.sleep(0.005)
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        stats = eng.stats()
+        check(not errors, f"every client request was answered: {errors[:3]}")
+        check(len(answers) == len(requests), "every request has an answer")
+        for i, (r0, r1, mpts, use_leaf) in enumerate(requests):
+            w, got = want[use_leaf], answers[i]
+            if mpts is None:
+                for f in ("labels", "neighbors", "lambdas", "probabilities"):
+                    check(np.array_equal(getattr(got, f), getattr(w, f)[:, r0:r1]),
+                          f"served {f} bit-equal to the direct prediction (request {i})")
+            else:
+                r = w.mpts_values.index(mpts)
+                check(np.array_equal(got[0], w.labels[r, r0:r1]) and np.array_equal(got[1], w.probabilities[r, r0:r1]),
+                      f"served labels and probabilities bit-equal to the direct prediction (request {i})")
+        check(stats["mean_batch"] > 1, f"the engine micro-batched: mean batch {stats['mean_batch']}")
+        cache_sizes.append(len(eng.model._cache))
+        for mpts in (2, 9, KMAX):
+            check(np.array_equal(eng.labels(mpts), direct.select(mpts).labels), f"served labels at mpts={mpts}")
+            check(np.array_equal(eng.labels(mpts, policy=leaf), direct.select(mpts, leaf).labels),
+                  f"served leaf labels at mpts={mpts}")
+            got_m, want_m = eng.membership(mpts), direct.select(mpts)
+            check(np.array_equal(got_m.labels, want_m.labels) and np.array_equal(got_m.probabilities,
+                  want_m.probabilities), f"served membership at mpts={mpts}")
+            cache_sizes.append(len(eng.model._cache))
+        check(eng.profile() == direct.mpts_profile(), "served profile equals the direct call")
+        check(eng.dbcv_profile() == direct.dbcv_profile(), "served DBCV profile equals the direct call")
+        cache_sizes.append(len(eng.model._cache))
+        check(max(cache_sizes) <= 4, f"the extraction cache held at most 4 entries; saw {max(cache_sizes)}")
+    finally:
+        eng.close()
+    lat_ms = np.sort(np.fromiter(latency.values(), float)) * 1e3
+    p50, p95 = float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 95))
+    qps = len(q) / wall
+    n_full = sum(r[2] is None for r in requests)
+    record["serving"] = {"requests": len(requests), "full_range_requests": n_full,
+                         "leaf_requests": sum(r[3] for r in requests), "clients": N_CLIENTS,
+                         "p50_ms": p50, "p95_ms": p95, "queries_per_s": qps, "wall_s": wall,
+                         "engine_stats": stats, "max_cache_entries": max(cache_sizes)}
+    print(f"serving: {len(requests)} requests ({n_full} over the full range) from {N_CLIENTS} clients, every answer "
+          f"bit-equal to the direct prediction, bad requests failed alone, cache at most {max(cache_sizes)} "
+          f"entries; on {smi}: client latency p50 {p50:.3f} ms, p95 {p95:.3f} ms, {qps:.1f} queries/s, "
+          f"mean batch {stats['mean_batch']} ({stats['n_batches']} batches)", flush=True)
+
+
+def busy_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) spans."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            total += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def where_the_time_goes(fit, record: dict, dualtree_fit=None) -> None:
+    """Device busy share of one warm fit, and of a dual-tree fit in the same
+    profiler session (``torch.profiler``: the union of the device activity
+    intervals inside each fit's ``record_function`` window, over the host
+    wall time; one session, since a second one in a process may record no
+    kernels), and the host functions with the most cumulative time in
+    another fit (``cProfile``)."""
     import cProfile
     import pstats
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    fits = {"fit": fit, "dualtree_fit": dualtree_fit}
+    walls = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fit()
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            busy_us += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
+        for name, fn in fits.items():
+            if fn is None:
+                continue
+            with record_function(name):
+                t0 = time.monotonic()
+                fn()
+                torch.cuda.synchronize()
+                walls[name] = time.monotonic() - t0
+    events = prof.events()
+    # each record_function window also shows on the device timeline as an
+    # annotation spanning it: count only the device's own activities
+    device = [(e.time_range.start, e.time_range.end) for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in fits]
+    for name, wall_s in walls.items():
+        win = [e.time_range for e in events if e.name == name and e.device_type == DeviceType.CPU]
+        spans = [(s, e) for s, e in device if win and win[0].start <= s and e <= win[0].end]
+        busy_s = busy_us(spans) / 1e6
+        key = "" if name == "fit" else "dualtree_"
+        record[f"{key}profiled_fit_s"] = wall_s
+        record[f"{key}device_busy_s"] = busy_s if spans else None
+        record[f"{key}device_activities"] = len(spans)
+        what = "fit" if name == "fit" else f"dual-tree fit (n={N_DUALTREE})"
+        if spans:
+            print(f"device busy {busy_s:.4f} s of a {wall_s:.3f} s profiled {what} "
+                  f"({len(spans)} device activities; idle share {1 - busy_s / wall_s:.4f})", flush=True)
         else:
-            cur_e = max(cur_e, e)
-    busy_us += 0.0 if cur_e is None else cur_e - cur_s
-    record["profiled_fit_s"] = wall_s
-    record["device_busy_s"] = busy_us / 1e6 if spans else None
-    record["device_activities"] = len(spans)
-    if spans:
-        print(f"device busy {busy_us / 1e6:.4f} s of a {wall_s:.3f} s profiled fit "
-              f"({len(spans)} device activities; idle share {1 - busy_us / 1e6 / wall_s:.4f})", flush=True)
-    else:
-        print("device busy share: not measured (the profiler recorded no device activity)", flush=True)
+            print(f"device busy share of the {what}: not measured (the profiler recorded no device activity)",
+                  flush=True)
 
     pr = cProfile.Profile()
     pr.enable()
@@ -866,7 +1082,13 @@ def main(argv: list[str]) -> int:
           f"query kNN {record['predict_query_knn_ms']:.3f} ms a batch), "
           f"{record['predict_qps_cpu']:.0f} queries/s on the host CPU (warm); launches {launches_p}", flush=True)
 
-    # -- 8. timings ----------------------------------------------------------
+    # -- 8. the dual-tree tier -----------------------------------------------
+    dualtree_phase(smi, record)
+
+    # -- 9. serving ------------------------------------------------------------
+    serving_phase(path, q, smi, record)
+
+    # -- 10. timings ---------------------------------------------------------
     est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     t0 = time.monotonic()
     est_w.select_all()
@@ -885,7 +1107,9 @@ def main(argv: list[str]) -> int:
             torch.cuda.set_sync_debug_mode(0)
     record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
-    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record)
+    x_dt = make_points(N_DUALTREE, D, SEED)
+    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record,
+                        lambda: MultiHDBSCAN(kmax=KMAX).fit(x_dt))
 
     kernels = []
     by_k = record["pairwise_topk_ms_by_k"] = topk_times(x)

@@ -4,7 +4,9 @@ Public API:
   multi_hdbscan       — all hierarchies for mpts in [kmin, kmax] via RNG^kmax
   fit_msts            — the shared graph + all MSTs, no extraction
   extract_hierarchies — batched on-demand extraction from a MultiMSTResult
-  build_rng_graph     — the single RNG^kmax (variants rng_ss / rng_star / rng)
+  build_rng_graph     — the single RNG^kmax (variants rng_ss / rng_star / rng),
+                        or the dual-tree tier's kNN ∪ Borůvka graph at large n
+  dualtree            — the dual-tree candidate searches (a numpy copy)
   boruvka_mst(_range) — batched edge-list MSTs
   linkage             — batched single-linkage (extraction stage 1)
   hierarchy           — extraction (a numpy copy of the reference's module)
@@ -12,7 +14,7 @@ Public API:
   dbcv                — DBCV relative validity (a numpy copy)
 """
 
-from . import boruvka, dbcv, hierarchy, linkage, mrd, multi, predict, rng, sbcn, wspd
+from . import boruvka, dbcv, dualtree, hierarchy, linkage, mrd, multi, predict, rng, sbcn, wspd
 from .boruvka import boruvka_mst, boruvka_mst_range
 from .linkage import single_linkage_batch
 from .mrd import core_distances2, mrd2_from_parts, reweight_all_mpts
@@ -29,7 +31,7 @@ from .multi import (
 from .rng import RngGraph, build_rng_graph
 
 __all__ = [
-    "boruvka", "dbcv", "hierarchy", "linkage", "mrd", "multi", "predict", "rng", "sbcn", "wspd",
+    "boruvka", "dbcv", "dualtree", "hierarchy", "linkage", "mrd", "multi", "predict", "rng", "sbcn", "wspd",
     "boruvka_mst", "boruvka_mst_range", "single_linkage_batch",
     "core_distances2", "mrd2_from_parts", "reweight_all_mpts",
     "HierarchyResult", "LinkageRange", "MultiDensityResult", "MultiMSTResult",

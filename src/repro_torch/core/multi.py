@@ -142,7 +142,8 @@ def fit_msts(
 
     Every stage runs on the plan's device and ends at one named
     ``engine.to_host`` materialization: ``knn``, then ``candidate_count``,
-    ``stage1_count`` and ``graph`` inside ``build_rng_graph``, then ``mst``.
+    ``stage1_count`` and ``graph`` inside ``build_rng_graph`` (``graph``
+    alone on the dual-tree tier), then ``mst``.
     ``device`` (default ``"cuda"``) is read only when ``plan`` is not
     already a resolved ``Plan``.
     """
@@ -160,7 +161,7 @@ def fit_msts(
     timings: dict[str, float] = {}
 
     t0 = time.monotonic()
-    knn_d2, knn_idx = plan.knn(x, kmax - 1)
+    knn_d2, knn_idx = plan.knn(x, kmax - 1, x_host=x_host)
     cd2_dev = mrd_mod.core_distances2(knn_d2)
     knn_host, knn_idx_host, cd2 = engine.to_host((knn_d2, knn_idx, cd2_dev), "knn")
     timings["knn"] = time.monotonic() - t0
@@ -172,6 +173,8 @@ def fit_msts(
         plan=plan,
         x_host=x_host,
         cd_kmax_host=np.sqrt(cd2[:, -1].astype(np.float64)),
+        knn_d2_host=knn_host,
+        knn_idx_host=knn_idx_host,
     )
     timings["rng_build"] = time.monotonic() - t0
 

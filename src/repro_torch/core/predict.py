@@ -82,8 +82,9 @@ def _attach(qd2, qidx, cd2, mcol):
     best = mrd2.gather(1, j[:, None, :])[:, 0, :]
     nbr = qidx.gather(1, j)
     # 1/sqrt in float64, rounded once to float32: the same bits on every
-    # device.  XLA compiles the reference's 1/sqrt to an approximate rsqrt
-    # on the CPU, so lambdas agree with it to about 1e-7, not bit for bit.
+    # device.  XLA compiles the reference's 1/sqrt on the CPU to the CPU's
+    # approximate reciprocal square root plus two Newton steps, whose bits
+    # depend on the CPU model; lambdas agree with it to one float32 ulp.
     lam = torch.where(best > 0.0, (1.0 / torch.sqrt(best.double())).float(), torch.inf)
     return lam.T, nbr.T
 

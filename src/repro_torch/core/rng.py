@@ -5,8 +5,10 @@ Variants: ``rng_ss`` (RNG**, the WSPD+SBCN supergraph, no filtering),
 ``rng_star`` (RNG*, + the kNN-lune filter and the core-distance
 certificate) and ``rng`` (exact: + a scan of the whole point set for the
 edges the cheap filter could not certify either way, Alg. 1 lines 22-26,
-through the ``lune_filter`` kernel).  The dual-tree tier for n at or above
-``Plan.dualtree_min_n`` comes with a later slice of the port.
+through the ``lune_filter`` kernel).  At n at or above
+``Plan.dualtree_min_n`` the dual-tree tier (``_build_dualtree``) replaces
+the WSPD build: kNN ∪ a dual-tree Borůvka edge set, which is not an RNG, so
+``variant`` filters nothing there.
 
 Two data planes build the filtered graph, as in the reference:
 
@@ -21,7 +23,8 @@ Two data planes build the filtered graph, as in the reference:
 
 Host syncs are the named ledger points only: ``candidate_count`` and
 ``stage1_count`` (scalars sizing the compactions), ``graph``, and
-``lune_exact`` for the exact variant.
+``lune_exact`` for the exact variant; the dual-tree tier syncs at ``graph``
+alone.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import engine
+from . import dualtree as dualtree_mod
 from . import mrd as mrd_mod
 from . import sbcn as sbcn_mod
 from . import wspd as wspd_mod
@@ -120,8 +124,8 @@ def filter_edges(x, cd2, knn_idx, knn_d2, edges: np.ndarray, variant: str, *, pl
 def canonical_edge_weights(x, cd2k, ea, eb):
     """Exact f32 (d2, w2_kmax) for an edge list: the one export function.
 
-    Every path that exports edge weights (fused, slot, and the dual-tree
-    tier to come) goes through here, with the fused-add order the
+    Every path that exports edge weights (fused, slot and the dual-tree
+    tier) goes through here, with the fused-add order the
     reference's canonical weight program compiles to, so the exported
     weights are bitwise the reference's and do not depend on the path.
     """
@@ -224,6 +228,32 @@ def _build_fused(x, cd2, knn_d2, knn_idx, tree, pu, pv, variant, plan) -> RngGra
     )
 
 
+def _build_dualtree(x, knn_d2, variant, plan, x_host, knn_d2_host, knn_idx_host) -> RngGraph:
+    """Large-n tier: dual-tree Borůvka candidate edges + device weights.
+
+    The host traversals select edge structure only (``core.dualtree``); the
+    d2 and w2_kmax values that reach results come from
+    ``canonical_edge_weights``, in one ``graph`` sync.  The graph is
+    kNN^kmax ∪ S with S ⊇ an MST under mrd_kmax: a superset of every
+    per-mpts MST, but not an RNG, so ``variant`` filters nothing here.  The
+    edges keep the order ``candidate_edges`` returns (sorted by (lo, hi)):
+    Borůvka breaks ties by edge id.
+    """
+    n = int(x.shape[0])
+    edges, stats = dualtree_mod.candidate_edges(
+        x_host, knn_d2_host, knn_idx_host,
+        leaf_size=plan.dualtree_leaf, margin=plan.dualtree_margin,
+    )
+    stats["path"] = "dualtree"
+    stats["m_edges"] = len(edges)
+    if len(edges) == 0:
+        return _empty_graph(variant, n, 0)
+    ea = torch.as_tensor(edges[:, 0].astype(np.int32)).to(x.device)
+    eb = torch.as_tensor(edges[:, 1].astype(np.int32)).to(x.device)
+    d2_h, w2_h = engine.to_host(canonical_edge_weights(x, knn_d2[:, -1], ea, eb), "graph")
+    return RngGraph(edges=edges, d2=d2_h, w2_kmax=w2_h, variant=variant, n_points=n, stats=stats)
+
+
 def build_rng_graph(
     x: torch.Tensor,
     knn_d2: torch.Tensor,
@@ -234,24 +264,28 @@ def build_rng_graph(
     plan: "engine.Plan",
     x_host: np.ndarray | None = None,
     cd_kmax_host: np.ndarray | None = None,
+    knn_d2_host: np.ndarray | None = None,
+    knn_idx_host: np.ndarray | None = None,
 ) -> RngGraph:
-    """End-to-end candidate graph construction (Alg. 1 lines 5-21), WSPD tier.
+    """End-to-end candidate graph construction (Alg. 1 lines 5-21).
 
-    ``x_host`` / ``cd_kmax_host`` feed the host control plane without a
-    device sync when the caller already holds host views (fit_msts does);
-    left None they are materialized here under the ``input`` tag.
+    ``x_host`` / ``cd_kmax_host`` / ``knn_*_host`` feed the host control
+    planes without a device sync when the caller already holds host views
+    (fit_msts does); left None they are materialized here under the
+    ``input`` tag.  Large n (``plan.use_dualtree``) routes to the dual-tree
+    tier (stats ``path="dualtree"``); otherwise the WSPD build below runs,
+    fused cascade by default, slot path as fallback and oracle.
     """
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
     n = int(x.shape[0])
-    if n > 2 and plan.use_dualtree(n):
-        raise NotImplementedError(
-            f"n={n} selects the dual-tree candidate tier, which a later slice "
-            "of the port brings"
-        )
-    cd2 = mrd_mod.core_distances2(knn_d2)
     if x_host is None:
         x_host = engine.io.ensure_host(x)
+    if n > 2 and plan.use_dualtree(n):
+        if knn_d2_host is None or knn_idx_host is None:
+            knn_d2_host, knn_idx_host = engine.io.ensure_host(knn_d2), engine.io.ensure_host(knn_idx)
+        return _build_dualtree(x, knn_d2, variant, plan, x_host, knn_d2_host, knn_idx_host)
+    cd2 = mrd_mod.core_distances2(knn_d2)
     if cd_kmax_host is None:
         cd_kmax_host = np.sqrt(engine.io.ensure_host(cd2[:, -1]).astype(np.float64))
 

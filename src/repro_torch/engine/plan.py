@@ -41,6 +41,9 @@ class Plan:
         edges per block (one warp each, 1 to 32) and points per
         shared-memory tile (an upper bound: the kernel shrinks the tile
         until it fits for the data's d).
+      * ``candidate_method`` / ``dualtree_min_n`` — the candidate tier
+        (``use_dualtree``); ``dualtree_leaf`` / ``dualtree_margin`` — the
+        dual-tree traversals' leaf size and relative prune margin.
     """
 
     backend: str
@@ -79,18 +82,26 @@ class Plan:
 
     # -- stage dispatch ----------------------------------------------------
 
-    def knn(self, x: torch.Tensor, k_top: int):
-        """(d2 ascending, idx) of every row's ``k_top`` nearest other rows."""
+    def knn(self, x: torch.Tensor, k_top: int, *, x_host=None):
+        """(d2 ascending, idx) of every row's ``k_top`` nearest other rows:
+        the dual-tree candidate search on the host plus the shared exact
+        refine on the large-n tier, the top-K kernel otherwise.  ``x_host``
+        feeds the host search without a device sync when the caller already
+        holds a host view (``fit_msts`` does)."""
         from ..kernels import ops
 
         n = int(x.shape[0])
         if n > 2 and self.use_dualtree(n):
-            raise NotImplementedError(
-                f"n={n} selects the dual-tree candidate tier "
-                f"(dualtree_min_n={self.dualtree_min_n}), which a later slice "
-                "of the port brings; use candidate_method='wspd' or n below "
-                "the threshold"
+            from ..core import dualtree
+            from . import io
+
+            if x_host is None:
+                x_host = io.ensure_host(x)
+            k_eff = min(n - 1, k_top + self.knn_refine_slack)
+            cand = dualtree.knn_candidates(
+                x_host, k_eff, leaf_size=self.dualtree_leaf, margin=self.dualtree_margin
             )
+            return ops.knn_from_candidates(x, cand, k_top=k_top)
         return ops.knn(
             x,
             k_top,

@@ -1,6 +1,7 @@
 """Public kernel wrappers with backend dispatch, the port of
 ``repro/kernels/ops.py``: the fit's kNN (``knn``), out-of-sample kNN
-(``query_knn``) and the exact lune scan (``lune_nonempty``).
+(``query_knn``), the dual-tree tier's kNN from host candidates
+(``knn_from_candidates``) and the exact lune scan (``lune_nonempty``).
 
 Backends: ``"cuda"`` and ``"torch"`` both call the kernel wrappers
 (``pairwise_topk``, ``lune_filter``), which launch the CUDA kernel for
@@ -27,6 +28,7 @@ devices:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref
@@ -173,6 +175,21 @@ def knn(
         _, idx = ref.knn_ref(x, k_eff)
     else:
         _, idx = pairwise_topk(x, k_eff, block_q=block_q, block_k=block_k)
+    return _refine_knn(x, x, idx, k_top=k_top)
+
+
+def knn_from_candidates(x: torch.Tensor, cand_idx, *, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN from a precomputed host candidate matrix (the dual-tree tier).
+
+    ``cand_idx``: (n, k_eff) candidate neighbour ids per row (-1 pads),
+    which its producer (``core.dualtree.knn_candidates``) guarantees to hold
+    the true ``k_top`` nearest.  The matrix goes to ``x``'s device as int32
+    and through the same ``_refine_knn`` as every other backend, so the
+    (d2, idx) output is bit-identical to the top-K tier's.
+    """
+    idx = torch.as_tensor(np.asarray(cand_idx, np.int32)).to(x.device)
+    if idx.shape[1] < k_top:
+        raise ValueError(f"candidate matrix has {idx.shape[1]} columns < k_top={k_top}")
     return _refine_knn(x, x, idx, k_top=k_top)
 
 

@@ -1,0 +1,13 @@
+"""Serving layer of the port, as in ``repro.serve``.
+
+``engine.ClusterServeEngine`` is the clustering serve surface:
+process-resident fitted state — fit in-process or booted refit-free from a
+saved ``FittedModel`` artifact with ``ClusterServeEngine.load(path)`` —
+micro-batched out-of-sample prediction on the model's device, per-request
+``SelectionPolicy``, LRU-bounded per-(mpts, policy) extraction.
+"""
+
+from . import engine
+from .engine import ClusterServeEngine
+
+__all__ = ["ClusterServeEngine", "engine"]

@@ -2,6 +2,7 @@
 JAX package, and the fit never carries on on the CPU unless asked to."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch import api as t_api
 from repro_torch import engine as t_engine
+from repro_torch.core import dualtree as t_dualtree
+from repro_torch.kernels import ops as t_ops
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -76,22 +79,51 @@ def test_plan_backends_and_later_slices():
     with pytest.raises(NotImplementedError, match="slice"):
         t_engine.resolve_plan("mesh", device="cpu")
     plan = t_engine.resolve_plan(device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        plan.knn(torch.zeros((plan.dualtree_min_n, 2)), 3)
+    # n >= dualtree_min_n selects the dual-tree tier, whose kNN is the host
+    # candidate search through the shared refine
+    assert plan.use_dualtree(plan.dualtree_min_n) and not plan.use_dualtree(plan.dualtree_min_n - 1)
+    pts = torch.from_numpy(np.random.default_rng(1).normal(size=(300, 2)).astype(np.float32))
+    forced = dataclasses.replace(plan, candidate_method="dualtree")
+    cand = t_dualtree.knn_candidates(pts.numpy(), 3 + plan.knn_refine_slack, leaf_size=plan.dualtree_leaf)
+    for got, want in zip(forced.knn(pts, 3), t_ops._refine_knn(pts, pts, torch.from_numpy(cand), k_top=3)):
+        assert torch.equal(got, want)
     # the exact lune scan and out-of-sample kNN are in: the plan runs both
     x = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 0.0]])
     e = torch.tensor([0], dtype=torch.int32)
     assert plan.lune_nonempty(e, e + 1, torch.tensor([5.0]), x, torch.zeros(3)).tolist() == [True]
     d2, idx = plan.query_knn(torch.tensor([[0.9, 0.0]]), x, 2)
     assert idx.tolist() == [[1, 0]]
-    with pytest.raises(NotImplementedError, match="dual-tree"):
-        plan.knn(torch.zeros((25000, 2)), 3)
+    # both tiers give the same kNN, duplicate points included
+    dup = torch.cat([pts, pts[:40]])
+    for got, want in zip(forced.knn(dup, 5), plan.knn(dup, 5)):
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="slice"):
         t_engine.resolve_plan("mesh", device="cpu")
 
 
 def test_the_exact_and_prediction_modules_are_covered():
     assert {"repro_torch.kernels.lune_filter", "repro_torch.core.predict", "repro_torch.core.dbcv"} <= set(MODULES)
+
+
+def test_the_serving_and_dual_tree_modules_are_covered():
+    assert {"repro_torch.core.dualtree", "repro_torch.serve", "repro_torch.serve.engine"} <= set(MODULES)
+    assert "repro_torch.serve.lm" not in MODULES
+
+
+def test_serving_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs, tmp_path):
+    from repro_torch.serve import ClusterServeEngine
+
+    x = blobs[0]
+    path = t_api.FittedModel.fit(x, kmax=4, device="cpu").save(str(tmp_path / "m.npz"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterServeEngine.load(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterServeEngine.fit(x, kmax=4)
+    with ClusterServeEngine.load(path, device="cpu") as eng:
+        assert eng.device == torch.device("cpu")
+        labels, _ = eng.predict(x[:5], mpts=4)
+        np.testing.assert_array_equal(labels, eng.model.select(4).labels[:5])
 
 
 def test_exact_fit_and_loaded_model_need_a_card_unless_cpu_is_asked_for(monkeypatch, blobs, tmp_path):
