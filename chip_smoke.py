@@ -22,8 +22,17 @@ Phases (any failure exits non-zero):
      lane count, and on synthetic unsorted edge lists (d = 2, 4, 8, 16, 32,
      64, 100; k_check = 2, 15, 63; invalid slots, duplicates, neighbours
      that are endpoints, core distances tied with edge lengths);
+     ``prim_mst`` (src equal, w2 bit-equal) at d = 2, 8, 16, 32, 64, 100 and
+     n = 1007 and 4000, and on duplicates with tied core distances with its
+     state in shared memory (n = 4000) and above that limit, in device
+     memory; ``single_linkage`` (left, right, height, size equal, against
+     the plain version on the card and the CPU's run) on random trees with
+     tied and zero weights at R = 1 and 15 in shared memory and above its
+     limit;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
-     card with the launch counters set to 0 just before it, held against
+     card with the launch counters set to 0 just before it (``select_all``
+     runs its linkage through ``single_linkage`` once, checked on the fit's
+     own MSTs as in phase 3), held against
      the port's own ``device="cpu"`` fit (graph edges, MST edge ids and
      labels for every mpts equal) and, at n = 2000, against dense scipy
      MSTs (weight multisets to rtol 1e-5), and a duplicate-heavy input on
@@ -38,7 +47,8 @@ Phases (any failure exits non-zero):
   6. the wide fit, ``MultiHDBSCAN(kmax=64)`` at n = 16000 on the card: its
      MST weight multisets for mpts 2..16 equal the kmax = 16 fit's bit for
      bit (the RNG^64 graph holds every smaller mpts' MST, and the canonical
-     weights do not depend on kmax), with its stage seconds;
+     weights do not depend on kmax), with its stage seconds; ``single_linkage``
+     on its R = 63 MSTs;
   7. prediction: 4096 queries against the exact fit on the card, and the
      same queries against its saved artifact loaded on the CPU (labels and
      attachment neighbours equal, probabilities and lambdas to rtol 1e-5,
@@ -50,20 +60,31 @@ Phases (any failure exits non-zero):
      (graph edges, d2, w2, MST edge ids, MST weights, labels) and against a
      ``candidate_method="wspd"`` fit on the card (kNN bit-equal, sorted MST
      weights bit-equal, labels equal), with both tiers' stage seconds;
+     ``single_linkage`` on its MSTs (state in device memory);
   9. serving: ``ClusterServeEngine.load`` of phase 7's artifact on the card,
      eight client threads sending phase 7's queries in requests of 1-64
      rows (a quarter over the full range, the rest at one mpts, one in
      eight with the leaf policy): every answer bit-equal to the card
      model's direct prediction of the same rows, mean batch above 1, bad
      requests failing alone, the extraction cache bounded, labels,
-     membership and profiles equal to direct calls; p50/p95 latency,
-     queries/s and the mean batch;
-  10. warm per-stage seconds, each kernel's time beside its plain version,
+     membership and profiles equal to direct calls, the engine's linkage
+     through ``single_linkage``; p50/p95 latency, queries/s and the mean
+     batch;
+  10. the paper's baseline, ``hdbscan_baseline(X, range(2, 17), kmax=16)``
+     on phase 4's points with the counters set to 0 just before it: one
+     ``prim_mst`` launch per mpts, one ``pairwise_topk``, one
+     ``single_linkage``; MST weight multisets equal the RNG* fit's to rtol
+     1e-5 and partitions agree for every mpts; at n = 4000 the card's
+     baseline equals its ``device="cpu"`` run bit for bit; warm stage
+     seconds and the ratio of the baseline to ``fit + select_all``;
+  11. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
      ``edge_cascade`` per stage at kmax = 16 and 64 and over its lanes per
-     edge), the count of implicit syncs in one warm fit, the device's busy
-     share of a fit and of a dual-tree fit, and a host profile.
+     edge, ``prim_mst`` at the baseline's shape, ``single_linkage`` at R = 15
+     and 63), ``hierarchy_linkage`` with the kernel beside the plain version
+     on the host, the count of implicit syncs in one warm fit, the device's
+     busy share of a fit and of a dual-tree fit, and a host profile.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -94,7 +115,12 @@ N_EXACT_CPU = 3000
 N_QUERIES = 4096
 N_DUALTREE = 24000                # at or above Plan.dualtree_min_n
 N_CLIENTS = 8
+PRIM_WIDTHS = (2, 8, 16, 32, 64, 100)
+N_PRIM = 4000
+N_BASELINE_CPU = 4000
+N_LINKAGE = 5000
 RTOL = 1e-5
+CARD = "cuda"
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -102,6 +128,15 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def kernel_module(name: str):
+    """A kernel's module by its own name: ``repro_torch.kernels`` binds
+    ``pairwise_topk``, ``edge_cascade`` and ``lune_filter`` to the kernel
+    functions, as the reference's package does."""
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def make_points(n: int, d: int, seed: int):
@@ -117,11 +152,13 @@ def make_points(n: int, d: int, seed: int):
     return x[rng.permutation(n)].astype(np.float32)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` on the card, warm (one call first)."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the card, warm (one call first)
+    unless ``warm`` is False (for a plain version that compiles nothing)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -165,7 +202,9 @@ def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
     indices) bit-equal; refined indices equal.  Returns the largest raw d2
     difference."""
     import torch
-    from repro_torch.kernels import ops, pairwise_topk as pt
+    from repro_torch.kernels import ops
+
+    pt = kernel_module("pairwise_topk")
 
     d_k, i_k = pt.pairwise_topk(x, k_eff)
     d_p, i_p = pt.pairwise_topk_plain(x, k_eff)
@@ -205,16 +244,17 @@ def lune_args(ea, eb, w2, points, cd2):
 
 
 def check_lune_filter(args, what: str, *, block_e: int, block_c: int):
-    """Kernel vs plain on one set of operands: verdict bits equal."""
+    """Kernel vs plain on one set of operands: verdict bits equal.  Returns
+    the kernel's verdicts and the largest difference of the two as 0/1."""
     import torch
-    from repro_torch.kernels import lune_filter as lf
+    lf = kernel_module("lune_filter")
 
     out_k = lf.lune_filter(*args, block_e=block_e, block_c=block_c)
     out_p = lf.lune_filter_plain(*args)
     torch.cuda.synchronize()
     n_diff = int((out_k != out_p).sum())
     check(n_diff == 0, f"lune_filter verdicts differ from the plain version on {n_diff} edges ({what})")
-    return out_k
+    return out_k, float((out_k.int() - out_p.int()).abs().max()) if out_k.numel() else 0.0
 
 
 def lune_case(n: int, d: int, dev):
@@ -225,7 +265,7 @@ def lune_case(n: int, d: int, dev):
     7th-neighbour d2 of the plain top-K, on ``dev``."""
     import numpy as np
     import torch
-    from repro_torch.kernels import pairwise_topk as pt
+    pt = kernel_module("pairwise_topk")
 
     rng = np.random.default_rng(SEED + 4 + d)
     centers = rng.uniform(-3.0, 3.0, size=(6, d))
@@ -253,7 +293,7 @@ def check_lune_cases(dev, block_e: int, block_c: int) -> dict:
     for d in WIDTHS:
         for n in (N, N_RAGGED):
             args = cases[(n, d)] = lune_case(n, d, dev)
-            out = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
+            out, _ = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
             w2 = args[6]
             check(bool(out.any()) and not bool(out[torch.isfinite(w2)].all()),
                   f"the lune case n={n}, d={d} has both verdicts")
@@ -261,7 +301,7 @@ def check_lune_cases(dev, block_e: int, block_c: int) -> dict:
     # fewer points than a warp's lanes, at a generic width and at d = 1
     for n, d in ((20, 3), (24, 1)):
         args = small_lune_case(n, d, dev)
-        out = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
+        out, _ = check_lune_filter(args, f"n={n}, d={d}", block_e=block_e, block_c=block_c)
         check(not bool(out[torch.isneginf(args[6])].any()), "padded edges (w2 = -inf) are never removed")
     print(f"lune_filter: kernel == plain (verdict bits) at d={list(WIDTHS)}, n={N} and n={N_RAGGED} "
           f"({len(cases)} cases of 4000 edges), and at n=20, d=3 and n=24, d=1", flush=True)
@@ -273,7 +313,7 @@ def small_lune_case(n: int, d: int, dev):
     edges weighted at or above their mrd, every 7th padded (w2 = -inf)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import pairwise_topk as pt
+    pt = kernel_module("pairwise_topk")
 
     rng = np.random.default_rng(SEED + 8 + d)
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -317,20 +357,234 @@ def check_topk_cases(dev, x) -> dict:
     return errs
 
 
+def prim_case(n: int, d: int, dev, ties: bool = False):
+    """``make_points`` at (n, d) on ``dev`` and squared core distances from
+    the plain top-K (7th neighbour).  With ``ties`` every point comes 8
+    times and the core distances (10th neighbour) are rounded to one
+    decimal: mrd values, and so the argmin's minima, tie often."""
+    import numpy as np
+    import torch
+
+    pt = kernel_module("pairwise_topk")
+    x = make_points(n, d, SEED + 9 + d)
+    if ties:
+        x = np.ascontiguousarray(np.repeat(x[: -(-n // 8)], 8, axis=0)[:n])
+    xt = torch.from_numpy(x).to(dev)
+    cd2 = pt.pairwise_topk_plain(xt, 10 if ties else 7)[0][:, -1]
+    if ties:
+        cd2 = torch.round(cd2, decimals=1)
+    return xt, cd2.contiguous()
+
+
+def check_prim(x, cd2, what: str):
+    """``prim_mst`` kernel vs plain on the card: src equal, w2 bit-equal."""
+    import torch
+
+    pm = kernel_module("prim_mst")
+    s_k, w_k = pm.prim_mst(x, cd2)
+    s_p, w_p = pm.prim_mst_plain(x, cd2)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    check(s_k.shape == (n,) and w_k.shape == (n,) and float(w_k[0]) == 0.0, f"prim_mst output at {what}")
+    check(bool(((s_k >= 0) & (s_k < n)).all()) and bool(torch.isfinite(w_k).all()), f"prim_mst src and w2 at {what}")
+    n_src = int((s_k != s_p).sum())
+    check(n_src == 0, f"prim_mst src differs from the plain version at {n_src} vertices ({what})")
+    n_w = int((w_k.view(torch.int32) != w_p.view(torch.int32)).sum())
+    check(n_w == 0, f"prim_mst w2 differs from the plain version's bits at {n_w} vertices ({what})")
+    return w_k
+
+
+def check_prim_cases(dev) -> None:
+    """``prim_mst`` kernel vs plain (src equal, w2 bit-equal) at every width
+    of ``PRIM_WIDTHS`` at n = 1007 and 4000, and on duplicates with tied
+    core distances in shared memory (n = 4000) and above its limit, in
+    device memory."""
+    import torch
+
+    pm = kernel_module("prim_mst")
+    for d in PRIM_WIDTHS:
+        for n in (N_RAGGED, N_PRIM):
+            check_prim(*prim_case(n, d, dev), f"n={n}, d={d}")
+    n_big = pm.smem_max_n() + 800
+    distinct = {}
+    for n, d in ((N_PRIM, 2), (n_big, 1)):
+        w2 = check_prim(*prim_case(n, d, dev, ties=True), f"ties, n={n}, d={d}")
+        distinct[n] = len(torch.unique(w2))
+        check(distinct[n] < n // 4, f"the tie case ties: {distinct[n]} distinct weights over {n} vertices")
+    print(f"prim_mst: kernel == plain (src equal, w2 bit-equal) at d={list(PRIM_WIDTHS)}, n={N_RAGGED} and "
+          f"n={N_PRIM}; on duplicates with tied core distances at n={N_PRIM} (state in shared memory) and "
+          f"n={n_big} (device memory); distinct weights {distinct}", flush=True)
+
+
+def check_linkage(ea, eb, w, n: int, what: str):
+    """``single_linkage`` kernel vs plain on the card on the same sorted
+    endpoints (left, right, size equal), and the card's
+    ``single_linkage_batch`` against the CPU's (left, right, height, size
+    equal).  Returns the card's sorted endpoints."""
+    import numpy as np
+    import torch
+    from repro_torch.core import linkage
+
+    sl = kernel_module("single_linkage")
+    dev = torch.device(CARD)
+    ea_t, eb_t, w_t = (torch.from_numpy(np.array(a, order="C")).to(dev) for a in (ea, eb, w))
+    _, order = torch.sort(w_t, dim=1, stable=True)
+    ea_s, eb_s = ea_t.gather(1, order), eb_t.gather(1, order)
+    out_k = sl.single_linkage(ea_s, eb_s, n=n)
+    out_p = sl.single_linkage_plain(ea_s, eb_s, n=n)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("left", "right", "size"), out_k, out_p):
+        check(torch.equal(a, b), f"single_linkage {name} differs from the plain version ({what})")
+    check(bool((out_k[2][:, -1] == n).all()), f"single_linkage: the last merge holds all {n} points ({what})")
+    got = linkage.single_linkage_batch(ea_t, eb_t, w_t, n=n)
+    want = linkage.single_linkage_batch(*(torch.from_numpy(np.array(a, order="C")) for a in (ea, eb, w)), n=n)
+    for name, a, b in zip(("left", "right", "height", "size"), got, want):
+        check(torch.equal(a.cpu(), b), f"single_linkage_batch {name}: card differs from the CPU ({what})")
+    return ea_s, eb_s
+
+
+def check_linkage_cases() -> None:
+    """``single_linkage`` on synthetic spanning trees with many tied and
+    zero weights: at R = 1 and 15 with the state in shared memory, and
+    above its limit, in device memory."""
+    from repro_torch.core import linkage
+
+    sl = kernel_module("single_linkage")
+    n_big = sl.smem_max_n() + 800
+    for n, rows in ((N_LINKAGE, 1), (N_LINKAGE, 15), (n_big, 15)):
+        check_linkage(*linkage.random_spanning_trees(n, rows, SEED + 11 + rows, ties=True), n,
+                      f"tied and zero weights, n={n}, R={rows}")
+    print(f"single_linkage: kernel == plain and card == CPU (left, right, height, size) on random trees with "
+          f"tied and zero weights at n={N_LINKAGE}, R=1 and 15 (state in shared memory) and n={n_big}, R=15 "
+          f"(device memory)", flush=True)
+
+
+def check_fit_linkage(msts, what: str) -> None:
+    """``single_linkage`` on a fit's own MSTs: kernel == plain on the card
+    and card == CPU, with the layout the fit's n takes."""
+    sl = kernel_module("single_linkage")
+    check_linkage(msts.mst_ea, msts.mst_eb, msts.mst_w, msts.n, what)
+    where = "shared" if msts.n <= sl.smem_max_n() else "device"
+    print(f"single_linkage on {what} (n={msts.n}, R={len(msts.mpts_values)}, state in {where} memory): "
+          f"kernel == plain and card == CPU", flush=True)
+
+
+def partitions_agree(a, b, tol: float = 0.98) -> bool:
+    """Same partition up to label permutation and rare tie-boundary points
+    (the test of the reference's ``tests/test_api.py``)."""
+    import numpy as np
+
+    if abs(int((a >= 0).sum()) - int((b >= 0).sum())) > max(2, 0.01 * len(a)):
+        return False
+    agree = total = 0
+    for c in np.unique(a[a >= 0]):
+        members = b[a == c]
+        members = members[members >= 0]
+        if len(members) == 0:
+            continue
+        _, counts = np.unique(members, return_counts=True)
+        agree += counts.max()
+        total += counts.sum()
+    return total > 0 and agree / total > tol
+
+
+def baseline_phase(x_np, est, smi: str, record: dict) -> None:
+    """The paper's re-run baseline, ``hdbscan_baseline(X, range(2, 17),
+    kmax=16)``, on the main path's points: one ``prim_mst`` launch per
+    mpts, one top-K, one linkage; its MST weights and labels against the
+    RNG* fit ``est``; the card against the CPU at n = N_BASELINE_CPU; warm
+    stage seconds and the ratio to the fit."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.core import linkage, multi
+    from repro_torch.kernels import fused_cascade as fc
+
+    lf, pm, pt, sl = (kernel_module(k) for k in ("lune_filter", "prim_mst", "pairwise_topk", "single_linkage"))
+    mpts = list(range(2, KMAX + 1))
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    pm.prim_mst.launches = sl.single_linkage.launches = 0
+    t0 = time.monotonic()
+    with engine.transfer_ledger() as led:
+        base, _ = multi.hdbscan_baseline(x_np, mpts, kmax=KMAX)
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                "lune_filter": lf.lune_filter.launches, "prim_mst": pm.prim_mst.launches,
+                "single_linkage": sl.single_linkage.launches}
+    tags = engine.io.tags(led)
+    print(f"baseline: n={len(x_np)}, mpts 2..{KMAX} on the card in {cold_s:.2f} s (cold), launches {launches}",
+          flush=True)
+    check(launches["prim_mst"] == len(mpts), f"the baseline launched prim_mst once per mpts: {launches}")
+    check(launches["pairwise_topk"] == 1 and launches["single_linkage"] == 1,
+          f"the baseline launched pairwise_topk and single_linkage once each: {launches}")
+    check(launches["edge_cascade"] == 0 and launches["lune_filter"] == 0, "the baseline builds no graph")
+    check(tags == ["mst"] * len(mpts) + ["knn", "linkage"], f"the baseline's syncs: {tags}")
+    # Equal-weight MSTs may differ in their edges, and HDBSCAN* condenses
+    # merges at one height in their order, so two exact methods can count
+    # clusters differently; the single-linkage hierarchy and the partitions
+    # must agree.  The cluster counts are reported beside each other.
+    n_clusters = {}
+    for h in base:
+        ea_f, eb_f, w_fit = est.mst_for(h.mpts)
+        check(np.allclose(np.sort(h.mst_w), np.sort(w_fit), rtol=RTOL, atol=0.0),
+              f"baseline MST weight multiset == the RNG* fit's at mpts={h.mpts}")
+        check(linkage.same_single_linkage((ea_f, eb_f, w_fit), (h.mst_ea, h.mst_eb, h.mst_w), len(x_np)),
+              f"baseline and fit MSTs give the same single-linkage hierarchy at mpts={h.mpts}")
+        labels = est.select(h.mpts).labels
+        check(partitions_agree(labels, h.labels), f"baseline and fit partitions agree at mpts={h.mpts}")
+        n_clusters[h.mpts] = (int(labels.max()) + 1, h.n_clusters)
+    apart = {m: c for m, c in n_clusters.items() if abs(c[0] - c[1]) > 1}
+    print(f"baseline == RNG* fit for mpts 2..{KMAX}: MST weight multisets bit for bit, the same single-linkage "
+          f"partition at every height, partitions agree; clusters (fit, baseline) per mpts {n_clusters}, "
+          f"more than 1 apart at {apart}", flush=True)
+
+    _, stages = multi.hdbscan_baseline(x_np, mpts, kmax=KMAX)
+    t0 = time.monotonic()
+    MultiHDBSCAN(kmax=KMAX).fit(x_np).select_all()
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    ratio = stages["total"] / fit_s
+    record["baseline"] = {"n": len(x_np), "d": D, "kmax": KMAX, "launches": launches, "cold_s": cold_s,
+                          "stages_s": stages, "fit_select_all_s": fit_s, "baseline_over_fit": ratio,
+                          "clusters_fit_baseline": n_clusters}
+    print(f"baseline, warm stages (s) on {smi}: {json.dumps(stages)}; fit + select_all warm {fit_s:.3f} s; "
+          f"baseline total / (fit + select_all) = {ratio:.4f}", flush=True)
+
+    x4 = make_points(N_BASELINE_CPU, D, SEED + 10)
+    b_g, _ = multi.hdbscan_baseline(x4, mpts, kmax=KMAX)
+    t0 = time.monotonic()
+    b_c, _ = multi.hdbscan_baseline(x4, mpts, kmax=KMAX, device="cpu")
+    cpu_s = time.monotonic() - t0
+    for g, c in zip(b_g, b_c):
+        check(np.array_equal(g.mst_ea, c.mst_ea), f"n={N_BASELINE_CPU} baseline MST ids: card == CPU at mpts={g.mpts}")
+        check(np.array_equal(g.mst_w.view(np.int32), c.mst_w.view(np.int32)),
+              f"n={N_BASELINE_CPU} baseline MST weights bit-equal: card == CPU at mpts={g.mpts}")
+        check(np.array_equal(g.labels, c.labels), f"n={N_BASELINE_CPU} baseline labels: card == CPU at mpts={g.mpts}")
+    record["baseline"]["cpu_check_s"] = cpu_s
+    print(f"n={N_BASELINE_CPU} baseline: card == device='cpu' run (MST ids, weights bit for bit, labels) for "
+          f"mpts 2..{KMAX} (CPU run {cpu_s:.1f} s)", flush=True)
+
+
 def kernel_resources(record: dict) -> None:
     """Registers and spills of every kernel instance (nvcc -Xptxas -v) and
     the resident blocks per SM of each instance at its launch configuration
     (``edge_cascade``: 256 threads a block)."""
     import re
 
-    from repro_torch.kernels import _build, fused_cascade as fc, lune_filter as lf, pairwise_topk as pt
+    from repro_torch.kernels import _build, fused_cascade as fc
+
+    lf, pt = kernel_module("lune_filter"), kernel_module("pairwise_topk")
 
     usage = []
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
-            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel|edge_cascade_prologue)"
-                          r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
+            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel|edge_cascade_prologue|"
+                          r"prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
+            smem = re.search(r"Lb([01])EE", u["function"])  # the state's layout (prim_mst, single_linkage)
+            u["state_in"] = ("shared" if smem.group(1) == "1" else "device") if smem else None
             u["d"] = (int(m.group(2)) or "generic") if m and m.group(2) else None
             second = int(m.group(3)) if m and m.group(3) else None
             u["lanes" if u["kernel"] == "edge_cascade_kernel" else "slots"] = second
@@ -355,7 +609,7 @@ def kernel_resources(record: dict) -> None:
 def topk_times(x) -> dict:
     """``pairwise_topk`` milliseconds on ``x`` at K = 1 (the distance sweep
     with a few merges a row) and at every K of ``K_LISTS``."""
-    from repro_torch.kernels import pairwise_topk as pt
+    pt = kernel_module("pairwise_topk")
 
     return {k_eff: cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5) for k_eff in (1, *K_LISTS)}
 
@@ -363,7 +617,7 @@ def topk_times(x) -> dict:
 def lune_sweep(args, block_e: int, block_c: int) -> tuple[dict, dict]:
     """``lune_filter`` milliseconds on ``args`` by edges per block (at
     ``block_c``) and by points per tile (at ``block_e``)."""
-    from repro_torch.kernels import lune_filter as lf
+    lf = kernel_module("lune_filter")
 
     by_e = {be: cuda_ms(lambda: lf.lune_filter(*args, block_e=be, block_c=block_c), 10) for be in (2, 4, 8, 16, 32)}
     by_c = {bc: cuda_ms(lambda: lf.lune_filter(*args, block_e=block_e, block_c=bc), 10) for bc in (128, 256, 512, 1024)}
@@ -600,7 +854,9 @@ def dualtree_phase(smi: str, record: dict) -> None:
     import torch
     from repro_torch import engine
     from repro_torch.api import MultiHDBSCAN
-    from repro_torch.kernels import fused_cascade as fc, lune_filter as lf, pairwise_topk as pt
+    from repro_torch.kernels import fused_cascade as fc
+
+    lf, pt, sl = kernel_module("lune_filter"), kernel_module("pairwise_topk"), kernel_module("single_linkage")
 
     def fit(**kw):
         """The fit, its views, its stage seconds and the fit's ledger tags."""
@@ -616,17 +872,20 @@ def dualtree_phase(smi: str, record: dict) -> None:
 
     x = make_points(N_DUALTREE, D, SEED)
     pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    sl.single_linkage.launches = 0
     est, views, stages, tags = fit()
     torch.cuda.synchronize()
     launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
                 "lune_filter": lf.lune_filter.launches}
+    linkage_launches = sl.single_linkage.launches
     g = est.graph_.stats
     print(f"dual-tree tier: n={N_DUALTREE}, d={D}, kmax={KMAX} on the card, default plan: graph {g}, "
-          f"ledger {tags}, launches {launches}", flush=True)
+          f"ledger {tags}, launches {launches}, single_linkage {linkage_launches}", flush=True)
     check(est.plan_.backend == "cuda", "the dual-tree fit ran on the cuda backend")
     check(g.get("path") == "dualtree", f"n={N_DUALTREE} takes the dual-tree tier with the default plan")
     check(tags == ["knn", "graph", "mst"], f"the dual-tree fit syncs at knn, graph and mst only; got {tags}")
-    check(all(v == 0 for v in launches.values()), "the dual-tree tier launches none of the three kernels")
+    check(all(v == 0 for v in launches.values()), "the dual-tree tier launches none of the three graph kernels")
+    check(linkage_launches == 1, "the dual-tree fit's select_all launched single_linkage once")
 
     est_c, views_c, stages_c, _ = fit(device="cpu")
     m, mc = est.model_.msts, est_c.model_.msts
@@ -640,6 +899,8 @@ def dualtree_phase(smi: str, record: dict) -> None:
         check(np.array_equal(v_g.labels, v_c.labels), f"dual-tree tier: labels equal the CPU fit at mpts={v_g.mpts}")
     print(f"dual-tree tier: card == CPU fit bit for bit (graph, kNN, MSTs, labels for mpts 2..{KMAX}; "
           f"CPU fit {stages_c['fit_s']:.1f} s)", flush=True)
+    check(N_DUALTREE > sl.smem_max_n(), "the dual-tree fit's linkage keeps its state in device memory")
+    check_fit_linkage(m, f"the n={N_DUALTREE} dual-tree fit's MSTs")
 
     pt.pairwise_topk.launches = fc.edge_cascade.launches = 0
     est_w, views_w, stages_w, _ = fit(plan=engine.resolve_plan(device="cuda", candidate_method="wspd"))
@@ -689,12 +950,15 @@ def serving_phase(path: str, q, smi: str, record: dict) -> None:
     direct = FittedModel.load(path)
     want = {False: direct.approximate_predict(q), True: direct.approximate_predict(q, policy=leaf)}
     requests = serving_requests(len(q))
+    sl = kernel_module("single_linkage")
+    sl.single_linkage.launches = 0
     eng = ClusterServeEngine.load(
         path, serve_options={"max_batch": 512, "max_delay_ms": 2.0, "hierarchy_cache_size": 4})
     answers, latency, errors, cache_sizes = {}, {}, [], []
     try:
         check(eng.device.type == "cuda" and eng.model.plan.backend == "cuda", "the engine serves on the card")
         eng.predict(q[:8])  # extracts the levels once, so the timed traffic is warm
+        check(sl.single_linkage.launches == 1, "the engine's model ran its linkage through single_linkage once")
         eng.reset_stats()
 
         def client(c: int):
@@ -842,6 +1106,88 @@ def where_the_time_goes(fit, record: dict, dualtree_fit=None) -> None:
         f"{r['fn']} {r['cum_s']:.2f}" for r in record["host_profile"][:14]), flush=True)
 
 
+def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) -> list:
+    """``prim_mst`` at the baseline's shape (n = 16000, d = 8, the mpts = 16
+    core distances) and ``single_linkage`` on the kmax = 16 and 64 fits'
+    sorted MSTs: each beside its plain version on the card and its bound;
+    and ``hierarchy_linkage`` (``linkage_range``) with the kernel beside
+    the plain version on the host.  Returns their ``kernels`` entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import multi
+
+    pm, sl = kernel_module("prim_mst"), kernel_module("single_linkage")
+    n, d = x.shape
+    cd2_16 = est_16.plan_.knn(x, KMAX - 1)[0][:, -1].contiguous()
+    got = {}
+    p_ms = cuda_ms(lambda: got.__setitem__("kernel", pm.prim_mst(x, cd2_16)), 3)
+    p_plain = cuda_ms(lambda: got.__setitem__("plain", pm.prim_mst_plain(x, cd2_16)), 1, warm=False)
+    (s_k, w_k), (s_p, w_p) = got["kernel"], got["plain"]
+    n_src = int((s_k != s_p).sum())
+    n_w = int((w_k.view(torch.int32) != w_p.view(torch.int32)).sum())
+    check(n_src == 0 and n_w == 0, f"prim_mst at n={n}, d={d}: src differs from the plain version at {n_src} "
+          f"vertices, w2 bits at {n_w}")
+    p_err = float((w_k - w_p).abs().max())
+    # Prim evaluates the mrd of each vertex outside the tree once a step:
+    # n (n - 1) / 2 rows of d subtractions, d squares, d adds and 3 maxima
+    p_bound, p_by = bound(n * (n - 1) / 2 * (3 * d + 3), 4 * n * d + 4 * n + 8 * n)
+    record["prim_mst"] = {"n": n, "d": d, "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound,
+                          "bound_by": p_by, "us_per_step": p_ms * 1e3 / (n - 1)}
+    print(f"prim_mst at n={n}, d={d} on {smi}: {p_ms:.3f} ms ({p_ms * 1e3 / (n - 1):.3f} us a step over "
+          f"{n - 1} dependent steps; bound {p_bound:.4f} ms by {p_by}; plain {p_plain:.1f} ms); kernel == plain "
+          f"(src equal, w2 bit-equal)", flush=True)
+    out = [{
+        "name": "prim_mst", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prim_mst.cu",
+        "replaces": "src/repro/core/boruvka.py:189",
+        "launches": record["baseline"]["launches"]["prim_mst"], "max_abs_err": p_err,
+        "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by, "library_ms": None,
+    }]
+
+    linkage_rec = {}
+    for est in (est_16, est_64):
+        msts = est.model_.msts
+        rows = len(msts.mpts_values)
+        w = torch.from_numpy(np.array(msts.mst_w)).to(x.device)
+        _, order = torch.sort(w, dim=1, stable=True)
+        ea_s, eb_s = (torch.from_numpy(np.array(a)).to(x.device).gather(1, order) for a in (msts.mst_ea, msts.mst_eb))
+        k_ms = cuda_ms(lambda: got.__setitem__("kernel", sl.single_linkage(ea_s, eb_s, n=n)), 5)
+        plain_ms = cuda_ms(lambda: got.__setitem__("plain", sl.single_linkage_plain(ea_s, eb_s, n=n)), 1,
+                           warm=False)
+        for name, a, b in zip(("left", "right", "size"), got["kernel"], got["plain"]):
+            check(torch.equal(a, b), f"single_linkage {name} at n={n}, R={rows}: kernel differs from plain")
+        l_err = max(float((a - b).abs().max()) for a, b in zip(got["kernel"], got["plain"]))
+        # each merge reads its two endpoints and writes left, right and size
+        b_ms, b_by = bound(0.0, 20.0 * rows * (n - 1))
+        multi.linkage_range(msts, device=CARD)
+        t0 = time.monotonic()
+        lk_card = multi.linkage_range(msts, device=CARD)
+        card_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        lk_host = multi.linkage_range(msts, device="cpu")
+        host_s = time.monotonic() - t0
+        for f in ("left", "right", "height", "size"):
+            check(np.array_equal(getattr(lk_card, f), getattr(lk_host, f)), f"hierarchy_linkage {f}: card == host")
+        linkage_rec[rows] = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "ns_per_merge": k_ms * 1e6 / (n - 1), "max_abs_err": l_err,
+                             "hierarchy_linkage_card_s": card_s,
+                             "hierarchy_linkage_host_s": host_s}
+        print(f"single_linkage at n={n}, R={rows} on {smi}: {k_ms:.3f} ms ({k_ms * 1e6 / (n - 1):.1f} ns a merge "
+              f"over {n - 1} dependent merges; bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.1f} ms); "
+              f"hierarchy_linkage {card_s:.4f} s with the kernel, {host_s:.4f} s with the plain version on "
+              f"the host", flush=True)
+        if rows == KMAX - 1:
+            out.append({
+                "name": "single_linkage", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/single_linkage.cu",
+                "replaces": "src/repro/core/linkage.py:47",
+                "launches": launches["single_linkage"], "max_abs_err": l_err,
+                "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+    record["single_linkage"] = linkage_rec
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -858,8 +1204,10 @@ def main(argv: list[str]) -> int:
     import numpy as np
     from repro_torch import engine
     from repro_torch.api import FittedModel, MultiHDBSCAN
-    from repro_torch.core import ref as oref
-    from repro_torch.kernels import _build, fused_cascade as fc, lune_filter as lf, ops, pairwise_topk as pt
+    from repro_torch.core import linkage, ref as oref
+    from repro_torch.kernels import _build, fused_cascade as fc, ops
+
+    lf, pm, pt, sl = (kernel_module(k) for k in ("lune_filter", "prim_mst", "pairwise_topk", "single_linkage"))
 
     record: dict = {}
     smi = subprocess.run(
@@ -894,11 +1242,20 @@ def main(argv: list[str]) -> int:
           flush=True)
     casc_counts, casc_err = check_cascade_stages(fits)
     check_cascade_cases(dev)
+    check_prim_cases(dev)
+    check_linkage_cases()
     if kernels_only:
         record["pairwise_topk_ms_by_k"] = topk_times(x)
         record["lune_filter_ms_by_block_e"], record["lune_filter_ms_by_block_c"] = lune_sweep(
             lune_cases[(N, D)], plan.lune_block_e, plan.lune_block_c)
         cascade_times(fits, casc_counts, record)
+        x_prim, cd2_prim = prim_case(N, D, dev)
+        record["prim_mst_ms"] = cuda_ms(lambda: pm.prim_mst(x_prim, cd2_prim), 3)
+        trees = linkage.random_spanning_trees(N, KMAX - 1, SEED + 13, ties=False)
+        ea_s, eb_s = check_linkage(*trees, N, f"n={N}, R={KMAX - 1}")
+        record["single_linkage_ms"] = cuda_ms(lambda: sl.single_linkage(ea_s, eb_s, n=N), 5)
+        print(f"prim_mst at n={N}, d={D}: {record['prim_mst_ms']:.3f} ms; single_linkage on random trees at "
+              f"n={N}, R={KMAX - 1}: {record['single_linkage_ms']:.3f} ms", flush=True)
         print(f"kernel times on {smi} (pairwise_topk at n={N}, d={D} by K; lune_filter on the n={N}, "
               f"d={D} case; edge_cascade per fit stage by lanes): " + json.dumps({k: record[k] for k in (
                   "pairwise_topk_ms_by_k", "lune_filter_ms_by_block_e", "lune_filter_ms_by_block_c",
@@ -908,16 +1265,19 @@ def main(argv: list[str]) -> int:
     # -- 4. the main path ----------------------------------------------------
     pt.pairwise_topk.launches = 0
     fc.edge_cascade.launches = 0
+    sl.single_linkage.launches = 0
     t0 = time.monotonic()
     est = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     views = est.select_all()
     torch.cuda.synchronize()
     record["cold_fit_s"] = time.monotonic() - t0
-    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches}
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                "single_linkage": sl.single_linkage.launches}
     print(f"main path: fit + select_all in {record['cold_fit_s']:.2f} s, launches {launches}, "
           f"graph {est.graph_.stats}", flush=True)
     check(launches["pairwise_topk"] >= 1, "the fit launched pairwise_topk")
     check(launches["edge_cascade"] >= 2, "the fit launched edge_cascade for both stages")
+    check(launches["single_linkage"] == 1, "select_all ran its linkage through single_linkage once")
     check(est.plan_.backend == "cuda", "the fit ran on the cuda backend")
 
     t0 = time.monotonic()
@@ -935,6 +1295,7 @@ def main(argv: list[str]) -> int:
     n_clusters = {v.mpts: v.n_clusters for v in views}
     print(f"main path == device='cpu' run (CPU fit {record['cpu_fit_s']:.1f} s); clusters per mpts {n_clusters}",
           flush=True)
+    check_fit_linkage(m_gpu, f"the kmax={KMAX} fit's MSTs")
 
     x2 = make_points(N_DENSE, D, SEED + 1)
     est2 = MultiHDBSCAN(kmax=KMAX).fit(x2)
@@ -968,13 +1329,14 @@ def main(argv: list[str]) -> int:
     ops.lune_nonempty = spy
     try:
         pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+        sl.single_linkage.launches = 0
         t0 = time.monotonic()
         est_x = MultiHDBSCAN(kmax=KMAX, variant="rng").fit(x_np)
         views_x = est_x.select_all()
         torch.cuda.synchronize()
         record["exact_cold_fit_s"] = time.monotonic() - t0
         launches_x = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
-                      "lune_filter": lf.lune_filter.launches}
+                      "lune_filter": lf.lune_filter.launches, "single_linkage": sl.single_linkage.launches}
     finally:
         ops.lune_nonempty = real_lune_nonempty
     gs, gx = est.graph_.stats, est_x.graph_.stats
@@ -982,6 +1344,7 @@ def main(argv: list[str]) -> int:
     print(f"exact path: fit + select_all in {record['exact_cold_fit_s']:.2f} s, launches {launches_x}, "
           f"graph {gx}", flush=True)
     check(launches_x["lune_filter"] >= 1, "the exact fit launched lune_filter")
+    check(launches_x["single_linkage"] == 1, "the exact fit's select_all launched single_linkage once")
     check(launches_x["pairwise_topk"] >= 1 and launches_x["edge_cascade"] >= 2,
           "the exact fit launched pairwise_topk and edge_cascade")
     check(gx["m_edges"] == gs["m_edges"] - gx["m_removed_exact"],
@@ -999,7 +1362,8 @@ def main(argv: list[str]) -> int:
 
     lune_main = lune_args(*captured["args"])
     lune_kw = {"block_e": captured["kwargs"]["block_e"], "block_c": captured["kwargs"]["block_c"]}
-    out_l = check_lune_filter(lune_main, f"the exact fit's {gx['m_unresolved']} unresolved edges", **lune_kw)
+    out_l, lune_err = check_lune_filter(lune_main, f"the exact fit's {gx['m_unresolved']} unresolved edges",
+                                        **lune_kw)
     check(int(out_l.sum()) == gx["m_removed_exact"], "the kernel's removals are the fit's m_removed_exact")
     print(f"lune_filter: kernel == plain on the fit's {gx['m_unresolved']} unresolved edges at n={N}", flush=True)
 
@@ -1024,6 +1388,7 @@ def main(argv: list[str]) -> int:
 
     # -- 6. the wide fit -------------------------------------------------------
     pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+    sl.single_linkage.launches = 0
     t0 = time.monotonic()
     est_wide = MultiHDBSCAN(kmax=KMAX_WIDE).fit(x_np)
     torch.cuda.synchronize()
@@ -1033,6 +1398,8 @@ def main(argv: list[str]) -> int:
     views_w = est_wide.select_all()
     stages_w = {k: est_wide.timings_[k] for k in ("knn", "rng_build", "mst_range")}
     stages_w["hierarchy"] = time.monotonic() - t0
+    launches_w["single_linkage"] = sl.single_linkage.launches
+    check(launches_w["single_linkage"] == 1, "the kmax=64 select_all launched single_linkage once")
     record["wide_fit"] = {"kmax": KMAX_WIDE, "n": N, "fit_s": fit_s, "stages_s": stages_w,
                           "graph": est_wide.graph_.stats, "launches": launches_w}
     check(launches_w["pairwise_topk"] >= 1 and launches_w["edge_cascade"] >= 2,
@@ -1045,6 +1412,7 @@ def main(argv: list[str]) -> int:
     print(f"wide fit: kmax={KMAX_WIDE} at n={N} on the card in {fit_s:.2f} s (one run, process warm), "
           f"launches {launches_w}, graph {est_wide.graph_.stats}; MST weight multisets == the kmax={KMAX} "
           f"fit's for mpts 2..{KMAX}; stages (s) on {smi}: " + json.dumps(stages_w), flush=True)
+    check_fit_linkage(est_wide.model_.msts, f"the kmax={KMAX_WIDE} fit's MSTs")
 
     # -- 7. prediction ---------------------------------------------------------
     q = make_queries(x_np, N_QUERIES, SEED + 6)
@@ -1088,7 +1456,10 @@ def main(argv: list[str]) -> int:
     # -- 9. serving ------------------------------------------------------------
     serving_phase(path, q, smi, record)
 
-    # -- 10. timings ---------------------------------------------------------
+    # -- 10. the baseline ------------------------------------------------------
+    baseline_phase(x_np, est, smi, record)
+
+    # -- 11. timings ---------------------------------------------------------
     est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     t0 = time.monotonic()
     est_w.select_all()
@@ -1158,9 +1529,10 @@ def main(argv: list[str]) -> int:
         "name": "lune_filter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lune_filter.cu",
         "replaces": "src/repro/kernels/lune_filter.py:33",
-        "launches": launches_x["lune_filter"], "max_abs_err": 0.0,
+        "launches": launches_x["lune_filter"], "max_abs_err": lune_err,
         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
     })
+    kernels += new_kernel_times(x, est_w, est_wide, launches, smi, record)
     record["kernels"] = kernels
 
     out_dir = ROOT / "chiprun_out"

@@ -313,9 +313,10 @@ class FittedModel:
         return self.default_policy if policy is None else policy
 
     def _ensure_linkage(self) -> multi.LinkageRange:
-        """All dendrograms for the range at once, on first need."""
+        """All dendrograms for the range at once, on first need, on the
+        model's device."""
         if self._linkage is None:
-            self._linkage = multi.linkage_range(self.msts)
+            self._linkage = multi.linkage_range(self.msts, device=self.plan.device)
         return self._linkage
 
     def hierarchy(self, mpts: int, policy: SelectionPolicy | None = None) -> multi.HierarchyResult:

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from ..kernels.prim_mst import prim_mst
+
 
 def _rank_keys(w_range: torch.Tensor):
     """(R, m) weights -> (order, rank): each row's edge ids sorted by the
@@ -87,3 +89,16 @@ def boruvka_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor,
 def boruvka_mst(ea: torch.Tensor, eb: torch.Tensor, w: torch.Tensor, *, n: int):
     """MST of one weighted edge list: (m,) bool mask of MST edges."""
     return boruvka_mst_range(ea, eb, w[None, :], n=n)[0]
+
+
+def prim_dense_mst(x: torch.Tensor, cd2_col: torch.Tensor):
+    """Prim's MST over the implicit complete mrd graph for ONE mpts: the
+    paper's baseline unit of work, O(n^2) mrd evaluations, one row per step,
+    nothing materialized.
+
+    Returns (src (n,) int32, w2 (n,) float32): for each vertex v != 0 the
+    MST edge (src[v], v) with squared mrd weight w2[v]; w2[0] = 0.  Runs
+    the ``prim_mst`` kernel for tensors on the card and its plain version
+    for tensors on the CPU.
+    """
+    return prim_mst(x, cd2_col)

@@ -3,11 +3,10 @@
 
 The reference runs a union-find ``fori_loop`` over the n-1 weight-sorted
 edges on the device, vmapped across the R hierarchies.  Here the same
-union-find runs in numpy on the host, vectorised over the R rows: one
-Python step per merge, each a handful of (R,)-wide array operations.  The
-MST arrays are already on the host when extraction starts (the ``mst``
-sync of ``core.multi.fit_msts``), so this costs no transfer; a device
-version is later work.
+loop runs on the device of the arrays it is given: a stable per-row sort
+by (weight, edge id) in torch ops, then, on the card, the
+``single_linkage`` kernel (one thread block per row) and, on the CPU, its
+plain version (one Python step per merge, (R,)-wide torch ops).
 
 Output follows the scipy linkage convention used by ``core.hierarchy``:
 cluster ids 0..n-1 are points, ``n + i`` is the cluster born at merge row
@@ -18,65 +17,40 @@ reference's, so the arrays are equal to its output.
 
 Precondition: every row of ``(ea, eb)`` is a spanning tree of the n points;
 ``validate_spanning`` is a host check for external callers.
+``same_single_linkage`` compares two MSTs of one graph up to their
+tie-breaks, and ``random_spanning_trees`` makes seeded inputs for the
+linkage kernel's checks.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-
-def _find(parent: np.ndarray, rows: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """Union-find roots of ``v`` (one vertex per row), read-only walk."""
-    r = v.copy()
-    while True:
-        p = parent[rows, r]
-        moving = p != r
-        if not moving.any():
-            return r
-        r = np.where(moving, p, r)
+from ..kernels.single_linkage import single_linkage
 
 
 def single_linkage_batch(ea, eb, w, *, n: int):
-    """Dendrograms for a batch of spanning trees.
+    """Dendrograms for a batch of spanning trees, on the device of the
+    tensors given (numpy arrays run on the CPU).
 
     Args:
       ea, eb: (R, n-1) integer endpoints; each row a spanning tree over n points.
       w: (R, n-1) non-negative merge weights (real, not squared, distances).
       n: number of points.
     Returns:
-      (left, right, height, size), each (R, n-1) (int32, int32, w's dtype,
-      int32): scipy-convention merge rows sorted by ascending height.
+      (left, right, height, size), each an (R, n-1) tensor on that device
+      (int32, int32, w's dtype, int32): scipy-convention merge rows sorted
+      by ascending height.
     """
-    ea = np.asarray(ea)
-    eb = np.asarray(eb)
-    w = np.asarray(w)
-    R, n_merges = w.shape
-    order = np.argsort(w, axis=1, kind="stable")
-    ea_s = np.take_along_axis(ea, order, axis=1).astype(np.int64)
-    eb_s = np.take_along_axis(eb, order, axis=1).astype(np.int64)
-    w_s = np.take_along_axis(w, order, axis=1)
-
-    rows = np.arange(R)
-    parent = np.tile(np.arange(n, dtype=np.int64), (R, 1))
-    label = parent.copy()
-    csize = np.ones((R, n), np.int64)
-    left = np.zeros((R, n_merges), np.int32)
-    right = np.zeros((R, n_merges), np.int32)
-    size = np.zeros((R, n_merges), np.int32)
-    for i in range(n_merges):
-        ra = _find(parent, rows, ea_s[:, i])
-        rb = _find(parent, rows, eb_s[:, i])
-        sa, sb = csize[rows, ra], csize[rows, rb]
-        left[:, i] = label[rows, ra]
-        right[:, i] = label[rows, rb]
-        size[:, i] = sa + sb
-        a_wins = sa >= sb
-        winner = np.where(a_wins, ra, rb)
-        loser = np.where(a_wins, rb, ra)
-        parent[rows, loser] = winner
-        label[rows, winner] = n + i
-        csize[rows, winner] = sa + sb
-    return left, right, w_s, size
+    w = torch.as_tensor(w)
+    ea = torch.as_tensor(ea, device=w.device)
+    eb = torch.as_tensor(eb, device=w.device)
+    # stable: equal weights keep their edge order, as the reference's
+    # two-key (w, edge id) sort does
+    height, order = torch.sort(w, dim=1, stable=True)
+    left, right, size = single_linkage(ea.gather(1, order), eb.gather(1, order), n=n)
+    return left, right, height, size
 
 
 def linkage_to_Z(left, right, height, size) -> np.ndarray:
@@ -115,3 +89,51 @@ def validate_spanning(ea: np.ndarray, eb: np.ndarray, n: int) -> None:
         merges += 1
     if merges != n - 1:
         raise ValueError("edge list does not span")
+
+
+def same_single_linkage(tree_a, tree_b, n: int) -> bool:
+    """Whether two spanning trees ``(ea, eb, w)`` of n points carry equal
+    weight multisets and give the same single-linkage partition at every
+    height.  Any two MSTs of one weighted graph do, whichever edges their
+    tie-breaks picked.  After each group of equal weights, every edge of
+    the group in one tree must join points the other tree has joined."""
+    (a1, b1, w1), (a2, b2, w2) = tree_a, tree_b
+    o1, o2 = np.argsort(w1, kind="stable"), np.argsort(w2, kind="stable")
+    ws = np.asarray(w1)[o1]
+    if not np.array_equal(ws, np.asarray(w2)[o2]):
+        return False
+    trees = ((np.asarray(a1)[o1], np.asarray(b1)[o1]), (np.asarray(a2)[o2], np.asarray(b2)[o2]))
+    parents = (np.arange(n), np.arange(n))
+
+    def find(p, v):
+        while p[v] != v:
+            p[v] = p[p[v]]
+            v = p[v]
+        return v
+
+    starts = np.flatnonzero(np.r_[True, ws[1:] != ws[:-1]])
+    for i, j in zip(starts, np.r_[starts[1:], len(ws)]):
+        for (a, b), p in zip(trees, parents):
+            for k in range(i, j):
+                p[find(p, a[k])] = find(p, b[k])
+        for (a, b), p in zip(trees, parents[::-1]):
+            if any(find(p, a[k]) != find(p, b[k]) for k in range(i, j)):
+                return False
+    return True
+
+
+def random_spanning_trees(n: int, rows: int, seed: int, ties: bool):
+    """``rows`` random spanning trees over n points, (R, n-1) int32
+    endpoints and float32 weights in a random edge order; with ``ties`` the
+    weights come from {0, 0.5, 1} (a third of them zero)."""
+    rng = np.random.default_rng(seed)
+    ea, eb, w = [], [], []
+    for _ in range(rows):
+        perm = rng.permutation(n)
+        a = perm[(rng.random(n - 1) * np.arange(1, n)).astype(np.int64)]
+        b = perm[1:]
+        order = rng.permutation(n - 1)
+        ea.append(a[order])
+        eb.append(b[order])
+        w.append(rng.choice([0.0, 0.5, 1.0], n - 1) if ties else rng.uniform(0.1, 5.0, n - 1))
+    return np.stack(ea).astype(np.int32), np.stack(eb).astype(np.int32), np.stack(w).astype(np.float32)

@@ -32,6 +32,12 @@ def edge_d2(x: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor) -> torch.Tensor
     return sum_sq(x[ea.long()].float() - x[eb.long()].float(), sum_order(int(x.shape[1]), "slot"))
 
 
+def edge_mrd2(x: torch.Tensor, cd2_col: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
+    """Squared mrd for edges under ONE mpts value (cd2_col = cd2[:, mpts-1])."""
+    ea, eb = ea.long(), eb.long()
+    return mrd2_from_parts(edge_d2(x, ea, eb), cd2_col[ea], cd2_col[eb])
+
+
 def reweight_all_mpts(d2_e, cd2, ea, eb):
     """(m,) squared edge lengths + (n, kmax) squared core distances ->
     (kmax, m) squared mrd weights; row j-1 corresponds to mpts=j."""

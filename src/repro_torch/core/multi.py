@@ -12,8 +12,9 @@ Staged pipeline, as in the reference:
                         — stage 2: vectorized condense/stability/labels
                           (``core.hierarchy``) per requested mpts.
 
-``multi_hdbscan`` runs the whole method with eager extraction.  The
-reference's ``hdbscan_baseline`` (dense Prim per mpts) is not ported.
+``multi_hdbscan`` runs the whole method with eager extraction;
+``hdbscan_baseline`` is the paper's re-run baseline (one shared kNN, then
+one dense Prim MST and one extraction per mpts).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import engine
-from . import hierarchy, linkage
+from . import boruvka, hierarchy, linkage
 from . import mrd as mrd_mod
 from .rng import RngGraph, build_rng_graph
 
@@ -214,11 +215,20 @@ def fit_msts(
     )
 
 
-def linkage_range(msts: MultiMSTResult) -> LinkageRange:
-    """All of the range's dendrograms; row i is ``msts.mpts_values[i]``."""
+def linkage_range(msts: MultiMSTResult, *, device=None) -> LinkageRange:
+    """All of the range's dendrograms; row i is ``msts.mpts_values[i]``.
+
+    The MST arrays are host numpy, so the caller names the device the
+    union-find runs on: ``"cuda"`` by default (the ``single_linkage``
+    kernel), which raises without a card unless ``device="cpu"``.
+    """
+    dev = engine.plan.resolve_device(device)
+    ea, eb, w = (
+        torch.from_numpy(np.array(a, order="C")).to(dev)
+        for a in (msts.mst_ea, msts.mst_eb, msts.mst_w)
+    )
     left, right, height, size = engine.to_host(
-        linkage.single_linkage_batch(msts.mst_ea, msts.mst_eb, msts.mst_w, n=msts.n),
-        "linkage",
+        linkage.single_linkage_batch(ea, eb, w, n=msts.n), "linkage"
     )
     return LinkageRange(left=left, right=right, height=height, size=size)
 
@@ -350,12 +360,16 @@ def extract_hierarchies(
     cluster_selection_method: str = "eom",
     cluster_selection_epsilon: float = 0.0,
     policy=None,
+    device=None,
 ) -> tuple[list[HierarchyResult], dict[str, float]]:
-    """Batched extraction of the whole range; returns (hierarchies, timings)."""
+    """Batched extraction of the whole range; returns (hierarchies, timings).
+
+    ``device`` is where the linkage runs when ``lk`` is not given (see
+    ``linkage_range``)."""
     timings: dict[str, float] = {}
     t0 = time.monotonic()
     if lk is None:
-        lk = linkage_range(msts)
+        lk = linkage_range(msts, device=device)
     timings["hierarchy_linkage"] = time.monotonic() - t0
 
     t0 = time.monotonic()
@@ -394,9 +408,10 @@ def multi_hdbscan(
 ) -> MultiDensityResult:
     """All HDBSCAN* hierarchies for mpts in [kmin, kmax] via one RNG^kmax."""
     _validate_min_cluster_size(min_cluster_size)
+    plan = plan if isinstance(plan, engine.Plan) else engine.resolve_plan(plan, device=device)
     msts = fit_msts(
         x, kmax, kmin=kmin, variant=variant,
-        mpts_values=mpts_values, plan=plan, device=device,
+        mpts_values=mpts_values, plan=plan,
     )
     timings = dict(msts.timings)
     hierarchies: list[HierarchyResult] = []
@@ -407,6 +422,7 @@ def multi_hdbscan(
             allow_single_cluster=allow_single_cluster,
             cluster_selection_method=cluster_selection_method,
             cluster_selection_epsilon=cluster_selection_epsilon,
+            device=plan.device,
         )
         timings.update(t_extract)
     else:
@@ -425,3 +441,91 @@ def multi_hdbscan(
         hierarchies=hierarchies,
         timings=timings,
     )
+
+
+def hdbscan_baseline(
+    x,
+    mpts_values: Sequence[int],
+    *,
+    kmax: int | None = None,
+    min_cluster_size: int | None = None,
+    allow_single_cluster: bool = False,
+    cluster_selection_method: str = "eom",
+    cluster_selection_epsilon: float = 0.0,
+    backend: str | None = None,
+    compute_hierarchies: bool = True,
+    plan: "engine.Plan | str | None" = None,
+    device=None,
+) -> tuple[list[HierarchyResult], dict[str, float]]:
+    """Paper's baseline: shared kNN pass + dense complete-graph MST per mpts.
+
+    One ``prim_dense_mst`` call (one ``prim_mst`` launch on the card) per
+    mpts, each synced to the host under the ``mst`` tag, as the reference
+    runs one program per mpts: the baseline is one independent run per
+    density level.  ``device`` (default ``"cuda"``) and ``backend`` are
+    read only when ``plan`` is not already a resolved ``Plan``.
+    """
+    _validate_min_cluster_size(min_cluster_size)
+    if not isinstance(plan, engine.Plan):
+        plan = engine.resolve_plan(plan, backend=backend, device=device)
+    x_host = engine.io.ensure_host(x)
+    dev = torch.device(plan.device)
+    x = torch.as_tensor(np.ascontiguousarray(x_host, dtype=np.float32)).to(dev)
+    n = int(x.shape[0])
+    mpts_list = list(mpts_values)
+    kmax = kmax or max(mpts_list)
+    timings: dict[str, float] = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.monotonic()
+    knn_d2, _ = plan.knn(x, kmax - 1, x_host=x_host)
+    cd2 = mrd_mod.core_distances2(knn_d2)
+    sync()
+    timings["knn"] = time.monotonic() - t0
+
+    t_mst = 0.0
+    eb = np.arange(1, n, dtype=np.int32)
+    mst_ea = np.zeros((len(mpts_list), n - 1), np.int32)
+    mst_w = np.zeros((len(mpts_list), n - 1), np.float32)
+    for row, mpts in enumerate(mpts_list):
+        t0 = time.monotonic()
+        src, w2 = boruvka.prim_dense_mst(x, cd2[:, mpts - 1])
+        sync()
+        t_mst += time.monotonic() - t0
+        src_h, w2_h = engine.to_host((src, w2), "mst")
+        mst_ea[row] = src_h[1:]
+        # float32 sqrt on the host, as the reference takes it
+        mst_w[row] = np.sqrt(w2_h[1:])
+    timings["mst"] = t_mst
+
+    results: list[HierarchyResult] = []
+    t0 = time.monotonic()
+    if compute_hierarchies:
+        knn_d2_h, cd2_h = engine.to_host((knn_d2, cd2), "knn")
+        msts = MultiMSTResult(
+            n=n,
+            kmax=kmax,
+            mpts_values=mpts_list,
+            graph=None,
+            knn_d2=knn_d2_h,
+            knn_idx=np.zeros((n, 0), np.int32),
+            cd2=cd2_h,
+            mst_ea=mst_ea,
+            mst_eb=np.broadcast_to(eb, mst_ea.shape),
+            mst_w=mst_w,
+            timings={},
+        )
+        results, _ = extract_hierarchies(
+            msts,
+            min_cluster_size=min_cluster_size,
+            allow_single_cluster=allow_single_cluster,
+            cluster_selection_method=cluster_selection_method,
+            cluster_selection_epsilon=cluster_selection_epsilon,
+            device=plan.device,
+        )
+    timings["hierarchy"] = time.monotonic() - t0
+    timings["total"] = timings["knn"] + t_mst + timings["hierarchy"]
+    return results, timings

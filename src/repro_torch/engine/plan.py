@@ -157,6 +157,20 @@ class Plan:
         return f"Plan(backend={self.backend!r}, device={self.device!r})"
 
 
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The port's device rule: ``"cuda"`` by default, which raises without
+    a card; the CPU only when the caller asks for ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be a CUDA device or 'cpu'; got {dev}")
+    return dev
+
+
 def resolve_plan(
     plan: Plan | str | None = "auto",
     *,
@@ -181,14 +195,7 @@ def resolve_plan(
         )
     if plan not in PLAN_REQUESTS:
         raise ValueError(f"plan must be one of {PLAN_REQUESTS} or a Plan; got {plan!r}")
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a CUDA device or 'cpu'; got {dev}")
+    dev = resolve_device(device)
     backend = backend or ("cuda" if dev.type == "cuda" else "torch")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")

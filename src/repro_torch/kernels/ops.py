@@ -37,7 +37,7 @@ from .pairwise_topk import pairwise_topk
 BACKENDS = ("cuda", "torch", "ref")
 SUM_ORDERS = ("seq", "fma", "win32")
 # the programs whose sums of squares the port reproduces (``sum_order``)
-SUM_PROGRAMS = ("cascade", "slot", "refine", "weights")
+SUM_PROGRAMS = ("cascade", "slot", "refine", "weights", "prim")
 
 
 def sum_sq_seq(v: torch.Tensor) -> torch.Tensor:
@@ -120,7 +120,11 @@ def sum_order(d: int, program: str) -> str:
         check: unfused for d <= 32 (on edge counts that fill XLA's vector
         loops, as the reference's power-of-two buckets do);
       * ``"refine"`` and ``"weights"`` — ``_refine_knn`` and the canonical
-        edge weights: an FMA chain for d <= 32.
+        edge weights: an FMA chain for d <= 32;
+      * ``"prim"`` — the row sum inside ``prim_dense_mst``'s loop body, a
+        multiply-reduce fusion of its own: an FMA chain for d <= 32 (its
+        LLVM IR is unfused, but the backend contracts every add into the
+        product: ``vfmadd`` in the object code).
 
     Above 32 every one of them is ``"win32"``: the row sum becomes a
     ``reduce-window`` of 32 fed by a separate multiply fusion.

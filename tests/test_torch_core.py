@@ -5,6 +5,7 @@ boolean outputs must be equal; float outputs agree to rtol 1e-5.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -23,8 +24,12 @@ from repro.kernels import ops as j_ops
 from repro_torch.core import boruvka as t_boruvka
 from repro_torch.core import hierarchy as t_hier
 from repro_torch.core import linkage as t_linkage
+from repro_torch.core import multi as t_multi
 from repro_torch.core import sbcn as t_sbcn
 from repro_torch.core import wspd as t_wspd
+
+# the kernel's module by its own name (the package binds kernel names to functions)
+t_sl = importlib.import_module("repro_torch.kernels.single_linkage")
 
 RTOL = 1e-5
 # the reference plan's emission settings, so the JAX package's program
@@ -148,6 +153,103 @@ def test_single_linkage_batch_arrays_equal():
     t_linkage.validate_spanning(ea[0], eb[0], n)
     with pytest.raises(ValueError, match="cycle"):
         t_linkage.validate_spanning(np.r_[ea[0][:-1], 0], np.r_[eb[0][:-1], 1], n)
+
+
+def _numpy_single_linkage(ea, eb, w, n):
+    """The port's earlier host union-find: numpy, vectorised over the rows."""
+    R, m = w.shape
+    order = np.argsort(w, axis=1, kind="stable")
+    ea_s = np.take_along_axis(ea, order, axis=1).astype(np.int64)
+    eb_s = np.take_along_axis(eb, order, axis=1).astype(np.int64)
+    rows = np.arange(R)
+    parent = np.tile(np.arange(n, dtype=np.int64), (R, 1))
+    label = parent.copy()
+    csize = np.ones((R, n), np.int64)
+    left, right, size = (np.zeros((R, m), np.int32) for _ in range(3))
+
+    def find(v):
+        r = v.copy()
+        while True:
+            p = parent[rows, r]
+            if (p == r).all():
+                return r
+            r = np.where(p != r, p, r)
+
+    for i in range(m):
+        ra, rb = find(ea_s[:, i]), find(eb_s[:, i])
+        sa, sb = csize[rows, ra], csize[rows, rb]
+        left[:, i], right[:, i], size[:, i] = label[rows, ra], label[rows, rb], sa + sb
+        winner, loser = np.where(sa >= sb, ra, rb), np.where(sa >= sb, rb, ra)
+        parent[rows, loser] = winner
+        label[rows, winner] = n + i
+        csize[rows, winner] = sa + sb
+    return left, right, np.take_along_axis(w, order, axis=1), size
+
+
+@pytest.mark.parametrize("rows", [1, 15])
+@pytest.mark.parametrize("ties", [True, False], ids=["tied-and-zero", "distinct"])
+def test_single_linkage_plain_matches_reference_and_the_numpy_loop(rows, ties):
+    """The kernel's plain version on sorted endpoints, and the whole
+    ``single_linkage_batch`` on the CPU, against the reference's device
+    program and against the earlier numpy loop: all four arrays equal."""
+    n = 300
+    ea, eb, w = t_linkage.random_spanning_trees(n, rows, seed=rows + ties, ties=ties)
+    out_j = [np.asarray(a) for a in j_linkage.single_linkage_batch(ea, eb, w, n=n)]
+    out_np = _numpy_single_linkage(ea, eb, w, n)
+    order = np.argsort(w, axis=1, kind="stable")
+    t = torch.from_numpy
+    plain = t_sl.single_linkage_plain(t(np.take_along_axis(ea, order, 1)), t(np.take_along_axis(eb, order, 1)), n=n)
+    batch = t_linkage.single_linkage_batch(t(ea), t(eb), t(w), n=n)
+    for k, name in enumerate(("left", "right", "height", "size")):
+        np.testing.assert_array_equal(out_np[k], out_j[k], err_msg=name)
+        np.testing.assert_array_equal(batch[k].numpy(), out_j[k], err_msg=name)
+    for got, want, name in zip(plain, (out_j[0], out_j[1], out_j[3]), ("left", "right", "size")):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+def test_single_linkage_on_the_cpu_runs_the_plain_version(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA launch")
+
+    monkeypatch.setattr(t_sl, "_launch", boom)
+    before = t_sl.single_linkage.launches
+    ea, eb, w = t_linkage.random_spanning_trees(50, 3, seed=5, ties=True)
+    left, right, height, size = t_linkage.single_linkage_batch(ea, eb, w, n=50)
+    assert (size[:, -1] == 50).all() and t_sl.single_linkage.launches == before
+    empty = t_linkage.single_linkage_batch(ea[:0], eb[:0], w[:0], n=50)  # an empty mpts list
+    assert all(a.shape == (0, 49) for a in empty)
+    z = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(R, n-1\)"):
+        t_sl.single_linkage(z, z, n=4)
+    with pytest.raises(ValueError, match="integers"):
+        t_sl.single_linkage(z.float(), z.float(), n=5)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_sl.single_linkage(z.to("meta"), z.to("meta"), n=5)
+
+
+def test_direct_linkage_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs):
+    """``linkage_range`` and ``extract_hierarchies`` take host MSTs, so the
+    caller names the device; the default is the card, which raises
+    without one.  With ``device="cpu"`` they equal the reference's."""
+    from repro.core import multi as j_multi
+
+    x = blobs[0]
+    msts = t_multi.fit_msts(x, 6, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_multi.linkage_range(msts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_multi.extract_hierarchies(msts)
+    lk = t_multi.linkage_range(msts, device="cpu")
+    lk_j = j_multi.linkage_range(msts)
+    for f in ("left", "right", "height", "size"):
+        np.testing.assert_array_equal(getattr(lk, f), np.asarray(getattr(lk_j, f)), err_msg=f)
+    hs, t = t_multi.extract_hierarchies(msts, device="cpu")
+    hs_j, _ = j_multi.extract_hierarchies(msts)
+    assert "hierarchy_linkage" in t
+    for h_t, h_j in zip(hs, hs_j):
+        np.testing.assert_array_equal(h_t.labels, np.asarray(h_j.labels))
 
 
 @pytest.mark.parametrize("method", ["eom", "leaf"])

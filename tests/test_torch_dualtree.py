@@ -111,7 +111,7 @@ def test_msts_and_labels_equal_the_reference(fits):
     for f in ("mst_ea", "mst_eb", "mst_w"):
         np.testing.assert_array_equal(getattr(port, f), np.asarray(getattr(ref, f)), err_msg=f)
     h_j, _ = j_multi.extract_hierarchies(ref)
-    h_t, _ = t_multi.extract_hierarchies(port)
+    h_t, _ = t_multi.extract_hierarchies(port, device="cpu")
     assert len(h_t) == len(h_j) == KMAX - 1
     for a, b in zip(h_t, h_j):
         np.testing.assert_array_equal(a.labels, np.asarray(b.labels), err_msg=f"mpts={a.mpts}")
@@ -155,7 +155,8 @@ def test_dual_tree_tier_matches_the_wspd_tier(name):
     np.testing.assert_array_equal(dt.knn_idx, wspd.knn_idx)
     np.testing.assert_array_equal(dt.knn_d2, wspd.knn_d2)
     np.testing.assert_array_equal(np.sort(dt.mst_w, axis=1), np.sort(wspd.mst_w, axis=1))
-    for a, b in zip(t_multi.extract_hierarchies(dt)[0], t_multi.extract_hierarchies(wspd)[0]):
+    for a, b in zip(t_multi.extract_hierarchies(dt, device="cpu")[0],
+                    t_multi.extract_hierarchies(wspd, device="cpu")[0]):
         np.testing.assert_array_equal(a.labels, b.labels, err_msg=f"mpts={a.mpts}")
 
 

@@ -110,6 +110,113 @@ def test_the_serving_and_dual_tree_modules_are_covered():
     assert "repro_torch.serve.lm" not in MODULES
 
 
+def test_the_baseline_and_linkage_kernel_modules_are_covered():
+    assert {"repro_torch.kernels.prim_mst", "repro_torch.kernels.single_linkage"} <= set(MODULES)
+    src = PORT / "kernels" / "csrc"
+    assert (src / "prim_mst.cu").is_file() and (src / "single_linkage.cu").is_file()
+    from repro_torch.kernels import _build
+
+    assert {"prim_mst", "single_linkage"} <= set(_build.KERNEL_SOURCES)
+    assert all((src / f"{name}.cu").is_file() for name in _build.KERNEL_SOURCES)
+
+
+def test_baseline_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs):
+    from repro_torch.core import hdbscan_baseline
+
+    x = blobs[0][:100]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hdbscan_baseline(x, [3, 5])
+    res, timings = hdbscan_baseline(x, [3, 5], device="cpu")
+    assert [h.mpts for h in res] == [3, 5] and set(timings) == {"knn", "mst", "hierarchy", "total"}
+
+
+# Names of the reference's public surface that later slices of the port
+# bring, per package; ``engine.cached_program`` (XLA's program cache, which
+# eager PyTorch does not need) stays here for good.
+KNOWN_GAPS = {
+    "": set(),
+    "core": set(),
+    "kernels": set(),
+    "engine": {"cached_program"},
+    "api": {"Membership"},
+    "serve": {"lm"},
+}
+# the reference's subpackages of the distributed and LM stack
+LATER_SUBPACKAGES = {"configs", "dist", "launch", "models", "train"}
+# the estimator's deprecated per-level accessors and legacy cache knob
+LATER_ESTIMATOR_NAMES = {"hierarchy_for", "labels_for", "membership_for", "probabilities_for",
+                         "max_cached_hierarchies"}
+
+
+@pytest.mark.parametrize("package", list(KNOWN_GAPS), ids=lambda p: p or "top")
+def test_public_surface_equals_the_reference(package):
+    """Each package's ``__all__`` is the reference's, but for the names that
+    later slices bring; every listed gap is still a gap."""
+    import importlib
+
+    suffix = f".{package}" if package else ""
+    ref = importlib.import_module(f"repro{suffix}")
+    port = importlib.import_module(f"repro_torch{suffix}")
+    gaps = KNOWN_GAPS[package]
+    assert gaps <= set(ref.__all__) and not gaps & set(port.__all__)
+    assert set(port.__all__) == set(ref.__all__) - gaps
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+def test_kernel_names_are_the_kernel_functions():
+    import importlib
+
+    import repro_torch.kernels as k
+
+    for name in ("pairwise_topk", "edge_cascade", "lune_filter"):
+        fn = getattr(k, name)
+        assert callable(fn) and not isinstance(fn, type(k)) and isinstance(fn.launches, int), name
+    # the modules stay reachable by their own names
+    for name in ("pairwise_topk", "lune_filter", "fused_cascade", "prim_mst", "single_linkage"):
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        assert isinstance(mod, type(k)), name
+    from repro_torch.core import (PredictResult, edge_mrd2, hdbscan_baseline, membership_probabilities,
+                                  predict_range, prim_dense_mst)
+
+    assert all(callable(f) for f in (PredictResult, edge_mrd2, hdbscan_baseline, membership_probabilities,
+                                     predict_range, prim_dense_mst))
+
+
+def test_subpackages_and_estimator_surface_equal_the_reference():
+    def subpackages(root):
+        return {p.name for p in root.iterdir() if p.is_dir() and any(p.glob("*.py"))}
+
+    ref_pkgs, port_pkgs = subpackages(REPO / "src" / "repro"), subpackages(PORT)
+    assert LATER_SUBPACKAGES <= ref_pkgs and port_pkgs == ref_pkgs - LATER_SUBPACKAGES
+    from repro.api import MultiHDBSCAN as JEst
+
+    def public(cls):
+        return {n for n in dir(cls) if not n.startswith("_")}
+
+    assert LATER_ESTIMATOR_NAMES <= public(JEst)
+    assert public(t_api.MultiHDBSCAN) == public(JEst) - LATER_ESTIMATOR_NAMES
+    from repro.api import FittedModel as JModel
+
+    assert public(t_api.FittedModel) == public(JModel)
+
+
+def test_edge_mrd2_matches_the_reference():
+    import jax.numpy as jnp
+    from repro.core import mrd as j_mrd
+    from repro_torch.core import mrd as t_mrd
+
+    rng = np.random.default_rng(4)
+    for d in (2, 8, 40):
+        x = rng.normal(size=(60, d)).astype(np.float32)
+        cd2 = rng.random(60).astype(np.float32)
+        ea, eb = rng.integers(0, 60, 200).astype(np.int32), rng.integers(0, 60, 200).astype(np.int32)
+        want = np.asarray(j_mrd.edge_mrd2(jnp.asarray(x), jnp.asarray(cd2), jnp.asarray(ea), jnp.asarray(eb)))
+        got = t_mrd.edge_mrd2(*(torch.from_numpy(a) for a in (x, cd2, ea, eb))).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_serving_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs, tmp_path):
     from repro_torch.serve import ClusterServeEngine
 

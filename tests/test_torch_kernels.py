@@ -7,6 +7,8 @@ be equal; float outputs agree to rtol 1e-5, the tolerance the repo uses
 for MST weight multisets.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,9 @@ from repro.kernels.pairwise_topk import pairwise_topk as j_pairwise_topk
 
 from repro_torch.kernels import fused_cascade as t_fc
 from repro_torch.kernels import ops as t_ops
-from repro_torch.kernels import pairwise_topk as t_pt
+
+# the package binds the name to the kernel function, as the reference's does
+t_pt = importlib.import_module("repro_torch.kernels.pairwise_topk")
 
 RTOL = 1e-5
 # the reference plan's emission settings, so the JAX package's program

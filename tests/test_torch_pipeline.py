@@ -105,7 +105,7 @@ def test_reference_pack_extracts_equal_in_port(fits):
     arrays, meta = j_multi.pack_msts(msts_j)
     msts_t = t_multi.unpack_msts({k: np.asarray(v) for k, v in arrays.items()}, meta)
     hs_j, _ = j_multi.extract_hierarchies(msts_j)
-    hs_t, _ = t_multi.extract_hierarchies(msts_t)
+    hs_t, _ = t_multi.extract_hierarchies(msts_t, device="cpu")
     for h_j, h_t in zip(hs_j, hs_t):
         np.testing.assert_array_equal(h_t.labels, h_j.labels, err_msg=f"mpts={h_j.mpts}")
     # and back: the port's pack is the reference's format
