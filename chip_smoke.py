@@ -28,7 +28,11 @@ Phases (any failure exits non-zero):
      memory; ``single_linkage`` (left, right, height, size equal, against
      the plain version on the card and the CPU's run) on random trees with
      tied and zero weights at R = 1 and 15 in shared memory and above its
-     limit;
+     limit; past the earlier card limits (the sliced instances above
+     d = 256, the lists past K = 128): ``pairwise_topk`` at d = 320 and 1536
+     (n = 4000 and 1007, K = 31 and 135) and at K = 135 and 256 at d = 8
+     (with exact ties), ``lune_filter`` at d = 320 and 1536, ``edge_cascade``
+     at d = 1536 (windows of windows) and at k_check = 127;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it (``select_all``
      runs its linkage through ``single_linkage`` once, checked on the fit's
@@ -77,6 +81,28 @@ Phases (any failure exits non-zero):
      1e-5 and partitions agree for every mpts; at n = 4000 the card's
      baseline equals its ``device="cpu"`` run bit for bit; warm stage
      seconds and the ratio of the baseline to ``fit + select_all``;
+  12. LM serving: qwen2-1.5b at its published width and depth with random
+     weights from the port's seeded init: the card's float32 logits at 2
+     layers against the port's CPU run (max abs 1e-3), prefill + 5 decode
+     steps against a forward over the sequence at full depth in float32
+     (1e-3 x max(1, max|logit|)), and ``serve.lm.Engine`` in bfloat16 on 8
+     requests (prompts of 3-12 tokens, 24 new, half greedy, half at
+     temperature 0.8) with the reference's serving regressions (a greedy
+     row alone and behind a hot one under two seeds, EOS masking, the
+     stats); tokens/s, prefill seconds and seconds a decode step;
+  13. embedding curation: the phase-12 model embeds 4000 documents (mean
+     of the final hidden states over 48 tokens, d = 1536, 40 injected
+     near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
+     card with the counters set to 0 just before it (``pairwise_topk``,
+     ``edge_cascade`` and ``single_linkage`` must launch); the first 1500
+     rows' card fit equals their CPU fit bit for bit; MST weight multisets
+     at mpts 2, 8, 16, 24 equal dense scipy MSTs; DBCV's choice and the
+     near-duplicate pairs flagged;
+  14. ``MultiHDBSCAN(kmax=128)`` at n = 4000, d = 8 (K = 135) with the
+     counters set to 0 just before it: mpts 2..16 MST weight multisets
+     equal a kmax = 16 fit's bit for bit; then ``pairwise_topk`` at the
+     shapes of phases 13 and 14 and ``lune_filter`` at d = 1536, each
+     beside its plain version and its bound (phases 12-14 run before 11);
   11. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
@@ -84,9 +110,11 @@ Phases (any failure exits non-zero):
      edge, ``prim_mst`` at the baseline's shape, ``single_linkage`` at R = 15
      and 63), ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
-     busy share of a fit and of a dual-tree fit, and a host profile.
+     busy share of a fit and of 8 LM decode steps (with the steps' device
+     time by kernel), and a host profile.
 
-The second-to-last line is ``{"kernels": [...]}``, the last
+Each phase's seconds are printed at the end.  The second-to-last line is
+``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -119,6 +147,20 @@ PRIM_WIDTHS = (2, 8, 16, 32, 64, 100)
 N_PRIM = 4000
 N_BASELINE_CPU = 4000
 N_LINKAGE = 5000
+WIDE_WIDTHS = (320, 1536)       # the sliced instances; 1536 is qwen2-1.5b's d_model
+N_WIDE = 4000
+K_EMBED = 31                      # the top-K of a kmax = 24 fit (the embedding fit)
+K_WIDE = (135, 256)               # the top-K of kmax = 128, and the kernel's longest list
+KMAX_128 = 128
+LM_ARCH = "qwen2_1_5b"
+LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
+LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_LEN = 8, 24, 48
+LM_PROFILED_STEPS = 8
+N_DOCS, N_DOCS_CPU = 4000, 1500
+KMAX_EMBED = 24
+MPTS_DENSE = (2, 8, 16, 24)
+CPU_FIT_THREADS = 4               # the CPU fits' worker: half the card host's 8 cores
+CPU_FIT_TIMEOUT = 900
 RTOL = 1e-5
 CARD = "cuda"
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
@@ -357,6 +399,60 @@ def check_topk_cases(dev, x) -> dict:
     return errs
 
 
+def check_wide_cases(dev) -> dict:
+    """The kernels past their earlier card limits, each against its plain
+    version on the card: ``pairwise_topk`` at d = 320 and 1536 (the sliced
+    instance; n = 4000 and the ragged 1007, K = 31 and 135) and at K = 135
+    and 256 at d = 8 (n = 4000, 1007, and exact ties); ``lune_filter`` at
+    d = 320 and 1536; ``edge_cascade`` at d = 1536 and at k_check = 127 (the
+    kmax = 128 list).  All bit-equal.  Returns the largest raw d2
+    difference per ``pairwise_topk`` case (0 when bit-equal)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_cascade as fc, ops
+
+    errs = {}
+    for d in WIDE_WIDTHS:
+        xd = torch.from_numpy(make_points(N_WIDE, d, SEED + d)).to(dev)
+        for n in (N_WIDE, N_RAGGED):
+            for k_eff in (K_EMBED, K_WIDE[0]):
+                errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xd[:n], k_eff, k_eff - 8)
+    x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 11)).to(dev)
+    rng = np.random.default_rng(SEED + 12)
+    x_dup = torch.from_numpy(np.repeat(rng.normal(size=(40, 2)), 8, axis=0).astype(np.float32)).to(dev)
+    for k_eff in K_WIDE:
+        for xs in (x8, x8[:N_RAGGED], x_dup):
+            n, d = xs.shape
+            errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xs, k_eff, k_eff - 8)
+    print(f"pairwise_topk: kernel == plain (raw lists bit-equal, refined indices equal) at d={list(WIDE_WIDTHS)} "
+          f"(n={N_WIDE} and {N_RAGGED}, K={K_EMBED} and {K_WIDE[0]}), and at K={list(K_WIDE)} at d={D} "
+          f"(n={N_WIDE}, {N_RAGGED}, and exact ties at n=320)", flush=True)
+    for d in WIDE_WIDTHS:
+        for n in (N_WIDE, N_RAGGED):
+            args = lune_case(n, d, dev)
+            out, _ = check_lune_filter(args, f"n={n}, d={d}", block_e=8, block_c=512)
+            check(bool(out.any()) and not bool(out[torch.isfinite(args[6])].all()),
+                  f"the lune case n={n}, d={d} has both verdicts")
+            check(not bool(out[torch.isneginf(args[6])].any()), "padded edges (w2 = -inf) are never removed")
+    print(f"lune_filter: kernel == plain (verdict bits) at d={list(WIDE_WIDTHS)}, n={N_WIDE} and {N_RAGGED}",
+          flush=True)
+    n_cases = 0
+    for d, k_checks in ((WIDE_WIDTHS[-1], (2, K_EMBED - 8)), (D, (2, K_WIDE[0] - 8))):
+        base, ea, eb, valid = cascade_case(d, max(k_checks), dev)
+        fit_order = ops.sum_order(d, "cascade")
+        for k_check in k_checks:
+            for order in orders_at(d):
+                lanes = (0, *fc.LANES) if order == fit_order else (0,)
+                (killed, cert, n_valid), _ = check_cascade(base, ea, eb, valid, k_check, order,
+                                                           f"the d={d} case", lanes, chunk=4096)
+                check(0 < killed and 0 < cert, f"the d={d}, k_check={k_check} case has killed and certified edges")
+                n_cases += 1
+    print(f"edge_cascade: kernel == plain (bit for bit) on {n_cases} synthetic cases at d={WIDE_WIDTHS[-1]} "
+          f"(k_check=2, {K_EMBED - 8}) and d={D} (k_check=2, {K_WIDE[0] - 8}), every order, every lane count "
+          f"in the fit's order", flush=True)
+    return errs
+
+
 def prim_case(n: int, d: int, dev, ties: bool = False):
     """``make_points`` at (n, d) on ``dev`` and squared core distances from
     the plain top-K (7th neighbour).  With ``ties`` every point comes 8
@@ -580,20 +676,22 @@ def kernel_resources(record: dict) -> None:
     usage = []
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
-            m = re.search(r"(pairwise_topk_kernel|lune_filter_kernel|edge_cascade_kernel|edge_cascade_prologue|"
+            m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|lune_filter_kernel|"
+                          r"lune_filter_sliced_kernel|edge_cascade_kernel|edge_cascade_prologue|"
                           r"prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
             smem = re.search(r"Lb([01])EE", u["function"])  # the state's layout (prim_mst, single_linkage)
             u["state_in"] = ("shared" if smem.group(1) == "1" else "device") if smem else None
-            u["d"] = (int(m.group(2)) or "generic") if m and m.group(2) else None
-            second = int(m.group(3)) if m and m.group(3) else None
+            sliced = "sliced" in u["kernel"]
+            u["d"] = "sliced" if sliced else (int(m.group(2)) or "generic") if m and m.group(2) else None
+            second = int(m.group(2 if sliced else 3)) if m and m.group(2 if sliced else 3) else None
             u["lanes" if u["kernel"] == "edge_cascade_kernel" else "slots"] = second
             usage.append(u)
     for u in usage:
-        d = 100 if u["d"] == "generic" else u["d"]
-        if u["kernel"] == "pairwise_topk_kernel":
+        d = {"generic": 100, "sliced": WIDE_WIDTHS[-1]}.get(u["d"], u["d"])
+        if u["kernel"] in ("pairwise_topk_kernel", "pairwise_topk_sliced_kernel"):
             u.update(pt.kernel_config(N, d, 32 * u["slots"]))
-        elif u["kernel"] == "lune_filter_kernel":
+        elif u["kernel"] in ("lune_filter_kernel", "lune_filter_sliced_kernel"):
             u.update(lf.kernel_config(d, 8, 512))
         elif u["kernel"] == "edge_cascade_kernel":
             cfg = fc.kernel_config(d, u["lanes"], 256)
@@ -846,6 +944,40 @@ def cascade_flops_bytes(n: int, d: int, m: int, k: int, m_valid: int, m_killed: 
     return flops, nbytes
 
 
+def cpu_fit(x, kmax: int) -> dict:
+    """The port's ``device="cpu"`` fit of ``x`` with ``select_all``, in a
+    worker process (``start_cpu_fit``): what a card fit is held to, as
+    arrays."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.api import MultiHDBSCAN
+
+    torch.set_num_threads(CPU_FIT_THREADS)
+    t0 = time.monotonic()
+    est = MultiHDBSCAN(kmax=kmax, device="cpu").fit(x)
+    fit_s = time.monotonic() - t0
+    views = est.select_all()
+    m = est.model_.msts
+    return {"fit_s": fit_s, "total_s": time.monotonic() - t0, "stats": est.graph_.stats,
+            "edges": est.graph_.edges, "d2": est.graph_.d2, "w2_kmax": est.graph_.w2_kmax,
+            "knn_d2": m.knn_d2, "knn_idx": m.knn_idx, "mst_ea": m.mst_ea, "mst_eb": m.mst_eb, "mst_w": m.mst_w,
+            "labels": [v.labels for v in views]}
+
+
+def start_cpu_fit(pool, x, kmax: int):
+    """``cpu_fit`` of ``x`` in ``pool``'s worker, so that the host's other
+    cores fit it while this process drives the card; ``.get()`` waits."""
+    return pool.apply_async(cpu_fit, (x, kmax))
+
+
+def cpu_pool():
+    """One spawned worker process (no CUDA in it), closed on leaving the
+    ``with`` block."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(1)
+
+
 def dualtree_phase(smi: str, record: dict) -> None:
     """The dual-tree tier at n = N_DUALTREE on the card, with the default
     plan: against the port's own CPU fit (bit for bit) and against the
@@ -871,9 +1003,13 @@ def dualtree_phase(smi: str, record: dict) -> None:
         return est, views, stages, engine.io.tags(led)
 
     x = make_points(N_DUALTREE, D, SEED)
-    pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
-    sl.single_linkage.launches = 0
-    est, views, stages, tags = fit()
+    with cpu_pool() as pool:
+        job = start_cpu_fit(pool, x, KMAX)
+        pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+        sl.single_linkage.launches = 0
+        est, views, stages, tags = fit()
+        torch.cuda.synchronize()
+        cpu = job.get(timeout=CPU_FIT_TIMEOUT)
     torch.cuda.synchronize()
     launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
                 "lune_filter": lf.lune_filter.launches}
@@ -887,18 +1023,18 @@ def dualtree_phase(smi: str, record: dict) -> None:
     check(all(v == 0 for v in launches.values()), "the dual-tree tier launches none of the three graph kernels")
     check(linkage_launches == 1, "the dual-tree fit's select_all launched single_linkage once")
 
-    est_c, views_c, stages_c, _ = fit(device="cpu")
-    m, mc = est.model_.msts, est_c.model_.msts
-    for name, a, b in (("graph edges", est.graph_.edges, est_c.graph_.edges), ("graph d2", est.graph_.d2,
-                       est_c.graph_.d2), ("graph w2_kmax", est.graph_.w2_kmax, est_c.graph_.w2_kmax),
-                       ("kNN d2", m.knn_d2, mc.knn_d2), ("kNN idx", m.knn_idx, mc.knn_idx),
-                       ("MST ea", m.mst_ea, mc.mst_ea), ("MST eb", m.mst_eb, mc.mst_eb), ("MST w", m.mst_w, mc.mst_w)):
+    m = est.model_.msts
+    for name, a, b in (("graph edges", est.graph_.edges, cpu["edges"]), ("graph d2", est.graph_.d2, cpu["d2"]),
+                       ("graph w2_kmax", est.graph_.w2_kmax, cpu["w2_kmax"]), ("kNN d2", m.knn_d2, cpu["knn_d2"]),
+                       ("kNN idx", m.knn_idx, cpu["knn_idx"]), ("MST ea", m.mst_ea, cpu["mst_ea"]),
+                       ("MST eb", m.mst_eb, cpu["mst_eb"]), ("MST w", m.mst_w, cpu["mst_w"])):
         check(np.array_equal(a, b), f"dual-tree tier: {name} bit-equal to the CPU fit")
-    for v_g, v_c in zip(views, views_c):
+    for v_g, lab_c in zip(views, cpu["labels"]):
         check(v_g.labels.shape == (N_DUALTREE,), "dual-tree labels shape")
-        check(np.array_equal(v_g.labels, v_c.labels), f"dual-tree tier: labels equal the CPU fit at mpts={v_g.mpts}")
+        check(np.array_equal(v_g.labels, lab_c), f"dual-tree tier: labels equal the CPU fit at mpts={v_g.mpts}")
     print(f"dual-tree tier: card == CPU fit bit for bit (graph, kNN, MSTs, labels for mpts 2..{KMAX}; "
-          f"CPU fit {stages_c['fit_s']:.1f} s)", flush=True)
+          f"CPU fit {cpu['fit_s']:.1f} s in a worker process on {CPU_FIT_THREADS} threads, beside the card fit)",
+          flush=True)
     check(N_DUALTREE > sl.smem_max_n(), "the dual-tree fit's linkage keeps its state in device memory")
     check_fit_linkage(m, f"the n={N_DUALTREE} dual-tree fit's MSTs")
 
@@ -915,10 +1051,11 @@ def dualtree_phase(smi: str, record: dict) -> None:
     for v_d, v_w in zip(views, views_w):
         check(np.array_equal(v_d.labels, v_w.labels), f"both tiers' labels equal at mpts={v_d.mpts}")
     record["dualtree"] = {"n": N_DUALTREE, "d": D, "kmax": KMAX, "graph": g, "ledger": tags,
-                          "stages_s": stages, "cpu_stages_s": stages_c, "wspd_stages_s": stages_w,
+                          "stages_s": stages, "cpu_fit_s": cpu["fit_s"], "wspd_stages_s": stages_w,
                           "wspd_graph": est_w.graph_.stats, "wspd_launches": launches_w}
     print(f"dual-tree tier == WSPD tier on the card (kNN, sorted MST weights, labels for mpts 2..{KMAX}); "
-          f"stage seconds at n={N_DUALTREE} on {smi} (one fit each, process warm): dual-tree "
+          f"stage seconds at n={N_DUALTREE} on {smi} (one fit each, process warm; the dual-tree fit beside "
+          f"the CPU fit's worker): dual-tree "
           f"{json.dumps(stages)}, wspd {json.dumps(stages_w)}", flush=True)
 
 
@@ -1045,25 +1182,27 @@ def busy_us(spans) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def where_the_time_goes(fit, record: dict, dualtree_fit=None) -> None:
-    """Device busy share of one warm fit, and of a dual-tree fit in the same
-    profiler session (``torch.profiler``: the union of the device activity
-    intervals inside each fit's ``record_function`` window, over the host
-    wall time; one session, since a second one in a process may record no
-    kernels), and the host functions with the most cumulative time in
-    another fit (``cProfile``)."""
+def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
+    """Device busy share of one warm fit, and of ``lm_decode`` (the
+    ``LM_PROFILED_STEPS`` LM decode steps) in the same profiler session (``torch.profiler``: the
+    union of the device activity intervals inside each one's
+    ``record_function`` window, over the host wall time; one session, since
+    a second one in a process may record no kernels), with the decode
+    steps' device time by kernel name; and the host functions with the most
+    cumulative time in another fit (``cProfile``)."""
     import cProfile
     import pstats
+    from collections import Counter
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fits = {"fit": fit, "dualtree_fit": dualtree_fit}
+    fns = {"fit": fit, "lm_decode": lm_decode}
     walls = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for name, fn in fits.items():
+        for name, fn in fns.items():
             if fn is None:
                 continue
             with record_function(name):
@@ -1074,23 +1213,31 @@ def where_the_time_goes(fit, record: dict, dualtree_fit=None) -> None:
     events = prof.events()
     # each record_function window also shows on the device timeline as an
     # annotation spanning it: count only the device's own activities
-    device = [(e.time_range.start, e.time_range.end) for e in events
-              if e.device_type == DeviceType.CUDA and e.name not in fits]
+    device = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in fns]
     for name, wall_s in walls.items():
         win = [e.time_range for e in events if e.name == name and e.device_type == DeviceType.CPU]
-        spans = [(s, e) for s, e in device if win and win[0].start <= s and e <= win[0].end]
-        busy_s = busy_us(spans) / 1e6
-        key = "" if name == "fit" else "dualtree_"
-        record[f"{key}profiled_fit_s"] = wall_s
-        record[f"{key}device_busy_s"] = busy_s if spans else None
-        record[f"{key}device_activities"] = len(spans)
-        what = "fit" if name == "fit" else f"dual-tree fit (n={N_DUALTREE})"
-        if spans:
-            print(f"device busy {busy_s:.4f} s of a {wall_s:.3f} s profiled {what} "
-                  f"({len(spans)} device activities; idle share {1 - busy_s / wall_s:.4f})", flush=True)
-        else:
+        inside = [(s, e, k) for s, e, k in device if win and win[0].start <= s and e <= win[0].end]
+        busy_s = busy_us([(s, e) for s, e, _ in inside]) / 1e6
+        key = "" if name == "fit" else f"{name}_"
+        record[f"{key}profiled_fit_s" if name == "fit" else f"{key}profiled_s"] = wall_s
+        record[f"{key}device_busy_s"] = busy_s if inside else None
+        record[f"{key}device_activities"] = len(inside)
+        what = "fit" if name == "fit" else "run of LM decode steps (qwen2-1.5b, 8 rows, bfloat16)"
+        if not inside:
             print(f"device busy share of the {what}: not measured (the profiler recorded no device activity)",
                   flush=True)
+            continue
+        print(f"device busy {busy_s:.4f} s of a {wall_s:.3f} s profiled {what} "
+              f"({len(inside)} device activities; idle share {1 - busy_s / wall_s:.4f})", flush=True)
+        if name == "lm_decode":
+            record["lm_decode_device_s_per_step"] = busy_s / LM_PROFILED_STEPS
+            by_kernel = Counter()
+            for s, e, k in inside:
+                by_kernel[k] += (e - s) / 1e3
+            record["lm_decode_device_ms_by_kernel"] = dict(by_kernel.most_common(12))
+            print(f"  {busy_s / LM_PROFILED_STEPS:.5f} s of device work a step; device ms by kernel in those steps: "
+                  + json.dumps(record["lm_decode_device_ms_by_kernel"]), flush=True)
 
     pr = cProfile.Profile()
     pr.enable()
@@ -1104,6 +1251,356 @@ def where_the_time_goes(fit, record: dict, dualtree_fit=None) -> None:
     ]
     print("host profile of one warm fit (cumulative s): " + "; ".join(
         f"{r['fn']} {r['cum_s']:.2f}" for r in record["host_profile"][:14]), flush=True)
+
+
+def truncated(params, cfg, n_layers: int, device):
+    """The first ``n_layers`` of ``params`` as a model of its own on
+    ``device`` (the same tensors where ``device`` is theirs)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    cfg_t = dataclasses.replace(cfg, n_layers=n_layers)
+    state = {k: v.to(device) for k, v in params.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
+    p = tf.skeleton(cfg_t)
+    p.load_state_dict(state, assign=True)
+    return p, cfg_t
+
+
+def lm_decode_steps(eng, reqs, steps: int):
+    """A function that runs ``steps`` decode steps of ``eng`` on a cache
+    prefilled now from ``reqs``."""
+    import numpy as np
+    import torch
+
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    with torch.inference_mode():
+        logits, cache = eng.model.prefill(eng.params, eng.cfg, torch.from_numpy(toks).to(eng.device),
+                                          max_len=eng.max_len, cache_dtype=eng.cache_dtype)
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+    def run():
+        with torch.inference_mode():
+            for _ in range(steps):
+                eng.model.decode_step(eng.params, eng.cfg, cache, cur)
+
+    return run
+
+
+def lm_phase(smi: str, record: dict):
+    """Phase 12: qwen2-1.5b at its published width on the card, with random
+    weights from the port's seeded init.  Reference parity at 2 layers in
+    float32 (the card's forward logits against the port's own CPU
+    forward), decode against forward at full depth in float32, and
+    serving at full depth in bfloat16.  Returns (cfg, params, a function
+    that runs a few decode steps of the engine, for phase 11's profile)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, transformer as tf
+    from repro_torch.serve.lm import Engine, GenRequest
+
+    dev = torch.device(CARD)
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head, cfg.d_ff, cfg.vocab, cfg.padded_vocab,
+           cfg.qkv_bias, cfg.rope_theta, cfg.dtype) == (28, 1536, 12, 2, 128, 8960, 151936, 152064, True, 1e6,
+                                                        "bfloat16"), "qwen2-1.5b as published")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "init_s": time.monotonic() - t0,
+           "n_params": sum(p.numel() for p in params.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params.parameters())}
+    print(f"phase 12: {cfg.name} at its published width ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{rec['n_params']} parameters, {rec['param_bytes'] / 1e9:.2f} GB of float32 masters) initialised on the "
+          f"card in {rec['init_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 20)
+
+    # reference parity: full width, 2 layers, float32, the card against the CPU
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    with torch.inference_mode():
+        outs = {}
+        for where in (CARD, "cpu"):
+            p2, cfg2 = truncated(params, cfg32, 2, torch.device(where))
+            h, _ = tf.forward(p2, cfg2, toks.to(where))
+            outs[where] = tf.logits_fn(p2, cfg2, h).float().cpu()
+            del p2
+    err = float((outs[CARD] - outs["cpu"]).abs().max())
+    rec["parity_2_layers_max_abs"] = err
+    check(bool(torch.isfinite(outs[CARD]).all()) and outs[CARD].shape == (2, 24, cfg.padded_vocab),
+          "2-layer logits finite, (B, S, padded_vocab)")
+    check(err <= LM_PARITY_TOL, f"2-layer float32 logits: card vs CPU max abs {err} > {LM_PARITY_TOL}")
+    print(f"  full width, 2 layers, float32: card logits == the port's CPU logits to {err:.3g} max abs "
+          f"(<= {LM_PARITY_TOL})", flush=True)
+
+    # decode against forward: full width, full depth, float32
+    s_len, t_steps = 24, 6
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s_len + t_steps)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        h, _ = tf.forward(params, cfg32, toks)
+        ref = tf.logits_fn(params, cfg32, h)[:, s_len - 1 : s_len + t_steps - 1]
+        last, cache = tf.prefill(params, cfg32, toks[:, :s_len], max_len=s_len + t_steps, cache_dtype=torch.float32)
+        steps = [last]
+        for t in range(t_steps - 1):
+            lg, cache = tf.decode_step(params, cfg32, cache, toks[:, s_len + t : s_len + t + 1])
+            steps.append(lg)
+        serve = torch.stack(steps, dim=1)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((serve - ref).abs().max())
+    rec["decode_vs_forward_max_abs"], rec["decode_vs_forward_scale"] = err, scale
+    check(bool(torch.isfinite(serve).all()), "decode logits finite")
+    check(err <= 1e-3 * scale, f"decode vs forward at full depth, float32: {err} > 1e-3 * {scale}")
+    print(f"  full depth, float32: prefill S={s_len} + {t_steps - 1} decode steps == forward over the sequence "
+          f"to {err:.3g} max abs (<= 1e-3 x {scale:.3g})", flush=True)
+    del h, ref, cache
+
+    # serving: full depth in the config's bfloat16
+    eng = Engine(cfg, params, max_len=LM_MAX_LEN, device=CARD)
+    reqs = [GenRequest(prompt=rng.integers(2, cfg.vocab, size=int(rng.integers(3, 13))).astype(np.int32),
+                       max_new_tokens=LM_NEW_TOKENS, temperature=0.0 if i % 2 == 0 else 0.8)
+            for i in range(LM_REQUESTS)]
+    eng.generate(reqs, seed=0)  # warm
+    torch.cuda.synchronize()
+    outs = eng.generate(reqs, seed=1)
+    stats = dict(eng.last_stats)
+    stats["s_per_decode_step"] = (stats["wall_s"] - stats["prefill_s"]) / max(1, stats["batch_steps"] - 1)
+    check(len(outs) == LM_REQUESTS and all(1 <= len(o) <= LM_NEW_TOKENS for o in outs), "one answer a request")
+    check(all(((o >= 0) & (o < cfg.padded_vocab)).all() for o in outs), "tokens in the vocabulary")
+    check(stats["tokens"] == sum(len(o) for o in outs), "the stats count the answers' tokens")
+    greedy = [o for o, r in zip(outs, reqs) if r.temperature == 0.0]
+    # the reference's serving regressions (tests/test_serve.py)
+    g = GenRequest(prompt=np.array([0, 5, 9], np.int32), max_new_tokens=8, temperature=0.0)
+    hot = GenRequest(prompt=np.array([0, 7], np.int32), max_new_tokens=8, temperature=1.5)
+    solo = eng.generate([g], seed=0)[0]
+    m1, m2 = eng.generate([hot, g], seed=1), eng.generate([hot, g], seed=2)
+    check(np.array_equal(m1[1], solo) and np.array_equal(m2[1], solo),
+          "a greedy row is the same alone and behind a hot row under two seeds")
+    check(not np.array_equal(m1[0], m2[0]), "the hot row samples")
+    early = GenRequest(prompt=np.array([0, 5, 9], np.int32), max_new_tokens=8, temperature=0.0, eos_id=int(solo[0]))
+    other = GenRequest(prompt=np.array([0, 7, 4], np.int32), max_new_tokens=8, temperature=0.0)
+    both = eng.generate([early, other], seed=0)
+    check(len(both[0]) == 1 and both[0][0] == solo[0], "a row that emits EOS stops there")
+    check(eng.last_stats["tokens"] == len(both[0]) + len(both[1]), "the stats count only the real tokens")
+    check(np.array_equal(both[1], eng.generate([other], seed=0)[0]), "the laggard row is unaffected by EOS")
+    rec["serving"] = {**stats, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+                      "greedy_rows": len(greedy), "hot_rows": LM_REQUESTS - len(greedy)}
+    print(f"  serving at full depth in bfloat16 on {smi}: {LM_REQUESTS} requests (prompts 3-12 tokens, "
+          f"{LM_NEW_TOKENS} new, half greedy, half at temperature 0.8): {stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.3f} s, prefill {stats['prefill_s']:.4f} s, "
+          f"{stats['s_per_decode_step']:.4f} s a decode step (phase 11 reads a step's device time); greedy rows "
+          f"equal alone, behind hot rows and under other seeds; EOS masking and the stats checked", flush=True)
+    record["lm"] = rec
+    return cfg, params, lm_decode_steps(eng, reqs, LM_PROFILED_STEPS)
+
+
+def embed_docs(cfg, params, n_docs: int):
+    """Mean-pooled final hidden states of ``n_docs`` synthetic documents
+    (``train_batch`` at seq_len 48, batches of 32) in the config's dtype,
+    cast to float32, with 40 near-duplicates injected as the curation
+    example makes them."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import data as data_lib
+
+    dcfg = data_lib.DataConfig(seed=9, vocab=cfg.vocab, seq_len=48, global_batch=32)
+    embs = []
+    with torch.inference_mode():
+        for step in range(-(-n_docs // 32)):
+            tokens = data_lib.train_batch(dcfg, step)["tokens"].to(CARD)
+            h, _ = tf.forward(params, cfg, tokens)
+            embs.append(h.mean(dim=1).float())
+        x = torch.cat(embs)[:n_docs].cpu().numpy()
+    x[-40:] = x[:40] + np.random.default_rng(0).normal(0, 1e-3, x[:40].shape)
+    return x.astype(np.float32)
+
+
+def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
+    """Phase 13: the phase-12 model embeds N_DOCS documents (d = 1536) and
+    the card fits them at kmax = 24 through ``MultiHDBSCAN``, with the
+    launch counters set to 0 just before it; the first N_DOCS_CPU rows
+    fitted on the card equal the port's CPU fit bit for bit; MST weight
+    multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
+    curation report.  Returns the launches of the fit and the embeddings."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.core import dbcv, ref as oref
+    from repro_torch.kernels import fused_cascade as fc
+    from repro_torch.models import transformer as tf
+
+    lf, pt, sl = (kernel_module(k) for k in ("lune_filter", "pairwise_topk", "single_linkage"))
+    t0 = time.monotonic()
+    p_c = tf.cast_for_compute(params, cfg)
+    x = embed_docs(cfg, p_c, N_DOCS)
+    torch.cuda.synchronize()
+    rec = {"embed_s": time.monotonic() - t0, "n": N_DOCS, "d": int(x.shape[1]), "kmax": KMAX_EMBED}
+    del p_c
+    check(x.shape == (N_DOCS, cfg.d_model) and bool(np.isfinite(x).all()), "embeddings finite, (n, d_model)")
+    print(f"phase 13: {N_DOCS} documents embedded by {cfg.name} in {rec['embed_s']:.2f} s (d={x.shape[1]}, "
+          f"40 near-duplicates injected)", flush=True)
+
+    x_c = x[:N_DOCS_CPU]
+    with cpu_pool() as pool:
+        job = start_cpu_fit(pool, x_c, KMAX_EMBED)
+        pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
+        sl.single_linkage.launches = 0
+        t0 = time.monotonic()
+        est = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x)
+        views = est.select_all()
+        torch.cuda.synchronize()
+        rec["fit_s"] = time.monotonic() - t0
+        launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                    "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches}
+        est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
+        views_g = est_g.select_all()
+        cpu = job.get(timeout=CPU_FIT_TIMEOUT)
+    rec["launches"], rec["graph"] = launches, est.graph_.stats
+    rec["stages_s"] = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    rec["stages_s"]["hierarchy"] = rec["fit_s"] - sum(rec["stages_s"].values())
+    check(launches["pairwise_topk"] >= 1, "the embedding fit launched pairwise_topk (d=1536, K=31)")
+    check(launches["edge_cascade"] >= 2, "the embedding fit launched edge_cascade for both stages")
+    check(launches["single_linkage"] == 1, "the embedding fit's select_all launched single_linkage once")
+    check(est.plan_.backend == "cuda", "the embedding fit ran on the cuda backend")
+    check(len(views) == KMAX_EMBED - 1 and all(v.labels.shape == (N_DOCS,) for v in views), "labels per mpts")
+    print(f"  fit + select_all at n={N_DOCS}, d={x.shape[1]}, kmax={KMAX_EMBED} on the card in "
+          f"{rec['fit_s']:.2f} s, launches {launches}, stages (s) on {smi}: {json.dumps(rec['stages_s'])}, "
+          f"graph {est.graph_.stats}", flush=True)
+
+    rec["cpu_fit_s"] = cpu["total_s"]
+    check(np.array_equal(est_g.graph_.edges, cpu["edges"]), "embedding fit: graph edges equal the CPU run")
+    m_g = est_g.model_.msts
+    check(np.array_equal(m_g.mst_ea, cpu["mst_ea"]) and np.array_equal(m_g.mst_eb, cpu["mst_eb"]),
+          "embedding fit: MST edge ids equal the CPU run for every mpts")
+    check(np.array_equal(m_g.mst_w, cpu["mst_w"]), "embedding fit: MST weights equal the CPU run bit for bit")
+    for v_g, lab_c in zip(views_g, cpu["labels"]):
+        check(np.array_equal(v_g.labels, lab_c), f"embedding fit: labels equal the CPU run at mpts={v_g.mpts}")
+    print(f"  the first {N_DOCS_CPU} embeddings: card fit == device='cpu' fit (edges, MST ids, MST weights, labels "
+          f"for every mpts; CPU fit {rec['cpu_fit_s']:.1f} s in a worker process on {CPU_FIT_THREADS} threads, "
+          f"beside the card fits)", flush=True)
+
+    x64 = x.astype(np.float64)
+    t0 = time.monotonic()
+    dist = oref.pairwise_d(x64)
+    cd = np.sort(dist, axis=1)[:, :KMAX_EMBED]
+    for mpts in MPTS_DENSE:
+        c = cd[:, mpts - 1]
+        m = np.maximum(np.maximum(c[:, None], c[None, :]), dist)
+        np.fill_diagonal(m, 0.0)
+        dense = oref.mst_weights(m)
+        _, _, w = est.mst_for(mpts)
+        check(np.allclose(np.sort(w.astype(np.float64)), dense, rtol=RTOL, atol=0.0),
+              f"n={N_DOCS}, d={x.shape[1]}: MST weight multiset vs dense scipy at mpts={mpts}")
+    rec["dense_check_s"] = time.monotonic() - t0
+    print(f"  n={N_DOCS}: MST weight multisets == dense scipy MSTs at mpts {list(MPTS_DENSE)} "
+          f"(rtol {RTOL}; {rec['dense_check_s']:.1f} s)", flush=True)
+
+    scores = {}
+    for v in views:
+        ea, eb, w = est.mst_for(v.mpts)
+        scores[v.mpts] = dbcv.dbcv_relative_validity(ea, eb, w, v.labels)
+    best = max(scores, key=lambda k: scores[k])
+    ea, eb, w = est.mst_for(best)
+    labels = [v for v in views if v.mpts == best][0].labels
+    dup = w < max(np.quantile(w, 0.01), 1e-6)
+    flagged = {(min(a, b), max(a, b)) for a, b in zip(ea[dup].tolist(), eb[dup].tolist())}
+    injected = {(i, N_DOCS - 40 + i) for i in range(40)}
+    keep = np.ones(N_DOCS, bool)
+    keep[eb[dup]] = False
+    rec["curation"] = {"dbcv": scores, "mpts": best, "n_clusters": int(labels.max() + 1) if (labels >= 0).any() else 0,
+                       "outliers": int((labels == -1).sum()), "dup_pairs_flagged": len(flagged),
+                       "injected_pairs_flagged": len(flagged & injected), "kept": int(keep.sum())}
+    print(f"  curation: DBCV chose mpts={best} (DBCV {scores[best]:.3f}); {rec['curation']['n_clusters']} clusters, "
+          f"{rec['curation']['outliers']} outliers; {len(flagged)} near-duplicate pairs flagged (bottom-1% mrd), "
+          f"{len(flagged & injected)} of the 40 injected among them (a reading); keep {int(keep.sum())}/{N_DOCS}",
+          flush=True)
+    record["embedding"] = rec
+    return launches, x
+
+
+def kmax128_phase(smi: str, record: dict) -> dict:
+    """Phase 14: ``MultiHDBSCAN(kmax=128)`` at n = N_WIDE, d = 8 on the card
+    (K = 135), with the counters set to 0 just before it: mpts 2..16 MST
+    weight multisets equal a kmax = 16 fit's bit for bit.  Returns its
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.kernels import fused_cascade as fc
+
+    pt, sl = kernel_module("pairwise_topk"), kernel_module("single_linkage")
+    x = make_points(N_WIDE, D, SEED + 30)
+    pt.pairwise_topk.launches = fc.edge_cascade.launches = sl.single_linkage.launches = 0
+    t0 = time.monotonic()
+    est = MultiHDBSCAN(kmax=KMAX_128, device=CARD).fit(x)
+    views = est.select_all()
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
+                "single_linkage": sl.single_linkage.launches}
+    check(launches["pairwise_topk"] >= 1 and launches["edge_cascade"] >= 2 and launches["single_linkage"] == 1,
+          f"the kmax={KMAX_128} fit launched pairwise_topk (K=135), edge_cascade and single_linkage")
+    check(len(views) == KMAX_128 - 1, f"kmax={KMAX_128}: one level a mpts")
+    small = MultiHDBSCAN(kmax=KMAX, device=CARD).fit(x)
+    for mpts in small.mpts_values_:
+        check(np.array_equal(np.sort(est.mst_for(mpts)[2]), np.sort(small.mst_for(mpts)[2])),
+              f"the kmax={KMAX_128} fit keeps the kmax={KMAX} fit's MST weight multiset bit for bit at mpts={mpts}")
+    stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    record["kmax128_fit"] = {"n": N_WIDE, "d": D, "kmax": KMAX_128, "fit_s": fit_s, "stages_s": stages,
+                             "launches": launches, "graph": est.graph_.stats}
+    print(f"phase 14: kmax={KMAX_128} at n={N_WIDE}, d={D} on the card in {fit_s:.2f} s (with select_all), "
+          f"launches {launches}, graph {est.graph_.stats}; MST weight multisets == the kmax={KMAX} fit's for mpts "
+          f"2..{KMAX}; stages (s) on {smi}: {json.dumps(stages)}", flush=True)
+    return launches
+
+
+def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> None:
+    """``pairwise_topk`` at the embedding fit's shape (n = 4000, d = 1536,
+    K = 31) and the kmax = 128 fit's (n = 4000, d = 8, K = 135), and
+    ``lune_filter`` at d = 1536, each beside its plain version, the
+    library yardstick where there is one, and its bound."""
+    import torch
+
+    lf, pt = kernel_module("lune_filter"), kernel_module("pairwise_topk")
+    dev = torch.device(CARD)
+    rows = {}
+    x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 30)).to(dev)
+    for name, x, k_eff, launches in (("pairwise_topk_d1536_k31", torch.from_numpy(x_emb).to(dev), K_EMBED,
+                                      launches_emb["pairwise_topk"]),
+                                     ("pairwise_topk_d8_k135", x8, K_WIDE[0], launches_128["pairwise_topk"])):
+        n, d = x.shape
+        ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+        plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 1, warm=False)
+
+        def library_topk():
+            xn = (x * x).sum(1)
+            d2 = (xn[:, None] + xn[None, :] - 2.0 * (x @ x.T)).clamp_min_(0.0)
+            d2.fill_diagonal_(float("inf"))
+            return torch.topk(d2, k_eff, dim=1, largest=False)
+
+        library_ms = cuda_ms(library_topk, 5)
+        b_ms, b_by = bound(n * n * (2 * d + 3), 4 * n * d + 8 * n * k_eff)
+        rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    args = lune_case(N_WIDE, WIDE_WIDTHS[-1], dev)
+    m = int(args[0].shape[0])
+    out = lf.lune_filter(*args)
+    ms = cuda_ms(lambda: lf.lune_filter(*args), 5)
+    plain_ms = cuda_ms(lambda: lf.lune_filter_plain(*args), 1, warm=False)
+    b_ms, b_by = bound(*lune_flops_bytes(N_WIDE, WIDE_WIDTHS[-1], m, int(out.sum())))
+    rows["lune_filter_d1536"] = {"n": N_WIDE, "d": WIDE_WIDTHS[-1], "edges": m, "removed": int(out.sum()),
+                                 "launches": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": None}
+    record["wide_kernels"] = rows
+    for name, r in rows.items():
+        print(f"{name} on {smi}: " + json.dumps(r), flush=True)
 
 
 def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) -> list:
@@ -1210,6 +1707,15 @@ def main(argv: list[str]) -> int:
     lf, pm, pt, sl = (kernel_module(k) for k in ("lune_filter", "prim_mst", "pairwise_topk", "single_linkage"))
 
     record: dict = {}
+    phase_s: dict = {}
+    clock = {"name": "1. card", "t": time.monotonic()}
+
+    def phase(name: str) -> None:
+        """Close the running phase's seconds and start ``name``."""
+        now = time.monotonic()
+        phase_s[clock["name"]] = now - clock["t"]
+        clock.update(name=name, t=now)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -1218,15 +1724,17 @@ def main(argv: list[str]) -> int:
     record["card"] = smi
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
 
+    phase("2. build")
     # -- 2. build ------------------------------------------------------------
     t0 = time.monotonic()
     per_kernel = _build.build_all()
     record["build_s"] = time.monotonic() - t0
     print(f"build: {record['build_s']:.1f} s wall, per source {per_kernel}", flush=True)
     print("kernel instances (registers a thread, spills, resident blocks per SM at n=16000 or the "
-          "default tiles; generic d read at d=100):", flush=True)
+          "default tiles; generic d read at d=100, sliced at d=1536):", flush=True)
     kernel_resources(record)
 
+    phase("3. kernels against their plain versions")
     # -- 3. kernels against their plain versions -----------------------------
     dev = torch.device("cuda")
     x_np = make_points(N, D, SEED)
@@ -1244,6 +1752,7 @@ def main(argv: list[str]) -> int:
     check_cascade_cases(dev)
     check_prim_cases(dev)
     check_linkage_cases()
+    record["wide_pairwise_topk_max_abs_err"] = check_wide_cases(dev)
     if kernels_only:
         record["pairwise_topk_ms_by_k"] = topk_times(x)
         record["lune_filter_ms_by_block_e"], record["lune_filter_ms_by_block_c"] = lune_sweep(
@@ -1262,6 +1771,7 @@ def main(argv: list[str]) -> int:
                   "edge_cascade_ms_by_lanes")}), flush=True)
         return 0
 
+    phase("4. the main path")
     # -- 4. the main path ----------------------------------------------------
     pt.pairwise_topk.launches = 0
     fc.edge_cascade.launches = 0
@@ -1318,6 +1828,7 @@ def main(argv: list[str]) -> int:
         check(np.array_equal(v_g.labels, v_c.labels), f"slot path: labels equal the CPU run at mpts={v_g.mpts}")
     print(f"n={len(x_dup)} duplicate-heavy: slot path on the card == CPU run for mpts 2..{KMAX}", flush=True)
 
+    phase("5. the exact variant")
     # -- 5. the exact variant ------------------------------------------------
     captured = {}
 
@@ -1386,6 +1897,7 @@ def main(argv: list[str]) -> int:
     record["exact_stages_s"] = stages_x
     print(f"exact fit, warm stages (s) on {smi}: " + json.dumps(stages_x), flush=True)
 
+    phase("6. the wide fit")
     # -- 6. the wide fit -------------------------------------------------------
     pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
     sl.single_linkage.launches = 0
@@ -1414,6 +1926,7 @@ def main(argv: list[str]) -> int:
           f"fit's for mpts 2..{KMAX}; stages (s) on {smi}: " + json.dumps(stages_w), flush=True)
     check_fit_linkage(est_wide.model_.msts, f"the kmax={KMAX_WIDE} fit's MSTs")
 
+    phase("7. prediction")
     # -- 7. prediction ---------------------------------------------------------
     q = make_queries(x_np, N_QUERIES, SEED + 6)
     pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
@@ -1450,15 +1963,34 @@ def main(argv: list[str]) -> int:
           f"query kNN {record['predict_query_knn_ms']:.3f} ms a batch), "
           f"{record['predict_qps_cpu']:.0f} queries/s on the host CPU (warm); launches {launches_p}", flush=True)
 
+    phase("8. the dual-tree tier")
     # -- 8. the dual-tree tier -----------------------------------------------
     dualtree_phase(smi, record)
 
+    phase("9. serving")
     # -- 9. serving ------------------------------------------------------------
     serving_phase(path, q, smi, record)
 
+    phase("10. the baseline")
     # -- 10. the baseline ------------------------------------------------------
     baseline_phase(x_np, est, smi, record)
 
+    phase("12. LM serving")
+    # -- 12. LM serving --------------------------------------------------------
+    lm_cfg, lm_params, lm_decode = lm_phase(smi, record)
+
+    phase("13. embedding curation")
+    # -- 13. embedding curation ------------------------------------------------
+    launches_emb, x_emb = embedding_phase(lm_cfg, lm_params, smi, record)
+    del lm_params
+    torch.cuda.empty_cache()
+
+    phase("14. the kmax = 128 fit, and the wide kernels' times")
+    # -- 14. the kmax = 128 fit ------------------------------------------------
+    launches_128 = kmax128_phase(smi, record)
+    wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
+
+    phase("11. timings")
     # -- 11. timings ---------------------------------------------------------
     est_w = MultiHDBSCAN(kmax=KMAX).fit(x_np)
     t0 = time.monotonic()
@@ -1478,9 +2010,7 @@ def main(argv: list[str]) -> int:
             torch.cuda.set_sync_debug_mode(0)
     record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
-    x_dt = make_points(N_DUALTREE, D, SEED)
-    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record,
-                        lambda: MultiHDBSCAN(kmax=KMAX).fit(x_dt))
+    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record, lm_decode)
 
     kernels = []
     by_k = record["pairwise_topk_ms_by_k"] = topk_times(x)
@@ -1535,6 +2065,9 @@ def main(argv: list[str]) -> int:
     kernels += new_kernel_times(x, est_w, est_wide, launches, smi, record)
     record["kernels"] = kernels
 
+    phase("end")
+    record["phase_s"] = phase_s
+    print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

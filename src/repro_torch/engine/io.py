@@ -19,7 +19,7 @@ at named materialization points, with the reference's tag names:
   ``candidates``      — the SBCN edge list's host view (debugging only).
   ``input``           — ``ensure_host`` normalizing a tensor handed to a
                         host-facing entry point.
-  ``lm_decode``       — the LM serving demo (a later slice of the port).
+  ``lm_decode``       — the LM serving engine's tokens, once a step (``serve.lm``).
 
 ``transfer_ledger`` records every ``to_host`` as ``(tag, nbytes)``.  It does
 not guard implicit syncs the way the reference's JAX transfer guard does:

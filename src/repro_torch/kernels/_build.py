@@ -2,9 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles to ``build/repro_torch_kernels/<name>-<hash>.so``
-at the root of the checkout, where ``<hash>`` covers the source and the
-flags: a changed source builds anew, an unchanged one loads the library
-already there.  ``build_all`` starts one ``nvcc`` per source, all at once.
+at the root of the checkout, where ``<hash>`` covers the source, the
+shared headers (``csrc/*.cuh``) and the flags: a changed source builds
+anew, an unchanged one loads the library already there.  ``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing is built when a module is imported; the first launch builds.
 ``-Xptxas -v`` makes nvcc report each kernel instance's registers, spills
 and shared memory; ``LOGS`` keeps that output (``ptxas_usage`` parses it).
@@ -48,7 +48,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

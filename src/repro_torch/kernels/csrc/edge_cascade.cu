@@ -53,10 +53,13 @@
 // Every sum of squares runs in one of three orders (`order`), the same in
 // the prologue and the per-edge kernel: 0 index order unfused
 // (__fmul_rn/__fadd_rn, never contracted), 1 index order as an fmaf chain,
-// 2 XLA's windows of 32 (at d <= 32 one window: order 0).  d2, w2 and the
+// 2 XLA's windows of 32 (at d <= 32 one window: order 0; above 32 x 32,
+// windows of windows: tree_sum).  d2, w2 and the
 // verdicts equal the plain PyTorch version bit for bit in each.
 
 #include <cuda_runtime.h>
+
+#include "xla_order.cuh"
 
 namespace {
 
@@ -81,6 +84,9 @@ __device__ __forceinline__ float add_sq(float acc, float t, bool fma) {
 __device__ float sum_sq_rt(const float* __restrict__ p, const float* __restrict__ q, int d,
                            int order) {
   auto term = [&](int j) { return q ? __fsub_rn(__ldg(p + j), __ldg(q + j)) : __ldg(p + j); };
+  if (order == kWin32 && d > 32 * 32) {
+    return tree_sum([&](int j) { const float t = term(j); return __fmul_rn(t, t); }, d);
+  }
   if (order == kWin32) {
     // W windows of 32 over the row padded by (32 W - d) / 2 zeros in front:
     // each window sums its real elements in index order, then the window

@@ -40,6 +40,16 @@
 // error would swamp the margin), and every sum runs in index order with
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, so the
 // verdicts equal the plain PyTorch version bit for bit.
+//
+// Above d = 256 a tile of 32 points no longer fits shared memory beside the
+// warps' endpoints (d = 1536: 8 warps' endpoints alone are 96 KB), so the
+// sliced instance streams d in slices of SLICE floats: for each tile of at
+// most TILE points, each slice of the point rows and of the warps' endpoints
+// is staged in turn, each lane carries the two dot products of each of its
+// TILE / 32 points across the slices in registers, and the staging thread
+// carries its point's |c|^2 in shared memory.  One accumulator runs on over
+// the slices, so every sum is the same index-order chain as at any width.
+// The rounds then test the finished tile as above, one verdict per edge.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,6 +61,9 @@ constexpr float kEps = 7.62939453125e-06f;  // 64 * 2^-23
 constexpr int SMEM_DEFAULT = 48 * 1024;     // above this, dynamic smem needs an opt-in
 constexpr int SMEM_BUDGET = 96 * 1024;     // the point tile's share: two blocks per SM
 constexpr int SMEM_MAX = 200 * 1024;        // of the 227 KB a block may have
+constexpr int TILE = 256;                   // sliced instance: points per tile at most
+constexpr int SLICE = 64;                   // sliced instance: floats of d per staged slice
+constexpr int MAX_D_TILED = 256;            // above this width the sliced instance runs
 
 template <int D>
 __host__ __device__ constexpr int vec_width() { return D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1); }
@@ -214,6 +227,121 @@ __global__ void lune_filter_kernel(
   if (active && lane == 0) out[e] = inside ? 1 : 0;
 }
 
+// The sliced instance, for any d: one warp per edge, d streamed in slices of
+// SLICE floats through shared memory (see the note at the top); bc points a
+// tile, a multiple of 32 up to TILE.
+__global__ void lune_filter_sliced_kernel(
+    const float* __restrict__ ax, const float* __restrict__ bx,
+    const float* __restrict__ acd, const float* __restrict__ bcd,
+    const int* __restrict__ aidx, const int* __restrict__ bidx,
+    const float* __restrict__ w2, int m, const float* __restrict__ pts,
+    const float* __restrict__ pcd, int n, int d, int bc,
+    int* __restrict__ out) {
+  constexpr int PER_LANE = TILE / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* sc = smem;              // (SLICE, bc): the point tile's slice
+  float* scn = sc + SLICE * bc;  // (bc,): |c|^2, carried over the slices
+  float* scd = scn + bc;         // (bc,): cd2(c)
+  float* se = scd + bc;          // (warps, 2, SLICE): the warps' endpoint slices
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
+  const bool active = e < m;
+  // |a|^2 and |b|^2: every lane runs the same chain (broadcast loads); -0 +
+  // the first square is that square exactly
+  float an = -0.f, bn = -0.f;
+  if (active) {
+    for (int j = 0; j < d; ++j) {
+      const float va = ax[(size_t)e * d + j], vb = bx[(size_t)e * d + j];
+      an = __fadd_rn(an, __fmul_rn(va, va));
+      bn = __fadd_rn(bn, __fmul_rn(vb, vb));
+    }
+  }
+  const float w = active ? w2[e] : -CUDART_INF_F;
+  const float cda = active ? acd[e] : 0.f, cdb = active ? bcd[e] : 0.f;
+  const int ia = active ? aidx[e] : -1, ib = active ? bidx[e] : -1;
+  bool open = active && w > -CUDART_INF_F;  // warp-uniform
+  bool inside = false;
+  float* sa = se + warp * 2 * SLICE;
+
+  for (int c0 = 0; c0 < n; c0 += bc) {
+    // also the barrier before the previous tile is overwritten
+    if (!__syncthreads_or(open)) break;
+    const int rows = min(bc, n - c0);
+    float dot_a[PER_LANE], dot_b[PER_LANE];
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) dot_a[i] = dot_b[i] = -0.f;
+    for (int s0 = 0; s0 < d; s0 += SLICE) {
+      const int ds = min(SLICE, d - s0);
+      if (s0 > 0) __syncthreads();  // the previous slice is consumed
+      for (int r = tid; r < rows; r += blockDim.x) {
+        const float* src = pts + (size_t)(c0 + r) * d + s0;
+        float cn = s0 == 0 ? -0.f : scn[r];
+        for (int j = 0; j < ds; ++j) {
+          const float v = src[j];
+          sc[j * bc + r] = v;
+          cn = __fadd_rn(cn, __fmul_rn(v, v));
+        }
+        scn[r] = cn;
+        if (s0 == 0) scd[r] = pcd[c0 + r];
+      }
+      for (int j = lane; j < ds; j += 32) {
+        sa[j] = active ? ax[(size_t)e * d + s0 + j] : 0.f;
+        sa[SLICE + j] = active ? bx[(size_t)e * d + s0 + j] : 0.f;
+      }
+      __syncthreads();
+      if (!open) continue;
+      for (int j = 0; j < ds; ++j) {
+        const float pa = sa[j], pb = sa[SLICE + j];
+#pragma unroll
+        for (int i = 0; i < PER_LANE; ++i) {
+          if (i * 32 < bc) {
+            const float c = sc[j * bc + i * 32 + lane];
+            dot_a[i] = __fadd_rn(dot_a[i], __fmul_rn(pa, c));
+            dot_b[i] = __fadd_rn(dot_b[i], __fmul_rn(pb, c));
+          }
+        }
+      }
+    }
+    if (!open) continue;
+    // the last slice's barrier made every |c|^2 whole
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      if (i * 32 >= rows) break;  // warp-uniform
+      const int r = i * 32 + lane;
+      const float cn = scn[r], cdc = scd[r];
+      const float va = mrd_plus_margin(dot_a[i], an, cn, cda, cdc);
+      const float vb = mrd_plus_margin(dot_b[i], bn, cn, cdb, cdc);
+      const int ci = c0 + r;
+      const bool hit = r < rows && fmaxf(va, vb) < w && ci != ia && ci != ib;
+      if (__any_sync(FULL, hit)) {
+        inside = true;
+        open = false;
+        break;
+      }
+    }
+  }
+  if (active && lane == 0) out[e] = inside ? 1 : 0;
+}
+
+int launch_sliced(const float* ax, const float* bx, const float* acd, const float* bcd,
+                  const int* aidx, const int* bidx, const float* w2, int m, const float* pts,
+                  const float* pcd, int n, int d, int warps, int block_c, int* out,
+                  cudaStream_t stream, int* occ) {
+  const int bc = (block_c < TILE ? block_c : TILE) / 32 * 32;
+  const size_t smem = (size_t)(SLICE * bc + 2 * bc + warps * 2 * SLICE) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      lune_filter_sliced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ != nullptr) {
+    occ[1] = warps * 32, occ[2] = (int)smem, occ[3] = bc;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, lune_filter_sliced_kernel, warps * 32, smem);
+  }
+  lune_filter_sliced_kernel<<<(m + warps - 1) / warps, warps * 32, smem, stream>>>(
+      ax, bx, acd, bcd, aidx, bidx, w2, m, pts, pcd, n, d, bc, out);
+  return (int)cudaGetLastError();
+}
+
 // Launches the <D> instance, or with `occ` set only reports its blocks per SM,
 // threads per block, dynamic shared memory and point tile into occ[0..3].
 template <int D>
@@ -245,11 +373,12 @@ int dispatch(const float* ax, const float* bx, const float* acd, const float* bc
              const int* aidx, const int* bidx, const float* w2, int m, const float* pts,
              const float* pcd, int n, int d, int block_e, int block_c, int* out,
              void* stream, int* occ) {
-  if (m < 1 || n < 1 || d < 1 || d > 256 || block_e < 1 || block_e > 32 || block_c < 32 ||
+  if (m < 1 || n < 1 || d < 1 || block_e < 1 || block_e > 32 || block_c < 32 ||
       reinterpret_cast<size_t>(pts) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_LUNE_ARGS ax, bx, acd, bcd, aidx, bidx, w2, m, pts, pcd, n, d, block_e, block_c, out, s, occ
+  if (d > MAX_D_TILED) return launch_sliced(REPRO_LUNE_ARGS);
   switch (d) {
     case 2: return launch<2>(REPRO_LUNE_ARGS);
     case 4: return launch<4>(REPRO_LUNE_ARGS);
@@ -268,7 +397,8 @@ int dispatch(const float* ax, const float* bx, const float* acd, const float* bc
 // f32, 16-byte aligned; pcd: (n,) f32; out: (m,) i32, 1 where some point lies
 // inside.  `block_e` edges per block (one warp each, 1..32) and at most
 // `block_c` points per tile (rounded down to a multiple of 32, and shrunk to
-// 96 KB of shared memory but not below 32 points).  Returns the cudaError_t
+// 96 KB of shared memory but not below 32 points; above d = 256, at most
+// 256 points a tile, streamed in slices of d).  Returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int repro_lune_filter(
     const float* ax, const float* bx, const float* acd, const float* bcd,

@@ -34,10 +34,24 @@
 // float bits above the index, whose unsigned order is the strict (d2, idx)
 // order, so the result does not depend on the order in which keys merge.
 // The list is spread over the lanes: entry p sits in lane p / S, slot p % S,
-// with S <= 4 slots, so K <= 128; a merge moves entry p - 1 to p where the
+// with S <= 8 slots, so K <= 256; a merge moves entry p - 1 to p where the
 // new key orders before it, register moves within a lane and one shuffle-up
-// between lanes, whatever S.  A warp owns its rows, so there are no atomics
-// and no second pass.
+// between lanes, whatever S.  Past S = 4 a warp owns one row (R = 1), so the
+// list's 64-bit slots stay in registers.  K up to 256 is one sweep over the
+// distances with a longer list, not passes over them: the list's order does
+// not depend on its length, and a second pass would compute every d2 again.
+// A warp owns its rows, so there are no atomics and no second pass.
+//
+// Above d = 256 a key tile of 32 rows no longer fits shared memory beside
+// the query rows (d = 1536: 196 KB), so the sliced instance streams d in
+// slices of SLICE floats: for each tile of TILE keys, each slice of the key
+// rows (and of each warp's query row) is staged in turn, and each lane
+// carries the dot products of its TILE / 32 keys across the slices in
+// registers, and the staging thread carries its key's |k|^2 in shared
+// memory.  One accumulator runs on over the slices, so each sum is the same
+// single fmaf chain in index order as at any other width (partial sums per
+// slice would round differently).  The rounds of candidates then run as
+// below, on the finished tile.
 //
 // Arithmetic per pair, as the first version of this kernel: |q|^2, |k|^2 and
 // q.k as fmaf chains in index order from 0, then fmaxf(qn + kn - 2 dot, 0).
@@ -55,7 +69,10 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int KMAX = 128;                // 4 slots of 32 lanes
+constexpr int KMAX = 256;                // 8 slots of 32 lanes
+constexpr int TILE = 256;                // sliced instance: keys per tile, one per thread
+constexpr int SLICE = 64;                // sliced instance: floats of d per staged slice
+constexpr int MAX_D_TILED = 256;         // above this width the sliced instance runs
 constexpr int KEY_TILE = 1024;           // keys staged per tile at most
 constexpr int SMEM_DEFAULT = 48 * 1024;  // above this, dynamic smem needs an opt-in
 constexpr int SMEM_BUDGET = 96 * 1024;   // two blocks per SM
@@ -63,8 +80,10 @@ constexpr int SMEM_BUDGET = 96 * 1024;   // two blocks per SM
 template <int D>
 __host__ __device__ constexpr int vec_width() { return D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1); }
 
-template <int D>
-__host__ __device__ constexpr int rows_per_warp() { return D == 0 || D >= 32 ? 1 : (D >= 16 ? 2 : 4); }
+template <int D, int S>
+__host__ __device__ constexpr int rows_per_warp() {
+  return S > 4 || D == 0 || D >= 32 ? 1 : (D >= 16 ? 2 : 4);
+}
 
 // Merge key c into the warp's sorted list (entry p in lane p / S, slot
 // p % S).  A key is d2's float bits above the index (d2 is +0 or more and
@@ -120,7 +139,7 @@ template <int D, int S>
 __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
     const float* __restrict__ x, int n, int d_rt, int k, int kt,
     float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr int R = rows_per_warp<D>();
+  constexpr int R = rows_per_warp<D, S>();
   constexpr int V = vec_width<D>();
   constexpr int DR = D > 0 ? D : 1;  // register extent of a row
   const int d = D > 0 ? D : d_rt;
@@ -260,12 +279,117 @@ __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
   }
 }
 
+// The sliced instance, for any d: one row per warp, d streamed in slices of
+// SLICE floats through shared memory (see the note at the top).
+template <int S>
+__global__ void __launch_bounds__(THREADS, 2) pairwise_topk_sliced_kernel(
+    const float* __restrict__ x, int n, int d, int k,
+    float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int PER_LANE = TILE / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;                // (SLICE, TILE): the key tile's slice
+  float* skn = sk + SLICE * TILE;  // (TILE,): |k|^2, carried over the slices
+  float* sq = skn + TILE;          // (WARPS, SLICE): the warps' query slices
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x * WARPS + warp;
+  const bool live = row < n;
+  // |q|^2: every lane runs the same fmaf chain over the row (broadcast loads);
+  // -0 + the first square is that square exactly
+  float qn = -0.f;
+  if (live)
+    for (int j = 0; j < d; ++j) qn = fmaf(x[(size_t)row * d + j], x[(size_t)row * d + j], qn);
+
+  unsigned long long e[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) e[s] = ~0ull;
+  float wd = FLT_MAX;
+  const int klane = (k - 1) / S, kslot = (k - 1) % S;
+
+  for (int k0 = 0; k0 < n; k0 += TILE) {
+    const int rows = min(TILE, n - k0);
+    float acc[PER_LANE];
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) acc[i] = -0.f;
+    for (int s0 = 0; s0 < d; s0 += SLICE) {
+      const int ds = min(SLICE, d - s0);
+      __syncthreads();  // the previous slice (or tile) is consumed
+      if (tid < rows) {
+        const float* src = x + (size_t)(k0 + tid) * d + s0;
+        float kn = s0 == 0 ? -0.f : skn[tid];
+        for (int j = 0; j < ds; ++j) {
+          const float v = src[j];
+          sk[j * TILE + tid] = v;
+          kn = fmaf(v, v, kn);
+        }
+        skn[tid] = kn;
+      }
+      for (int j = lane; j < ds; j += 32) sq[warp * SLICE + j] = live ? x[(size_t)row * d + s0 + j] : 0.f;
+      __syncthreads();
+      for (int j = 0; j < ds; ++j) {
+        const float qj = sq[warp * SLICE + j];
+#pragma unroll
+        for (int i = 0; i < PER_LANE; ++i) acc[i] = fmaf(qj, sk[j * TILE + i * 32 + lane], acc[i]);
+      }
+    }
+    // the tile's rounds: lane l takes key 32 i + l; the last slice's barrier
+    // made every |k|^2 whole, and the next tile's first barrier keeps them
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int kr = i * 32 + lane;
+      if (i * 32 >= rows) break;  // warp-uniform
+      const float d2 = fmaxf(qn + skn[kr] - 2.f * acc[i], 0.f);
+      const bool cand = d2 <= wd && live && kr < rows && k0 + kr != row;
+      unsigned m = __ballot_sync(FULL, cand);
+      if (m == 0u) continue;
+      do {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const unsigned hi = __shfl_sync(FULL, __float_as_uint(d2), src);
+        merge<S>(e, (unsigned long long)hi << 32 | (unsigned)(k0 + i * 32 + src), lane);
+      } while (m != 0u);
+      unsigned long long v = e[0];
+#pragma unroll
+      for (int s = 1; s < S; ++s) v = s == kslot ? e[s] : v;
+      v = __shfl_sync(FULL, v, klane);
+      wd = v == ~0ull ? FLT_MAX : __uint_as_float((unsigned)(v >> 32));
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int p = lane * S + s;
+    if (p < k) {
+      const unsigned long long v = e[s];
+      out_d[(size_t)row * k + p] = v == ~0ull ? CUDART_INF_F : __uint_as_float((unsigned)(v >> 32));
+      out_i[(size_t)row * k + p] = v == ~0ull ? -1 : (int)(unsigned)v;
+    }
+  }
+}
+
+template <int S>
+int launch_sliced(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream,
+                  int* occ) {
+  const size_t smem = (size_t)(SLICE * TILE + TILE + WARPS * SLICE) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      pairwise_topk_sliced_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ != nullptr) {
+    occ[1] = THREADS, occ[2] = (int)smem, occ[3] = TILE;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, pairwise_topk_sliced_kernel<S>, THREADS, smem);
+  }
+  pairwise_topk_sliced_kernel<S><<<(n + WARPS - 1) / WARPS, THREADS, smem, stream>>>(
+      x, n, d, k, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
 // Launches the <D, S> instance, or with `occ` set only reports its blocks per
 // SM, threads per block, dynamic shared memory and key tile into occ[0..3].
 template <int D, int S>
 int launch(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream,
            int* occ) {
-  constexpr int R = rows_per_warp<D>();
+  constexpr int R = rows_per_warp<D, S>();
   const int q_floats = D > 0 ? 0 : WARPS * d;
   int kt = (SMEM_BUDGET / (int)sizeof(float) - q_floats) / (d + 1);
   kt = (kt < KEY_TILE ? kt : KEY_TILE) / 32 * 32;
@@ -287,23 +411,27 @@ int launch(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaSt
   return (int)cudaGetLastError();
 }
 
+// D = -1 is the sliced instance.
 template <int D>
 int launch_d(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream,
              int* occ) {
+#define REPRO_TOPK_S(S) \
+  case S: return D < 0 ? launch_sliced<S>(x, n, d, k, out_d, out_i, stream, occ) \
+                       : launch<(D < 0 ? 0 : D), S>(x, n, d, k, out_d, out_i, stream, occ);
   switch ((k + 31) / 32) {
-    case 1: return launch<D, 1>(x, n, d, k, out_d, out_i, stream, occ);
-    case 2: return launch<D, 2>(x, n, d, k, out_d, out_i, stream, occ);
-    case 3: return launch<D, 3>(x, n, d, k, out_d, out_i, stream, occ);
-    default: return launch<D, 4>(x, n, d, k, out_d, out_i, stream, occ);
+    REPRO_TOPK_S(1) REPRO_TOPK_S(2) REPRO_TOPK_S(3) REPRO_TOPK_S(4)
+    REPRO_TOPK_S(5) REPRO_TOPK_S(6) REPRO_TOPK_S(7) REPRO_TOPK_S(8)
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_TOPK_S
 }
 
 int dispatch(const float* x, int n, int d, int k, float* out_d, int* out_i, void* stream,
              int* occ) {
-  if (n < 2 || d < 1 || d > 256 || k < 1 || k > KMAX || k > n - 1 ||
-      reinterpret_cast<size_t>(x) % 16 != 0)
+  if (n < 2 || d < 1 || k < 1 || k > KMAX || k > n - 1 || reinterpret_cast<size_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (d > MAX_D_TILED) return launch_d<-1>(x, n, d, k, out_d, out_i, s, occ);
   switch (d) {
     case 2: return launch_d<2>(x, n, d, k, out_d, out_i, s, occ);
     case 4: return launch_d<4>(x, n, d, k, out_d, out_i, s, occ);

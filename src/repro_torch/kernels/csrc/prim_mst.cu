@@ -32,12 +32,15 @@
 // ops.py::sum_order(d, "prim")): up to d = 32 an FMA chain in index order
 // (the first square rounded alone, each later one fused into the add, fmaf),
 // above it windows of 32 (zero padding split (32 W - d) / 2 in front, each
-// window unfused in index order, the window sums added in order).  The
+// window unfused in index order, the window sums added in order; above
+// 32 x 32, windows of windows: xla_order.cuh).  The
 // unfused operations are __fsub_rn/__fmul_rn/__fadd_rn, which nvcc never
 // contracts into an FMA, so src is equal and w2 bit-equal to the plain
 // PyTorch version and to the reference.
 
 #include <cuda_runtime.h>
+
+#include "xla_order.cuh"
 #include <math_constants.h>
 
 namespace {
@@ -81,8 +84,10 @@ __device__ __forceinline__ float d2_fixed(const float* __restrict__ xv, const fl
   return acc;
 }
 
-// d2(u, v) at any width: an FMA chain up to 32, windows of 32 above.
+// d2(u, v) at any width: an FMA chain up to 32, windows of 32 above (and
+// windows of windows above 32 x 32).
 __device__ __forceinline__ float d2_generic(const float* __restrict__ xv, const float* __restrict__ xu, int d) {
+  if (d > 32 * 32) return tree_sum([&](int j) { return sq_diff(xv[j], xu[j]); }, d);
   if (d <= 32) {
     float acc = sq_diff(xv[0], xu[0]);
     for (int j = 1; j < d; ++j) {

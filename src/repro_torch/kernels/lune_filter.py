@@ -26,7 +26,6 @@ from . import _build
 from .ops import sum_sq_seq
 
 _EPS = 64.0 * 1.1920929e-07
-MAX_D = 256  # a point tile of at least 32 rows must fit the kernel's shared memory
 
 
 def _dot_seq(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -69,8 +68,6 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
     m, d = a_xyz.shape
     n = points.shape[0]
     dev = points.device
-    if d > MAX_D:
-        raise ValueError(f"the lune_filter kernel takes d <= {MAX_D}; got d={d}")
     if not 1 <= block_e <= 32 or block_c < 32:
         raise ValueError(
             f"the lune_filter kernel takes 1 <= block_e <= 32 edges (warps) per block and "
@@ -141,7 +138,8 @@ def lune_filter(
     ``w2 = -inf`` never has a point inside.  CUDA tensors run the kernel
     (``block_e`` edges per block, one warp each, 1 to 32; at most
     ``block_c`` points per shared-memory tile, rounded down to a multiple
-    of 32); CPU tensors run the plain version (``chunk`` edges per step).
+    of 32, and at most 256 above d = 256, where the kernel streams d in
+    slices); CPU tensors run the plain version (``chunk`` edges per step).
     """
     m = a_xyz.shape[0]
     if a_xyz.ndim != 2 or b_xyz.shape != a_xyz.shape or points.ndim != 2 or points.shape[1] != a_xyz.shape[1]:

@@ -74,6 +74,28 @@ def sum_sq_fma(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _sum_win32(t: torch.Tensor) -> torch.Tensor:
+    """Sum of the terms ``t`` over the last axis in XLA's CPU tree order:
+    rows of at most 32 in index order, longer rows as windows of 32 whose
+    sums are summed the same way in turn."""
+    n = t.shape[-1]
+    if n <= 32:
+        acc = t[..., 0]
+        for j in range(1, n):
+            acc = acc + t[..., j]
+        return acc
+    n_win = -(-n // 32)
+    pad_lo = (32 * n_win - n) // 2
+    parts = []
+    for w in range(n_win):
+        s0, s1 = max(0, 32 * w - pad_lo), min(n, 32 * w + 32 - pad_lo)
+        acc = t[..., s0]
+        for j in range(s0 + 1, s1):
+            acc = acc + t[..., j]
+        parts.append(acc)
+    return _sum_win32(torch.stack(parts, dim=-1))
+
+
 def sum_sq_win32(v: torch.Tensor) -> torch.Tensor:
     """Sum of squares over the last axis in XLA's CPU order for rows longer
     than 32: ``reduce-window`` then ``reduce``.
@@ -82,20 +104,12 @@ def sum_sq_win32(v: torch.Tensor) -> torch.Tensor:
     elements, (32 W - d) // 2 of them in front and the rest behind.  Window
     w sums its real elements in index order, unfused, each square rounded
     (the squares are a separate fusion, so no add is fused into a product);
-    the W window sums are then added in order.  At d <= 32 there is one
-    window and this is ``sum_sq_seq``.
+    the W window sums are then added in order where W <= 32, and where
+    W > 32 (d > 1024) they are summed the same way in turn, in windows of
+    32 padded by (32 ceil(W / 32) - W) // 2 in front.  At d <= 32 there is
+    one window and this is ``sum_sq_seq``.
     """
-    d = v.shape[-1]
-    n_win = -(-d // 32)
-    pad_lo = (32 * n_win - d) // 2
-    total = None
-    for w in range(n_win):
-        s0, s1 = max(0, 32 * w - pad_lo), min(d, 32 * w + 32 - pad_lo)
-        acc = v[..., s0] * v[..., s0]
-        for j in range(s0 + 1, s1):
-            acc = acc + v[..., j] * v[..., j]
-        total = acc if total is None else total + acc
-    return total
+    return _sum_win32(v * v)
 
 
 _SUM_SQ = {"seq": sum_sq_seq, "fma": sum_sq_fma, "win32": sum_sq_win32}

@@ -26,8 +26,7 @@ import torch
 
 from . import _build
 
-KMAX = 128  # the kernel's top-k list: 4 register slots in each of a warp's 32 lanes
-MAX_D = 256  # a key tile of at least 32 rows must fit the kernel's shared memory
+KMAX = 256  # the kernel's top-k list: up to 8 register slots in each of a warp's 32 lanes
 
 
 def _dot_fma(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -79,10 +78,8 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     if k_top > KMAX:
         raise ValueError(
             f"the pairwise_topk kernel keeps at most {KMAX} neighbours (kmax - 1 plus "
-            f"the refine slack of 8, so kmax <= 120 on the card); got k_top={k_top}"
+            f"the refine slack of 8, so kmax <= {KMAX - 7} on the card); got k_top={k_top}"
         )
-    if d > MAX_D:
-        raise ValueError(f"the pairwise_topk kernel takes d <= {MAX_D}; got d={d}")
     xf = x.float().contiguous()
     if xf.data_ptr() % 16:  # the kernel reads rows as float4
         xf = xf.clone()

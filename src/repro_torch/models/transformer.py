@@ -1,0 +1,305 @@
+"""Decoder-only transformer, the port of ``repro/models/transformer.py`` for
+the dense configurations: no experts, no MLA, no frontend (qwen2-1.5b,
+qwen2.5-14b, gemma3-4b, starcoder2-3b).  The MoE, MLA and frontend
+branches raise ``NotImplementedError``; they come with a later item.
+
+The reference scans one layer body over stacked parameters; here the
+layers are an ``nn.ModuleList`` walked in a Python loop, with the same
+per-layer data:
+  * mixed local:global attention (gemma3): per-layer windows and rope
+    thetas (``_layer_windows_py``, ``_layer_thetas``); window <= 0 is
+    unbounded;
+  * GQA: query head h reads kv head h // g (``layers.attention``).
+
+KV cache (decode): a dict of stacked tensors, (L, B, Smax, Hkv, Dh) for
+the global layers and (L, B, window, Hkv, Dh) ring buffers for the local
+ones (slot = pos % window, ``kpos_loc`` starts at -2^30), and ``pos`` as a
+Python int.  ``decode_step`` writes the new entries into the cache's
+tensors in place and returns the same dict, where the reference returns a
+new pytree: a cache is never read again after the step that advanced it.
+
+Serving runs under ``torch.inference_mode()``; parameters carry no
+gradients (no backward pass is ported yet).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..engine.plan import resolve_device
+from . import layers as L
+
+_LATER = "the MoE and MLA transformer and the frontends (ROADMAP.md §1, the LM stack)"
+
+
+def _check_dense(cfg) -> None:
+    if cfg.kv_lora > 0 or cfg.n_experts > 0 or cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: MLA, MoE and frontend configurations come with {_LATER}")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _layer_windows_py(cfg) -> list[int]:
+    """Per-layer window sizes: 0 => full causal."""
+    w = []
+    for i in range(cfg.n_layers):
+        if cfg.window and cfg.window_period and (i + 1) % cfg.window_period == 0:
+            w.append(0)  # global layer
+        elif cfg.window:
+            w.append(cfg.window)
+        else:
+            w.append(0)
+    return w
+
+
+def _layer_thetas(cfg) -> list[float]:
+    t = []
+    for i in range(cfg.n_layers):
+        if cfg.rope_theta_global and cfg.window_period and (i + 1) % cfg.window_period == 0:
+            t.append(cfg.rope_theta_global)
+        else:
+            t.append(cfg.rope_theta)
+    return t
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device):
+        super().__init__()
+        d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
+        self.wq = L.linear(d, hq, generator, device, bias=cfg.qkv_bias)
+        self.wk = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias)
+        self.wv = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias)
+        self.wo = L.linear(hq, d, generator, device, bias=False)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device):
+        super().__init__()
+        self.ln1 = L.rmsnorm_init(cfg.d_model, device)
+        self.ln2 = L.rmsnorm_init(cfg.d_model, device)
+        self.attn = Attention(cfg, generator, device)
+        self.mlp = L.init_mlp(cfg, cfg.d_ff, generator, device)
+
+
+class Transformer(nn.Module):
+    """The parameters: ``embed`` (padded_vocab, d), ``unembed`` when the
+    embeddings are untied, ``final_norm`` and the ``layers``."""
+
+    def __init__(self, cfg, generator: torch.Generator | None, device: torch.device):
+        super().__init__()
+        _check_dense(cfg)
+        d = cfg.d_model
+        self.embed = nn.Parameter(
+            L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02), requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(
+                L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02), requires_grad=False)
+        self.final_norm = L.rmsnorm_init(d, device)
+        self.layers = nn.ModuleList(Block(cfg, generator, device) for _ in range(cfg.n_layers))
+
+
+def init(cfg, generator: torch.Generator, device: torch.device) -> Transformer:
+    """Random float32 parameters on ``device`` from ``generator`` (which
+    lies on that device): embeddings normal * 0.02 (``padded_vocab``
+    rows), dense weights normal / sqrt(fan_in), norms and biases zero."""
+    return Transformer(cfg, generator, torch.device(device))
+
+
+def skeleton(cfg) -> Transformer:
+    """The parameter structure on the meta device, to load a state into
+    (``load_state_dict(state, assign=True)``)."""
+    return Transformer(cfg, None, torch.device("meta"))
+
+
+def cast_for_compute(p: Transformer, cfg) -> Transformer:
+    """A copy of ``p`` with every tensor the reference casts with
+    ``.astype(cfg.dtype)`` (embeddings, dense weights and biases) cast
+    once, and the norms kept float32.  The layers then use the cast
+    tensors as they are, so the result is bit for bit that of casting at
+    each use."""
+    dt = _dtype(cfg.dtype)
+    state = {k: v if k.endswith(("ln1", "ln2", "final_norm")) else v.to(dt) for k, v in p.state_dict().items()}
+    out = skeleton(cfg)
+    out.load_state_dict(state, assign=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _qkv(pl: Block, h: torch.Tensor, cfg, positions: torch.Tensor, theta: float):
+    """q (B, S, Hq, D) and k, v (B, S, Hkv, D) in h's dtype, rope applied."""
+    b, sq, _ = h.shape
+    ap = pl.attn
+    q = L.dense(ap.wq, h).reshape(b, sq, cfg.n_heads, cfg.d_head)
+    k = L.dense(ap.wk, h).reshape(b, sq, cfg.n_kv, cfg.d_head)
+    v = L.dense(ap.wv, h).reshape(b, sq, cfg.n_kv, cfg.d_head)
+    q = L.rope(q, positions[None, :], theta)
+    k = L.rope(k, positions[None, :], theta)
+    return q, k, v
+
+
+def _attn_out(pl: Block, q, k_all, v_all, cfg, positions, window, k_pos, kv_valid) -> torch.Tensor:
+    b, sq = q.shape[:2]
+    o = L.attention(q, k_all, v_all, q_pos=positions, k_pos=k_pos, window=window, softcap=0.0, kv_valid=kv_valid)
+    return o.reshape(b, sq, cfg.n_heads * cfg.d_head) @ pl.attn.wo.weight.to(q.dtype).T
+
+
+def embed_inputs(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
+    if patch_embeds is not None:
+        raise NotImplementedError(f"frontend inputs come with {_LATER}")
+    return p.embed.to(_dtype(cfg.dtype))[tokens]
+
+
+def _layers(p: Transformer, cfg, x: torch.Tensor, collect_kv: bool):
+    """The layer stack over a full sequence; with ``collect_kv`` also each
+    layer's (k, v)."""
+    s_len = x.shape[1]
+    positions = torch.arange(s_len, dtype=torch.int32, device=x.device)
+    kvs = []
+    for pl, w, th in zip(p.layers, _layer_windows_py(cfg), _layer_thetas(cfg)):
+        h = L.rmsnorm(x, pl.ln1)
+        q, k, v = _qkv(pl, h, cfg, positions, th)
+        x = x + _attn_out(pl, q, k, v, cfg, positions, w, positions, None)
+        h2 = L.rmsnorm(x, pl.ln2)
+        x = x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff)
+        if collect_kv:
+            kvs.append((k, v))
+    return L.rmsnorm(x, p.final_norm), kvs
+
+
+def forward(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None):
+    """Full-sequence forward -> final hidden states (B, S, D) and the aux
+    loss (0: no experts)."""
+    x = embed_inputs(p, cfg, tokens, patch_embeds)
+    x, _ = _layers(p, cfg, x, collect_kv=False)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(p: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
+    emb = p.embed if cfg.tie_embeddings else p.unembed
+    logits = x @ emb.to(x.dtype).T
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_layout(cfg, max_len: int):
+    """Static split of layers into ring-buffer (local window) and
+    full-length (global) cache groups."""
+    windows = _layer_windows_py(cfg)
+    is_local = [0 < w < max_len for w in windows]
+    loc_idx, glob_idx = [], []
+    nl = ng = 0
+    for ll in is_local:
+        loc_idx.append(nl if ll else 0)
+        glob_idx.append(0 if ll else ng)
+        nl += int(ll)
+        ng += int(not ll)
+    win = min(cfg.window if cfg.window else max_len, max_len)
+    return is_local, loc_idx, glob_idx, nl, ng, max(win, 1)
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """An empty KV cache (ring buffers for the local layers) on ``device``
+    (default the card, which raises without one unless ``device="cpu"``)."""
+    _check_dense(cfg)
+    device = resolve_device(device)
+    _, _, _, nl, ng, win = _cache_layout(cfg, max_len)
+    hkv, dh = cfg.n_kv, cfg.d_head
+    cache: dict = {"pos": 0}
+    if nl:
+        cache["k_loc"] = torch.zeros((nl, batch, win, hkv, dh), dtype=dtype, device=device)
+        cache["v_loc"] = torch.zeros((nl, batch, win, hkv, dh), dtype=dtype, device=device)
+        cache["kpos_loc"] = torch.full((win,), -(2**30), dtype=torch.int32, device=device)
+    if ng:
+        cache["k"] = torch.zeros((ng, batch, max_len, hkv, dh), dtype=dtype, device=device)
+        cache["v"] = torch.zeros((ng, batch, max_len, hkv, dh), dtype=dtype, device=device)
+    return cache
+
+
+def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
+    """One decode step.  cur_tokens: (B, 1).  Returns (logits (B, V), cache).
+
+    Local-window layers read and write a ring buffer (slot = pos % window);
+    global layers keep the full-length cache.  The cache's tensors are
+    updated in place.
+    """
+    dt = _dtype(cfg.dtype)
+    pos = int(cache["pos"])
+    x = p.embed.to(dt)[cur_tokens]  # (B, 1, D)
+    dev = x.device
+    # a fill, not a copy from host memory: a step makes no host sync of its own
+    positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    if "k" in cache:
+        max_len = cache["k"].shape[2]
+    else:
+        # ring-only cache: any max_len above the window reproduces the layout
+        max_len = cache["k_loc"].shape[2] + 1
+    is_local, loc_idx, glob_idx, nl, ng, win = _cache_layout(cfg, max_len)
+    if nl:
+        slot = pos % win
+        cache["kpos_loc"][slot] = pos
+        loc_valid = cache["kpos_loc"] >= 0
+    if ng:
+        k_pos_g = torch.arange(max_len, dtype=torch.int32, device=dev)
+        g_valid = k_pos_g <= pos
+
+    for i, (pl, w, th) in enumerate(zip(p.layers, _layer_windows_py(cfg), _layer_thetas(cfg))):
+        h = L.rmsnorm(x, pl.ln1)
+        q, k_new, v_new = _qkv(pl, h, cfg, positions, th)
+        if is_local[i]:
+            kc, vc, at = cache["k_loc"][loc_idx[i]], cache["v_loc"][loc_idx[i]], slot
+            k_pos, valid = cache["kpos_loc"], loc_valid
+        else:
+            kc, vc, at = cache["k"][glob_idx[i]], cache["v"][glob_idx[i]], pos
+            k_pos, valid = k_pos_g, g_valid
+        kc[:, at] = k_new[:, 0].to(kc.dtype)
+        vc[:, at] = v_new[:, 0].to(vc.dtype)
+        x = x + _attn_out(pl, q, kc.to(dt), vc.to(dt), cfg, positions, w, k_pos, valid)
+        h2 = L.rmsnorm(x, pl.ln2)
+        x = x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff)
+    x = L.rmsnorm(x, p.final_norm)
+    cache["pos"] = pos + 1
+    return logits_fn(p, cfg, x)[:, 0], cache
+
+
+def prefill(p: Transformer, cfg, tokens: torch.Tensor, max_len: int, patch_embeds=None,
+            cache_dtype=torch.bfloat16):
+    """Prefill a cache from a full prompt.  Returns (last logits (B, V), cache)."""
+    x = embed_inputs(p, cfg, tokens, patch_embeds)
+    b, s_len, _ = x.shape
+    x, kvs = _layers(p, cfg, x, collect_kv=True)
+    logits = logits_fn(p, cfg, x[:, -1:])
+    is_local, _, _, nl, ng, win = _cache_layout(cfg, max_len)
+    dev = x.device
+    cache: dict = {"pos": s_len}
+    if ng:
+        glob = [i for i, ll in enumerate(is_local) if not ll]
+        for key, j in (("k", 0), ("v", 1)):
+            c = torch.zeros((ng, b, max_len, cfg.n_kv, cfg.d_head), dtype=cache_dtype, device=dev)
+            c[:, :, :s_len] = torch.stack([kvs[i][j] for i in glob]).to(cache_dtype)
+            cache[key] = c
+    if nl:
+        loc = [i for i, ll in enumerate(is_local) if ll]
+        keep = min(win, s_len)
+        p_sel = torch.arange(s_len - keep, s_len, device=dev)
+        slots = p_sel % win
+        for key, j in (("k_loc", 0), ("v_loc", 1)):
+            c = torch.zeros((nl, b, win, cfg.n_kv, cfg.d_head), dtype=cache_dtype, device=dev)
+            c[:, :, slots] = torch.stack([kvs[i][j] for i in loc]).to(cache_dtype)[:, :, p_sel]
+            cache[key] = c
+        kpos = torch.full((win,), -(2**30), dtype=torch.int32, device=dev)
+        kpos[slots] = p_sel.to(torch.int32)
+        cache["kpos_loc"] = kpos
+    return logits[:, 0], cache

@@ -379,10 +379,10 @@ def test_edge_cascade_rejects_bad_input():
 
 
 def test_pairwise_topk_rejects_bad_input():
-    # the kernel's list holds 128 entries; its launch path says so before
+    # the kernel's list holds 256 entries; its launch path says so before
     # it touches the card
-    with pytest.raises(ValueError, match=r"at most 128 neighbours .* kmax <= 120 on the card"):
-        t_pt._launch(torch.zeros((200, 2)), 129)
+    with pytest.raises(ValueError, match=r"at most 256 neighbours .* kmax <= 249 on the card"):
+        t_pt._launch(torch.zeros((300, 2)), 257)
     with pytest.raises(ValueError, match="k_top"):
         t_pt.pairwise_topk(torch.zeros((5, 2)), 5)
     with pytest.raises(ValueError, match="float"):
