@@ -29,10 +29,14 @@ Phases (any failure exits non-zero):
      the plain version on the card and the CPU's run) on random trees with
      tied and zero weights at R = 1 and 15 in shared memory and above its
      limit; past the earlier card limits (the sliced instances above
-     d = 256, the lists past K = 128): ``pairwise_topk`` at d = 320 and 1536
-     (n = 4000 and 1007, K = 31 and 135) and at K = 135 and 256 at d = 8
-     (with exact ties), ``lune_filter`` at d = 320 and 1536, ``edge_cascade``
-     at d = 1536 (windows of windows) and at k_check = 127;
+     d = 256, the lists past K = 128): ``pairwise_topk`` at d = 320, 777,
+     1100 and 1536 (a ragged d, two 512-deep panels, windows of windows;
+     n = 4000 and 1007, K = 31 and 135), at K = 256 at d = 1536, on exact
+     ties at d = 320 (each point 8 times, 500 rows apart: across key tiles
+     and key splits, under both plans) and at K = 135 and 256 at d = 8
+     (with exact ties), ``lune_filter`` at d = 320, 777, 1100 and 1536,
+     ``edge_cascade`` at d = 1536 (windows of windows) and at
+     k_check = 127;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it (``select_all``
      runs its linkage through ``single_linkage`` once, checked on the fit's
@@ -95,14 +99,19 @@ Phases (any failure exits non-zero):
      near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
      card with the counters set to 0 just before it (``pairwise_topk``,
      ``edge_cascade`` and ``single_linkage`` must launch); the first 1500
-     rows' card fit equals their CPU fit bit for bit; MST weight multisets
-     at mpts 2, 8, 16, 24 equal dense scipy MSTs; DBCV's choice and the
-     near-duplicate pairs flagged;
+     rows' card fit equals their CPU fit bit for bit; the exact variant of
+     those rows on the card launches the sliced ``lune_filter``, keeps a
+     subset of their RNG* graph and its MST weight multisets bit for bit,
+     and ``lune_filter`` is timed on its unresolved edges beside its plain
+     version and bound; MST weight multisets at mpts 2, 8, 16, 24 equal
+     dense scipy MSTs; DBCV's choice and the near-duplicate pairs flagged;
   14. ``MultiHDBSCAN(kmax=128)`` at n = 4000, d = 8 (K = 135) with the
      counters set to 0 just before it: mpts 2..16 MST weight multisets
      equal a kmax = 16 fit's bit for bit; then ``pairwise_topk`` at the
      shapes of phases 13 and 14 and ``lune_filter`` at d = 1536, each
-     beside its plain version and its bound (phases 12-14 run before 11);
+     beside its plain version (outputs bit-equal) and its bound; the two
+     sliced rows join the ``{"kernels": ...}`` line (phases 12-14 run
+     before 11);
   11. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
@@ -121,6 +130,8 @@ Each phase's seconds are printed at the end.  The second-to-last line is
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -148,6 +159,7 @@ N_PRIM = 4000
 N_BASELINE_CPU = 4000
 N_LINKAGE = 5000
 WIDE_WIDTHS = (320, 1536)       # the sliced instances; 1536 is qwen2-1.5b's d_model
+RAGGED_WIDE = (777, 1100)        # a ragged d (d % 4 != 0); two 512-deep panels and windows of windows
 N_WIDE = 4000
 K_EMBED = 31                      # the top-K of a kmax = 24 fit (the embedding fit)
 K_WIDE = (135, 256)               # the top-K of kmax = 128, and the kernel's longest list
@@ -236,6 +248,29 @@ def device_ms(fn, reps: int) -> float:
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def topk_flops_bytes(n: int, d: int, k_eff: int) -> tuple[float, float]:
+    """The least work of ``pairwise_topk`` on (n, d) at K = ``k_eff``: d2 is
+    symmetric, so n (n - 1) / 2 dot products of 2 d operations and 3 more
+    for d2, plus the n norms (2 d each); x read once, the lists written
+    once."""
+    return n * (n - 1) / 2 * (2 * d + 3) + n * 2 * d, 4 * n * d + 8 * n * k_eff
+
+
+@contextlib.contextmanager
+def keys_split():
+    """Within the block, every launch of the sliced ``pairwise_topk``
+    splits the keys across blocks (the mirrored plan's budget set to 0)."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("pairwise_topk").repro_pairwise_topk_set_mirror_budget
+    fn.argtypes, fn.restype = [ctypes.c_size_t], ctypes.c_size_t
+    before = fn(0)
+    try:
+        yield
+    finally:
+        fn(before)
 
 
 def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
@@ -401,41 +436,59 @@ def check_topk_cases(dev, x) -> dict:
 
 def check_wide_cases(dev) -> dict:
     """The kernels past their earlier card limits, each against its plain
-    version on the card: ``pairwise_topk`` at d = 320 and 1536 (the sliced
-    instance; n = 4000 and the ragged 1007, K = 31 and 135) and at K = 135
-    and 256 at d = 8 (n = 4000, 1007, and exact ties); ``lune_filter`` at
-    d = 320 and 1536; ``edge_cascade`` at d = 1536 and at k_check = 127 (the
-    kmax = 128 list).  All bit-equal.  Returns the largest raw d2
-    difference per ``pairwise_topk`` case (0 when bit-equal)."""
+    version on the card: ``pairwise_topk`` at d = 320, 777, 1100 and 1536
+    (the sliced instance: a ragged d, two 512-deep panels, windows of
+    windows; n = 4000 and the ragged 1007, K = 31 and 135), at K = 256 at
+    d = 1536, on exact ties at d = 320 (each point 8 times, 500 rows apart,
+    so that tied keys fall in different key tiles and key splits; K = 31
+    under the mirrored plan and with the keys split, K = 135 split) and at
+    K = 135 and 256 at d = 8 (n = 4000, 1007, and exact ties);
+    ``lune_filter`` at d = 320, 777, 1100 and 1536; ``edge_cascade`` at
+    d = 1536 and at k_check = 127 (the kmax = 128 list).  All bit-equal.
+    Returns the largest raw d2 difference per ``pairwise_topk`` case (0
+    when bit-equal)."""
     import numpy as np
     import torch
     from repro_torch.kernels import fused_cascade as fc, ops
 
     errs = {}
-    for d in WIDE_WIDTHS:
+    for d in WIDE_WIDTHS + RAGGED_WIDE:
         xd = torch.from_numpy(make_points(N_WIDE, d, SEED + d)).to(dev)
         for n in (N_WIDE, N_RAGGED):
             for k_eff in (K_EMBED, K_WIDE[0]):
                 errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xd[:n], k_eff, k_eff - 8)
-    x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 11)).to(dev)
+        if d == WIDE_WIDTHS[-1]:
+            errs[f"n={N_WIDE},d={d},K={K_WIDE[1]}"] = check_pairwise_topk(xd, K_WIDE[1], K_WIDE[1] - 8)
     rng = np.random.default_rng(SEED + 12)
+    # copy j of point i at row i + 500 j: the copies lie in other key tiles
+    # (the mirrored plan's partial lists) and other key splits
+    x_tie = torch.from_numpy(np.tile(rng.normal(size=(N_WIDE // 8, WIDE_WIDTHS[0])), (8, 1))
+                             .astype(np.float32)).to(dev)
+    for k_eff in (K_EMBED, K_WIDE[0]):
+        errs[f"n={N_WIDE},d={WIDE_WIDTHS[0]},K={k_eff},ties"] = check_pairwise_topk(x_tie, k_eff, k_eff - 8)
+    with keys_split():
+        errs[f"n={N_WIDE},d={WIDE_WIDTHS[0]},K={K_EMBED},ties,split"] = check_pairwise_topk(
+            x_tie, K_EMBED, K_EMBED - 8)
+    x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 11)).to(dev)
     x_dup = torch.from_numpy(np.repeat(rng.normal(size=(40, 2)), 8, axis=0).astype(np.float32)).to(dev)
     for k_eff in K_WIDE:
         for xs in (x8, x8[:N_RAGGED], x_dup):
             n, d = xs.shape
             errs[f"n={n},d={d},K={k_eff}"] = check_pairwise_topk(xs, k_eff, k_eff - 8)
-    print(f"pairwise_topk: kernel == plain (raw lists bit-equal, refined indices equal) at d={list(WIDE_WIDTHS)} "
-          f"(n={N_WIDE} and {N_RAGGED}, K={K_EMBED} and {K_WIDE[0]}), and at K={list(K_WIDE)} at d={D} "
+    print(f"pairwise_topk: kernel == plain (raw lists bit-equal, refined indices equal) at "
+          f"d={list(WIDE_WIDTHS + RAGGED_WIDE)} (n={N_WIDE} and {N_RAGGED}, K={K_EMBED} and {K_WIDE[0]}; "
+          f"K={K_WIDE[1]} at d={WIDE_WIDTHS[-1]}), on exact ties at d={WIDE_WIDTHS[0]} (n={N_WIDE}, each point 8 "
+          f"times, 500 rows apart; K={K_EMBED} under both plans), and at K={list(K_WIDE)} at d={D} "
           f"(n={N_WIDE}, {N_RAGGED}, and exact ties at n=320)", flush=True)
-    for d in WIDE_WIDTHS:
+    for d in WIDE_WIDTHS + RAGGED_WIDE:
         for n in (N_WIDE, N_RAGGED):
             args = lune_case(n, d, dev)
             out, _ = check_lune_filter(args, f"n={n}, d={d}", block_e=8, block_c=512)
             check(bool(out.any()) and not bool(out[torch.isfinite(args[6])].all()),
                   f"the lune case n={n}, d={d} has both verdicts")
             check(not bool(out[torch.isneginf(args[6])].any()), "padded edges (w2 = -inf) are never removed")
-    print(f"lune_filter: kernel == plain (verdict bits) at d={list(WIDE_WIDTHS)}, n={N_WIDE} and {N_RAGGED}",
-          flush=True)
+    print(f"lune_filter: kernel == plain (verdict bits) at d={list(WIDE_WIDTHS + RAGGED_WIDE)}, n={N_WIDE} and "
+          f"{N_RAGGED}", flush=True)
     n_cases = 0
     for d, k_checks in ((WIDE_WIDTHS[-1], (2, K_EMBED - 8)), (D, (2, K_WIDE[0] - 8))):
         base, ea, eb, valid = cascade_case(d, max(k_checks), dev)
@@ -676,13 +729,14 @@ def kernel_resources(record: dict) -> None:
     usage = []
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
-            m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|lune_filter_kernel|"
-                          r"lune_filter_sliced_kernel|edge_cascade_kernel|edge_cascade_prologue|"
+            m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|pairwise_topk_merge_kernel|"
+                          r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
+                          r"edge_cascade_kernel|edge_cascade_prologue|"
                           r"prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
             smem = re.search(r"Lb([01])EE", u["function"])  # the state's layout (prim_mst, single_linkage)
             u["state_in"] = ("shared" if smem.group(1) == "1" else "device") if smem else None
-            sliced = "sliced" in u["kernel"]
+            sliced = "sliced" in u["kernel"] or "merge" in u["kernel"]  # the merge pass: the sliced instance's
             u["d"] = "sliced" if sliced else (int(m.group(2)) or "generic") if m and m.group(2) else None
             second = int(m.group(2 if sliced else 3)) if m and m.group(2 if sliced else 3) else None
             u["lanes" if u["kernel"] == "edge_cascade_kernel" else "slots"] = second
@@ -1426,8 +1480,11 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     """Phase 13: the phase-12 model embeds N_DOCS documents (d = 1536) and
     the card fits them at kmax = 24 through ``MultiHDBSCAN``, with the
     launch counters set to 0 just before it; the first N_DOCS_CPU rows
-    fitted on the card equal the port's CPU fit bit for bit; MST weight
-    multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
+    fitted on the card equal the port's CPU fit bit for bit; the exact
+    variant of those rows on the card (the sliced ``lune_filter`` on a
+    fit's path) keeps a subset of their RNG* graph and its MST weights bit
+    for bit, and ``lune_filter`` is timed on its unresolved edges; MST
+    weight multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
     curation report.  Returns the launches of the fit and the embeddings."""
     import numpy as np
     import torch
@@ -1461,6 +1518,7 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
                     "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches}
         est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
         views_g = est_g.select_all()
+        exact_phase(x_c, est_g, smi, rec)
         cpu = job.get(timeout=CPU_FIT_TIMEOUT)
     rec["launches"], rec["graph"] = launches, est.graph_.stats
     rec["stages_s"] = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
@@ -1525,6 +1583,62 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     return launches, x
 
 
+def exact_phase(x, est_star, smi: str, rec: dict) -> None:
+    """The exact variant, ``MultiHDBSCAN(kmax=24, variant="rng")``, of the
+    embedding rows ``x`` on the card, with ``lune_filter``'s counter set to
+    0 just before it: it launches the sliced ``lune_filter``, keeps a
+    subset of the RNG* fit ``est_star``'s graph and its MST weight
+    multisets bit for bit at every mpts; then ``lune_filter`` on the fit's
+    unresolved edges against its plain version (verdict bits), timed
+    beside the plain version and its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.kernels import ops
+
+    lf = kernel_module("lune_filter")
+    captured = {}
+
+    def spy(*args, **kwargs):  # records the unresolved edges the exact pass scans
+        captured["args"], captured["kwargs"] = args, kwargs
+        return real_lune_nonempty(*args, **kwargs)
+
+    real_lune_nonempty = ops.lune_nonempty
+    ops.lune_nonempty = spy
+    try:
+        lf.lune_filter.launches = 0
+        t0 = time.monotonic()
+        est = MultiHDBSCAN(kmax=KMAX_EMBED, variant="rng", device=CARD).fit(x)
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        launches = lf.lune_filter.launches
+    finally:
+        ops.lune_nonempty = real_lune_nonempty
+    n, d = x.shape
+    gx = est.graph_.stats
+    check(launches >= 1, f"the exact fit at n={n}, d={d} launched lune_filter")
+    check(set(map(tuple, est.graph_.edges.tolist())) <= set(map(tuple, est_star.graph_.edges.tolist())),
+          "exact embedding fit: its edges are a subset of the RNG* fit's")
+    for mpts in est_star.mpts_values_:
+        check(np.array_equal(np.sort(est_star.mst_for(mpts)[2]), np.sort(est.mst_for(mpts)[2])),
+              f"exact embedding fit keeps the RNG* fit's MST weight multiset bit for bit at mpts={mpts}")
+    args = lune_args(*captured["args"])
+    kw = {"block_e": captured["kwargs"]["block_e"], "block_c": captured["kwargs"]["block_c"]}
+    out, err = check_lune_filter(args, f"the exact embedding fit's {gx['m_unresolved']} unresolved edges", **kw)
+    check(int(out.sum()) == gx["m_removed_exact"], "the kernel's removals are the exact embedding fit's")
+    m = int(args[0].shape[0])
+    ms = cuda_ms(lambda: lf.lune_filter(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: lf.lune_filter_plain(*args), 1, warm=False)
+    b_ms, b_by = bound(*lune_flops_bytes(n, d, m, int(out.sum())))
+    rec["exact"] = {"n": n, "d": d, "fit_s": fit_s, "graph": gx, "lune_filter_launches": launches,
+                    "lune_filter": {"edges": m, "removed": int(out.sum()), "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}}
+    print(f"  exact variant of the first {n} embeddings on the card in {fit_s:.2f} s, graph {gx}: edges a subset "
+          f"of the RNG* fit's, MST weight multisets equal for mpts 2..{KMAX_EMBED}; lune_filter launched "
+          f"{launches}x; on its {m} unresolved edges x {n} points on {smi}: {ms:.4f} ms (bound {b_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms; kernel == plain)", flush=True)
+
+
 def kmax128_phase(smi: str, record: dict) -> dict:
     """Phase 14: ``MultiHDBSCAN(kmax=128)`` at n = N_WIDE, d = 8 on the card
     (K = 135), with the counters set to 0 just before it: mpts 2..16 MST
@@ -1561,11 +1675,13 @@ def kmax128_phase(smi: str, record: dict) -> dict:
     return launches
 
 
-def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> None:
+def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> list:
     """``pairwise_topk`` at the embedding fit's shape (n = 4000, d = 1536,
-    K = 31) and the kmax = 128 fit's (n = 4000, d = 8, K = 135), and
-    ``lune_filter`` at d = 1536, each beside its plain version, the
-    library yardstick where there is one, and its bound."""
+    K = 31; its mirrored plan and, as ``split_ms``, the keys split) and the
+    kmax = 128 fit's (n = 4000, d = 8, K = 135), and
+    ``lune_filter`` at d = 1536, each beside its plain version (outputs
+    bit-equal), the library yardstick where there is one, and its bound.
+    Returns the sliced instances' rows of the ``{"kernels": ...}`` line."""
     import torch
 
     lf, pt = kernel_module("lune_filter"), kernel_module("pairwise_topk")
@@ -1586,21 +1702,38 @@ def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, r
             return torch.topk(d2, k_eff, dim=1, largest=False)
 
         library_ms = cuda_ms(library_topk, 5)
-        b_ms, b_by = bound(n * n * (2 * d + 3), 4 * n * d + 8 * n * k_eff)
-        rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+        b_ms, b_by = bound(*topk_flops_bytes(n, d, k_eff))
+        rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches,
+                      "max_abs_err": check_pairwise_topk(x, k_eff, k_eff - 8), "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+        if d > 256:  # the mirrored plan's time beside the key split's
+            want = pt.pairwise_topk(x, k_eff)
+            with keys_split():
+                got = pt.pairwise_topk(x, k_eff)
+                rows[name]["split_ms"] = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+            check(bool((got[0] == want[0]).all() and (got[1] == want[1]).all()),
+                  f"pairwise_topk's split plan equals its mirrored plan at n={n}, d={d}, K={k_eff}")
     args = lune_case(N_WIDE, WIDE_WIDTHS[-1], dev)
     m = int(args[0].shape[0])
-    out = lf.lune_filter(*args)
+    out, err = check_lune_filter(args, f"n={N_WIDE}, d={WIDE_WIDTHS[-1]}", block_e=8, block_c=512)
     ms = cuda_ms(lambda: lf.lune_filter(*args), 5)
     plain_ms = cuda_ms(lambda: lf.lune_filter_plain(*args), 1, warm=False)
     b_ms, b_by = bound(*lune_flops_bytes(N_WIDE, WIDE_WIDTHS[-1], m, int(out.sum())))
     rows["lune_filter_d1536"] = {"n": N_WIDE, "d": WIDE_WIDTHS[-1], "edges": m, "removed": int(out.sum()),
-                                 "launches": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "launches": record["embedding"]["exact"]["lune_filter_launches"],
+                                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                  "bound_by": b_by, "library_ms": None}
     record["wide_kernels"] = rows
     for name, r in rows.items():
         print(f"{name} on {smi}: " + json.dumps(r), flush=True)
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [
+        {"name": "pairwise_topk_d1536_k31", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+         "replaces": "src/repro/kernels/pairwise_topk.py:37",
+         **{k: rows["pairwise_topk_d1536_k31"][k] for k in keys}},
+        {"name": "lune_filter_d1536", "route": "cuda", "source": "src/repro_torch/kernels/csrc/lune_filter.cu",
+         "replaces": "src/repro/kernels/lune_filter.py:33", **{k: rows["lune_filter_d1536"][k] for k in keys}},
+    ]
 
 
 def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) -> list:
@@ -1988,7 +2121,7 @@ def main(argv: list[str]) -> int:
     phase("14. the kmax = 128 fit, and the wide kernels' times")
     # -- 14. the kmax = 128 fit ------------------------------------------------
     launches_128 = kmax128_phase(smi, record)
-    wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
+    wide_rows = wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
 
     phase("11. timings")
     # -- 11. timings ---------------------------------------------------------
@@ -2024,7 +2157,7 @@ def main(argv: list[str]) -> int:
         return torch.topk(d2, k_eff, dim=1, largest=False)
 
     library_ms = cuda_ms(library_topk, 3)
-    b_ms, b_by = bound(N * N * (2 * D + 3), 4 * N * D + 8 * N * k_eff)
+    b_ms, b_by = bound(*topk_flops_bytes(N, D, k_eff))
     print(f"pairwise_topk at n={N}, d={D} on {smi}: {ms:.4f} ms at K={k_eff} (bound {b_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms); by K {json.dumps(by_k)}", flush=True)
     kernels.append({
@@ -2063,6 +2196,7 @@ def main(argv: list[str]) -> int:
         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
     })
     kernels += new_kernel_times(x, est_w, est_wide, launches, smi, record)
+    kernels += wide_rows
     record["kernels"] = kernels
 
     phase("end")

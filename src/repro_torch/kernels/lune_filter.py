@@ -83,19 +83,24 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
     ax, bx, acd, bcd, w, pts, pcd = (
         t.float().contiguous() for t in (a_xyz, b_xyz, a_cd2, b_cd2, w2, points, cd2)
     )
-    if pts.data_ptr() % 16:  # the kernel reads point rows as float4
-        pts = pts.clone()
+    # the kernel reads point and endpoint rows in 16-byte pieces
+    ax, bx, pts = (t.clone() if t.data_ptr() % 16 else t for t in (ax, bx, pts))
     ai, bi = (t.to(torch.int32).contiguous() for t in (a_idx, b_idx))
-    fn = _build.load("lune_filter").repro_lune_filter
+    lib = _build.load("lune_filter")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, p, p, i, i, i, i, p, p]
-    fn.restype = ctypes.c_int
+    lib.repro_lune_filter.argtypes = [p, p, p, p, p, p, p, i, p, p, i, i, i, i, p, p, p]
+    lib.repro_lune_filter.restype = ctypes.c_int
+    lib.repro_lune_filter_workspace.argtypes = [i, i, i, p]
+    lib.repro_lune_filter_workspace.restype = ctypes.c_int
     with torch.cuda.device(dev):
+        nbytes = ctypes.c_size_t()  # the norms' pre-pass above d = 256
+        _build.check(lib.repro_lune_filter_workspace(m, n, d, ctypes.addressof(nbytes)), "lune_filter workspace")
+        work = torch.empty((nbytes.value,), dtype=torch.uint8, device=dev) if nbytes.value else None
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
+        status = lib.repro_lune_filter(
             ax.data_ptr(), bx.data_ptr(), acd.data_ptr(), bcd.data_ptr(), ai.data_ptr(),
             bi.data_ptr(), w.data_ptr(), m, pts.data_ptr(), pcd.data_ptr(), n, d,
-            block_e, block_c, out.data_ptr(), stream,
+            block_e, block_c, out.data_ptr(), None if work is None else work.data_ptr(), stream,
         )
     _build.check(status, "lune_filter")
     lune_filter.launches += 1
@@ -105,7 +110,8 @@ def _launch(a_xyz, b_xyz, a_cd2, b_cd2, a_idx, b_idx, w2, points, cd2, *, block_
 def kernel_config(d: int, block_e: int, block_c: int) -> dict:
     """The kernel's launch configuration for (d, block_e, block_c) on the
     current card, without launching: resident blocks per SM, threads per
-    block, dynamic shared memory bytes and points per shared-memory tile."""
+    block, dynamic shared memory bytes and points per shared-memory tile
+    (above d = 256 those of the sliced instance's main kernel)."""
     occ = (ctypes.c_int * 4)()
     fn = _build.load("lune_filter").repro_lune_filter_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -135,11 +141,15 @@ def lune_filter(
     ``a_xyz``/``b_xyz`` are the (m, d) endpoint coordinates, ``a_cd2``/
     ``b_cd2`` their squared core distances, ``a_idx``/``b_idx`` their
     indices into ``points`` (n, d) and ``cd2`` (n,).  An edge with
-    ``w2 = -inf`` never has a point inside.  CUDA tensors run the kernel
-    (``block_e`` edges per block, one warp each, 1 to 32; at most
-    ``block_c`` points per shared-memory tile, rounded down to a multiple
-    of 32, and at most 256 above d = 256, where the kernel streams d in
-    slices); CPU tensors run the plain version (``chunk`` edges per step).
+    ``w2 = -inf`` never has a point inside.  CUDA tensors run the kernel:
+    up to d = 256 with ``block_e`` edges per block (one warp each, 1 to
+    32) and at most ``block_c`` points per shared-memory tile (rounded
+    down to a multiple of 32); above d = 256 the kernel streams d in
+    slices over fixed items of 32 edges and 64 points, which persistent
+    blocks claim in point-tile order, and ``block_e`` and ``block_c``
+    only have to lie in their ranges.  ``launches`` counts calls, whatever
+    passes a call makes on the card.  CPU tensors run the plain version
+    (``chunk`` edges per step).
     """
     m = a_xyz.shape[0]
     if a_xyz.ndim != 2 or b_xyz.shape != a_xyz.shape or points.ndim != 2 or points.shape[1] != a_xyz.shape[1]:

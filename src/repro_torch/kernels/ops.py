@@ -37,7 +37,7 @@ from .pairwise_topk import pairwise_topk
 BACKENDS = ("cuda", "torch", "ref")
 SUM_ORDERS = ("seq", "fma", "win32")
 # the programs whose sums of squares the port reproduces (``sum_order``)
-SUM_PROGRAMS = ("cascade", "slot", "refine", "weights", "prim")
+SUM_PROGRAMS = ("cascade", "slot", "refine", "weights", "prim", "topk")
 
 
 def sum_sq_seq(v: torch.Tensor) -> torch.Tensor:
@@ -138,7 +138,12 @@ def sum_order(d: int, program: str) -> str:
       * ``"prim"`` — the row sum inside ``prim_dense_mst``'s loop body, a
         multiply-reduce fusion of its own: an FMA chain for d <= 32 (its
         LLVM IR is unfused, but the backend contracts every add into the
-        product: ``vfmadd`` in the object code).
+        product: ``vfmadd`` in the object code);
+      * ``"topk"`` — the norms of the reference's top-K (``|q|^2`` and
+        ``|k|^2`` of its Pallas kernel in interpret mode and of its jnp
+        twin): unfused for 5 <= d <= 8, an FMA chain at the other widths
+        up to 32 (at d = 1 a single product either way), read from the
+        raw lists they produce (``tests/test_torch_topk_order.py``).
 
     Above 32 every one of them is ``"win32"``: the row sum becomes a
     ``reduce-window`` of 32 fed by a separate multiply fusion.
@@ -149,6 +154,8 @@ def sum_order(d: int, program: str) -> str:
         return "win32"
     if program == "cascade":
         return "seq" if d <= 8 else "fma"
+    if program == "topk":
+        return "seq" if 5 <= d <= 8 else "fma"
     return "seq" if program == "slot" else "fma"
 
 

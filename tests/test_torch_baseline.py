@@ -42,6 +42,17 @@ MPTS = list(range(2, KMAX + 1))
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _points(n, d, seed):
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-5, 5, size=(4, d))

@@ -38,6 +38,17 @@ TIE_CAP = JPlan(backend="jnp").cascade_tie_cap
 TIER_CHUNK = JPlan(backend="jnp").tier_chunk_elems
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _dup_heavy():
     """Every point duplicated 8x: mass ties, overflowing the bounded emission."""
     base = np.random.default_rng(7).normal(size=(40, 2)).astype(np.float32)

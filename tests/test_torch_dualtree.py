@@ -31,6 +31,17 @@ KMAX = 8
 
 
 # the dataset families of the reference's dual-tree tests
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _blobs(n: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     c = rng.normal(0, 1, (5, 2)) * 6

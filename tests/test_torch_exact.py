@@ -40,6 +40,17 @@ EXACT_TAGS = ["knn", "candidate_count", "stage1_count", "graph", "lune_exact", "
 STATS = ("m_candidates", "m_removed_knn", "m_certified", "m_unresolved", "m_removed_exact", "m_edges")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _dup_heavy():
     base = np.random.default_rng(7).normal(size=(40, 2)).astype(np.float32)
     return np.repeat(base, 8, axis=0)

@@ -48,6 +48,17 @@ DECODE_TOL = 1e-3
 DENSE = ["qwen2_1_5b", "qwen2_5_14b", "gemma3_4b", "starcoder2_3b"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 

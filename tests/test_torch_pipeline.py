@@ -34,6 +34,17 @@ FUSED_TAGS = ["knn", "candidate_count", "stage1_count", "graph", "mst"]
 SLOT_TAGS = ["knn", "candidate_count", "candidate_slots", "candidate_count", "graph", "mst"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _dup_heavy():
     base = np.random.default_rng(7).normal(size=(40, 2)).astype(np.float32)
     return np.repeat(base, 8, axis=0)

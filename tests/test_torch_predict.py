@@ -36,6 +36,17 @@ LAMBDA_ULPS = 1
 PROB_RTOL = 2.0**-22
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def ulp_distance(a, b) -> int:
     """Largest distance in float32 ulps between two arrays of float32
     values (non-negative or inf, as lambdas are)."""

@@ -38,6 +38,17 @@ KMAX = 24
 KMAX_WIDE = 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread a test worker while this module runs: the plain
+    versions are long chains of small elementwise ops, which torch's thread
+    pool slows several times over on a CPU shared with the other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _embeddings(d: int, seed: int = 0) -> np.ndarray:
     """``embedding_stream`` with 20 near-duplicates, as the curation
     example injects them."""
