@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
      ``nvcc`` per source, all at once), with each template instance's
-     registers and spills (``-Xptxas -v``) and its resident blocks per SM;
+     registers and spills (``-Xptxas -v``) and its resident blocks per SM
+     (``prim_mst``: the clusters a card holds at once);
   3. each kernel against its plain PyTorch version on the card:
      ``pairwise_topk`` at every templated width and a generic one
      (d = 2, 4, 8, 16, 32, 100), at n = 16000 and a ragged n = 1007, with
@@ -22,13 +23,16 @@ Phases (any failure exits non-zero):
      lane count, and on synthetic unsorted edge lists (d = 2, 4, 8, 16, 32,
      64, 100; k_check = 2, 15, 63; invalid slots, duplicates, neighbours
      that are endpoints, core distances tied with edge lengths);
-     ``prim_mst`` (src equal, w2 bit-equal) at d = 2, 8, 16, 32, 64, 100 and
-     n = 1007 and 4000, and on duplicates with tied core distances with its
-     state in shared memory (n = 4000) and above that limit, in device
-     memory; ``single_linkage`` (left, right, height, size equal, against
-     the plain version on the card and the CPU's run) on random trees with
-     tied and zero weights at R = 1 and 15 in shared memory and above its
-     limit; past the earlier card limits (the sliced instances above
+     ``prim_mst`` (src equal, w2 bit-equal) at d = 2, 8, 16, 32, 64, 100,
+     320 and n = 1007 and 4000 (d = 320 streams its points at n = 4000),
+     under every plan of ``prim_mst.plan_for`` forced once (clusters of 16
+     and 8; points and state resident, points streamed, state in device
+     memory), and on duplicates with tied core distances, the copies within
+     one cluster rank and across ranks; ``single_linkage`` (left, right,
+     height, size equal, against the plain version on the card and the
+     CPU's run) on random trees with tied and zero weights at R = 1 and 15
+     with its state in shared memory and, forced, in device memory; past
+     the earlier card limits (the sliced instances above
      d = 256, the lists past K = 128): ``pairwise_topk`` at d = 320, 777,
      1100 and 1536 (a ragged d, two 512-deep panels, windows of windows;
      n = 4000 and 1007, K = 31 and 135), at K = 256 at d = 1536, on exact
@@ -68,7 +72,7 @@ Phases (any failure exits non-zero):
      (graph edges, d2, w2, MST edge ids, MST weights, labels) and against a
      ``candidate_method="wspd"`` fit on the card (kNN bit-equal, sorted MST
      weights bit-equal, labels equal), with both tiers' stage seconds;
-     ``single_linkage`` on its MSTs (state in device memory);
+     ``single_linkage`` on its MSTs (state in shared memory since PR 19);
   9. serving: ``ClusterServeEngine.load`` of phase 7's artifact on the card,
      eight client threads sending phase 7's queries in requests of 1-64
      rows (a quarter over the full range, the rest at one mpts, one in
@@ -98,10 +102,11 @@ Phases (any failure exits non-zero):
      of the final hidden states over 48 tokens, d = 1536, 40 injected
      near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
      card with the counters set to 0 just before it (``pairwise_topk``,
-     ``edge_cascade`` and ``single_linkage`` must launch); the first 1500
+     ``edge_cascade`` and ``single_linkage`` must launch); the first 1000
      rows' card fit equals their CPU fit bit for bit; the exact variant of
-     those rows on the card launches the sliced ``lune_filter``, keeps a
-     subset of their RNG* graph and its MST weight multisets bit for bit,
+     the first 1500 rows on the card launches the sliced ``lune_filter``,
+     keeps a subset of their RNG* graph and its MST weight multisets bit
+     for bit,
      and ``lune_filter`` is timed on its unresolved edges beside its plain
      version and bound; MST weight multisets at mpts 2, 8, 16, 24 equal
      dense scipy MSTs; DBCV's choice and the near-duplicate pairs flagged;
@@ -116,8 +121,9 @@ Phases (any failure exits non-zero):
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
      ``edge_cascade`` per stage at kmax = 16 and 64 and over its lanes per
-     edge, ``prim_mst`` at the baseline's shape, ``single_linkage`` at R = 15
-     and 63), ``hierarchy_linkage`` with the kernel beside the plain version
+     edge, ``prim_mst`` at the baseline's shape with its plan and step
+     floor, ``single_linkage`` at R = 15 and 63 and on the n = 24000
+     dual-tree fit's MSTs), ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
      busy share of a fit and of 8 LM decode steps (with the steps' device
      time by kernel), and a host profile.
@@ -154,7 +160,7 @@ N_EXACT_CPU = 3000
 N_QUERIES = 4096
 N_DUALTREE = 24000                # at or above Plan.dualtree_min_n
 N_CLIENTS = 8
-PRIM_WIDTHS = (2, 8, 16, 32, 64, 100)
+PRIM_WIDTHS = (2, 8, 16, 32, 64, 100, 320)  # 320 streams its points at n = 4000
 N_PRIM = 4000
 N_BASELINE_CPU = 4000
 N_LINKAGE = 5000
@@ -168,7 +174,8 @@ LM_ARCH = "qwen2_1_5b"
 LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_LEN = 8, 24, 48
 LM_PROFILED_STEPS = 8
-N_DOCS, N_DOCS_CPU = 4000, 1500
+N_DOCS, N_DOCS_EXACT = 4000, 1500
+N_DOCS_CPU = 1000                 # the CPU comparison fit's rows: at 1500 its worker set phase 13's time
 KMAX_EMBED = 24
 MPTS_DENSE = (2, 8, 16, 24)
 CPU_FIT_THREADS = 4               # the CPU fits' worker: half the card host's 8 cores
@@ -506,23 +513,40 @@ def check_wide_cases(dev) -> dict:
     return errs
 
 
-def prim_case(n: int, d: int, dev, ties: bool = False):
+def prim_case(n: int, d: int, dev, ties: str | None = None):
     """``make_points`` at (n, d) on ``dev`` and squared core distances from
     the plain top-K (7th neighbour).  With ``ties`` every point comes 8
     times and the core distances (10th neighbour) are rounded to one
-    decimal: mrd values, and so the argmin's minima, tie often."""
+    decimal, so mrd values, and the argmin's minima, tie often: ``"near"``
+    puts the copies next to each other (one cluster rank), ``"apart"``
+    n / 8 rows apart (``np.tile``: across the cluster's ranks, so equal
+    minima meet in the cross-block reduction)."""
     import numpy as np
     import torch
 
     pt = kernel_module("pairwise_topk")
     x = make_points(n, d, SEED + 9 + d)
-    if ties:
+    if ties == "near":
         x = np.ascontiguousarray(np.repeat(x[: -(-n // 8)], 8, axis=0)[:n])
+    elif ties == "apart":
+        x = np.ascontiguousarray(np.tile(x[: -(-n // 8)], (8, 1))[:n])
     xt = torch.from_numpy(x).to(dev)
     cd2 = pt.pairwise_topk_plain(xt, 10 if ties else 7)[0][:, -1]
     if ties:
         cd2 = torch.round(cd2, decimals=1)
     return xt, cd2.contiguous()
+
+
+@contextlib.contextmanager
+def prim_plan(**forced):
+    """Within the block, every ``prim_mst`` launch takes the forced plan
+    (``prim_mst.set_plan``: cluster, points, state)."""
+    pm = kernel_module("prim_mst")
+    before = pm.set_plan(**forced)
+    try:
+        yield
+    finally:
+        pm.set_plan(**before)
 
 
 def check_prim(x, cd2, what: str):
@@ -543,26 +567,55 @@ def check_prim(x, cd2, what: str):
     return w_k
 
 
+def plan_str(plan) -> str:
+    return f"C={plan.cluster}, {plan.threads} threads, points {plan.points}, state {plan.state}"
+
+
 def check_prim_cases(dev) -> None:
     """``prim_mst`` kernel vs plain (src equal, w2 bit-equal) at every width
-    of ``PRIM_WIDTHS`` at n = 1007 and 4000, and on duplicates with tied
-    core distances in shared memory (n = 4000) and above its limit, in
-    device memory."""
+    of ``PRIM_WIDTHS`` at n = 1007 and 4000 under the chosen plans (d = 320
+    streams its points); under every plan ``plan_for`` can return, each
+    forced once (clusters of 16 and 8; points and state resident, points
+    streamed, state in device memory); and on duplicates with tied core
+    distances, the copies within one cluster rank and across ranks, under
+    both cluster sizes."""
     import torch
 
     pm = kernel_module("prim_mst")
+    from repro_torch.kernels import _build
+
+    budget = _build.load("prim_mst").repro_prim_mst_smem_budget()
+    check(budget == pm.SMEM_BUDGET, f"prim_mst.SMEM_BUDGET mirrors the library's ({budget})")
+    card_c = pm.card_cluster(dev)
+    chosen = {}
     for d in PRIM_WIDTHS:
         for n in (N_RAGGED, N_PRIM):
             check_prim(*prim_case(n, d, dev), f"n={n}, d={d}")
-    n_big = pm.smem_max_n() + 800
+            chosen[(n, d)] = plan_str(pm.launch_plan(n, d, dev))
+    check(pm.launch_plan(N_PRIM, PRIM_WIDTHS[-1], dev).points == "device", f"d={PRIM_WIDTHS[-1]} streams its points")
+    forced = []
+    for cluster in pm.CLUSTERS:
+        for points, state in (("shared", "shared"), ("device", "shared"), ("device", "device")):
+            with prim_plan(cluster=cluster, points=points, state=state):
+                for n, d in ((N_PRIM, D), (N_RAGGED, 100)):
+                    check_prim(*prim_case(n, d, dev), f"n={n}, d={d}, C={cluster}, points {points}, state {state}")
+            forced.append(f"C={cluster}/{points}/{state}")
     distinct = {}
-    for n, d in ((N_PRIM, 2), (n_big, 1)):
-        w2 = check_prim(*prim_case(n, d, dev, ties=True), f"ties, n={n}, d={d}")
-        distinct[n] = len(torch.unique(w2))
-        check(distinct[n] < n // 4, f"the tie case ties: {distinct[n]} distinct weights over {n} vertices")
+    for ties in ("near", "apart"):
+        for cluster in pm.CLUSTERS:
+            for n, d in ((N_PRIM, 2), (N_RAGGED, 8)):
+                with prim_plan(cluster=cluster):
+                    w2 = check_prim(*prim_case(n, d, dev, ties=ties), f"ties {ties}, n={n}, d={d}, C={cluster}")
+                distinct[f"{ties},n={n},C={cluster}"] = k = len(torch.unique(w2))
+                check(k < n // 4, f"the tie case ties: {k} distinct weights over {n} vertices")
+    plans = {}
+    for (n, d), p in chosen.items():
+        plans.setdefault(p, []).append(f"n={n},d={d}")
     print(f"prim_mst: kernel == plain (src equal, w2 bit-equal) at d={list(PRIM_WIDTHS)}, n={N_RAGGED} and "
-          f"n={N_PRIM}; on duplicates with tied core distances at n={N_PRIM} (state in shared memory) and "
-          f"n={n_big} (device memory); distinct weights {distinct}", flush=True)
+          f"n={N_PRIM} (card cluster {card_c}; chosen plans {json.dumps(plans)}); "
+          f"under every plan forced at (n={N_PRIM}, d={D}) and (n={N_RAGGED}, d=100): {forced}; on duplicates with "
+          f"tied core distances within a rank and across ranks at C={list(pm.CLUSTERS)}; distinct weights "
+          f"{distinct}", flush=True)
 
 
 def check_linkage(ea, eb, w, n: int, what: str):
@@ -592,20 +645,39 @@ def check_linkage(ea, eb, w, n: int, what: str):
     return ea_s, eb_s
 
 
+@contextlib.contextmanager
+def linkage_layout(layout: str):
+    """Within the block, every ``single_linkage`` launch keeps its state in
+    ``layout`` (``single_linkage.set_layout``)."""
+    sl = kernel_module("single_linkage")
+    before = sl.set_layout(layout)
+    try:
+        yield
+    finally:
+        sl.set_layout(before)
+
+
 def check_linkage_cases() -> None:
     """``single_linkage`` on synthetic spanning trees with many tied and
-    zero weights: at R = 1 and 15 with the state in shared memory, and
-    above its limit, in device memory."""
+    zero weights at R = 1 and 15, under both layouts of ``layout_for``:
+    the state in shared memory and, forced at the same n, in device
+    memory."""
     from repro_torch.core import linkage
 
     sl = kernel_module("single_linkage")
-    n_big = sl.smem_max_n() + 800
-    for n, rows in ((N_LINKAGE, 1), (N_LINKAGE, 15), (n_big, 15)):
-        check_linkage(*linkage.random_spanning_trees(n, rows, SEED + 11 + rows, ties=True), n,
-                      f"tied and zero weights, n={n}, R={rows}")
+    from repro_torch.kernels import _build
+
+    max_n = _build.load("single_linkage").repro_single_linkage_smem_max_n()
+    check(max_n == sl.SMEM_MAX_N, f"single_linkage.SMEM_MAX_N mirrors the library's ({max_n})")
+    check(sl.layout_for(N_LINKAGE) == "shared", f"n={N_LINKAGE} keeps the linkage state in shared memory")
+    for layout in ("shared", "device"):
+        with linkage_layout(layout):
+            for rows in (1, 15):
+                check_linkage(*linkage.random_spanning_trees(N_LINKAGE, rows, SEED + 11 + rows, ties=True),
+                              N_LINKAGE, f"tied and zero weights, n={N_LINKAGE}, R={rows}, state in {layout} memory")
     print(f"single_linkage: kernel == plain and card == CPU (left, right, height, size) on random trees with "
-          f"tied and zero weights at n={N_LINKAGE}, R=1 and 15 (state in shared memory) and n={n_big}, R=15 "
-          f"(device memory)", flush=True)
+          f"tied and zero weights at n={N_LINKAGE}, R=1 and 15, the state in shared memory and (forced) in device "
+          f"memory; shared up to n={sl.SMEM_MAX_N}", flush=True)
 
 
 def check_fit_linkage(msts, what: str) -> None:
@@ -613,9 +685,8 @@ def check_fit_linkage(msts, what: str) -> None:
     and card == CPU, with the layout the fit's n takes."""
     sl = kernel_module("single_linkage")
     check_linkage(msts.mst_ea, msts.mst_eb, msts.mst_w, msts.n, what)
-    where = "shared" if msts.n <= sl.smem_max_n() else "device"
-    print(f"single_linkage on {what} (n={msts.n}, R={len(msts.mpts_values)}, state in {where} memory): "
-          f"kernel == plain and card == CPU", flush=True)
+    print(f"single_linkage on {what} (n={msts.n}, R={len(msts.mpts_values)}, state in "
+          f"{sl.layout_for(msts.n)} memory): kernel == plain and card == CPU", flush=True)
 
 
 def partitions_agree(a, b, tol: float = 0.98) -> bool:
@@ -719,12 +790,14 @@ def baseline_phase(x_np, est, smi: str, record: dict) -> None:
 def kernel_resources(record: dict) -> None:
     """Registers and spills of every kernel instance (nvcc -Xptxas -v) and
     the resident blocks per SM of each instance at its launch configuration
-    (``edge_cascade``: 256 threads a block)."""
+    (``edge_cascade``: 256 threads a block); for ``prim_mst`` the clusters a
+    card holds at once (``cudaOccupancyMaxActiveClusters``) at its plan."""
     import re
 
     from repro_torch.kernels import _build, fused_cascade as fc
 
-    lf, pt = kernel_module("lune_filter"), kernel_module("pairwise_topk")
+    lf, pm, pt = kernel_module("lune_filter"), kernel_module("prim_mst"), kernel_module("pairwise_topk")
+    card_c = pm.card_cluster("cuda")
 
     usage = []
     for log in _build.LOGS.values():
@@ -732,10 +805,14 @@ def kernel_resources(record: dict) -> None:
             m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|pairwise_topk_merge_kernel|"
                           r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
                           r"edge_cascade_kernel|edge_cascade_prologue|"
-                          r"prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?", u["function"])
+                          r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                          u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
+            where = {"0": "device", "1": "shared"}
+            lay = re.search(r"Lb([01])ELb([01])EE", u["function"])  # prim_mst: the points', then the state's
             smem = re.search(r"Lb([01])EE", u["function"])  # the state's layout (prim_mst, single_linkage)
-            u["state_in"] = ("shared" if smem.group(1) == "1" else "device") if smem else None
+            u["points_in"] = where[lay.group(1)] if lay else None
+            u["state_in"] = where[smem.group(1)] if smem else None
             sliced = "sliced" in u["kernel"] or "merge" in u["kernel"]  # the merge pass: the sliced instance's
             u["d"] = "sliced" if sliced else (int(m.group(2)) or "generic") if m and m.group(2) else None
             second = int(m.group(2 if sliced else 3)) if m and m.group(2 if sliced else 3) else None
@@ -753,6 +830,16 @@ def kernel_resources(record: dict) -> None:
         elif u["kernel"] == "edge_cascade_prologue":
             cfg = fc.kernel_config(d, 1, 256)
             u.update(blocks_per_sm=cfg["prologue_blocks_per_sm"], threads=cfg["prologue_threads"])
+        elif u["kernel"] == "prim_mst_kernel":
+            # the plan of the baseline's shape where the instance's residency fits it, else of n = N_PRIM
+            for n_at in (N, N_PRIM):
+                try:
+                    plan = pm.plan_for(n_at, d, card_c, points=u["points_in"], state=u["state_in"])
+                    break
+                except ValueError:
+                    continue
+            u.update(plan_n=n_at, cluster=plan.cluster, threads=plan.threads, smem=plan.smem,
+                     clusters_a_card=pm.max_active_clusters(plan, d, "cuda"))
     record["kernel_resources"] = usage
     for u in usage:
         print("  " + json.dumps({k: v for k, v in u.items() if k != "function" and v is not None}), flush=True)
@@ -1032,10 +1119,10 @@ def cpu_pool():
     return multiprocessing.get_context("spawn").Pool(1)
 
 
-def dualtree_phase(smi: str, record: dict) -> None:
+def dualtree_phase(smi: str, record: dict):
     """The dual-tree tier at n = N_DUALTREE on the card, with the default
     plan: against the port's own CPU fit (bit for bit) and against the
-    card's WSPD tier (the cross-tier oracle)."""
+    card's WSPD tier (the cross-tier oracle).  Returns the fit's MSTs."""
     import numpy as np
     import torch
     from repro_torch import engine
@@ -1089,7 +1176,7 @@ def dualtree_phase(smi: str, record: dict) -> None:
     print(f"dual-tree tier: card == CPU fit bit for bit (graph, kNN, MSTs, labels for mpts 2..{KMAX}; "
           f"CPU fit {cpu['fit_s']:.1f} s in a worker process on {CPU_FIT_THREADS} threads, beside the card fit)",
           flush=True)
-    check(N_DUALTREE > sl.smem_max_n(), "the dual-tree fit's linkage keeps its state in device memory")
+    check(sl.layout_for(N_DUALTREE) == "shared", "the dual-tree fit's linkage keeps its state in shared memory")
     check_fit_linkage(m, f"the n={N_DUALTREE} dual-tree fit's MSTs")
 
     pt.pairwise_topk.launches = fc.edge_cascade.launches = 0
@@ -1111,6 +1198,7 @@ def dualtree_phase(smi: str, record: dict) -> None:
           f"stage seconds at n={N_DUALTREE} on {smi} (one fit each, process warm; the dual-tree fit beside "
           f"the CPU fit's worker): dual-tree "
           f"{json.dumps(stages)}, wspd {json.dumps(stages_w)}", flush=True)
+    return m
 
 
 def serving_requests(n_rows: int):
@@ -1481,9 +1569,10 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     the card fits them at kmax = 24 through ``MultiHDBSCAN``, with the
     launch counters set to 0 just before it; the first N_DOCS_CPU rows
     fitted on the card equal the port's CPU fit bit for bit; the exact
-    variant of those rows on the card (the sliced ``lune_filter`` on a
-    fit's path) keeps a subset of their RNG* graph and its MST weights bit
-    for bit, and ``lune_filter`` is timed on its unresolved edges; MST
+    variant of the first N_DOCS_EXACT rows on the card (the sliced
+    ``lune_filter`` on a fit's path) keeps a subset of their RNG* graph and
+    its MST weights bit for bit, and ``lune_filter`` is timed on its
+    unresolved edges; MST
     weight multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
     curation report.  Returns the launches of the fit and the embeddings."""
     import numpy as np
@@ -1518,7 +1607,8 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
                     "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches}
         est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
         views_g = est_g.select_all()
-        exact_phase(x_c, est_g, smi, rec)
+        x_x = x[:N_DOCS_EXACT]
+        exact_phase(x_x, MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_x), smi, rec)
         cpu = job.get(timeout=CPU_FIT_TIMEOUT)
     rec["launches"], rec["graph"] = launches, est.graph_.stats
     rec["stages_s"] = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
@@ -1736,12 +1826,14 @@ def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, r
     ]
 
 
-def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) -> list:
+def new_kernel_times(x, est_16, est_64, msts_dualtree, launches: dict, smi: str, record: dict) -> list:
     """``prim_mst`` at the baseline's shape (n = 16000, d = 8, the mpts = 16
-    core distances) and ``single_linkage`` on the kmax = 16 and 64 fits'
-    sorted MSTs: each beside its plain version on the card and its bound;
-    and ``hierarchy_linkage`` (``linkage_range``) with the kernel beside
-    the plain version on the host.  Returns their ``kernels`` entries."""
+    core distances) with its plan and its step floor, and ``single_linkage``
+    on the kmax = 16 and 64 fits' sorted MSTs and on the n = 24000
+    dual-tree fit's: each beside its plain version on the card and its
+    bound; and ``hierarchy_linkage`` (``linkage_range``) at n = 16000 with
+    the kernel beside the plain version on the host.  Returns their
+    ``kernels`` entries."""
     import numpy as np
     import torch
     from repro_torch.core import multi
@@ -1749,8 +1841,10 @@ def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) 
     pm, sl = kernel_module("prim_mst"), kernel_module("single_linkage")
     n, d = x.shape
     cd2_16 = est_16.plan_.knn(x, KMAX - 1)[0][:, -1].contiguous()
+    plan = pm.launch_plan(n, d, x.device)
     got = {}
     p_ms = cuda_ms(lambda: got.__setitem__("kernel", pm.prim_mst(x, cd2_16)), 3)
+    floor_ms = cuda_ms(lambda: pm.step_floor(n - 1, plan, x.device), 3)
     p_plain = cuda_ms(lambda: got.__setitem__("plain", pm.prim_mst_plain(x, cd2_16)), 1, warm=False)
     (s_k, w_k), (s_p, w_p) = got["kernel"], got["plain"]
     n_src = int((s_k != s_p).sum())
@@ -1762,10 +1856,13 @@ def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) 
     # n (n - 1) / 2 rows of d subtractions, d squares, d adds and 3 maxima
     p_bound, p_by = bound(n * (n - 1) / 2 * (3 * d + 3), 4 * n * d + 4 * n + 8 * n)
     record["prim_mst"] = {"n": n, "d": d, "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound,
-                          "bound_by": p_by, "us_per_step": p_ms * 1e3 / (n - 1)}
-    print(f"prim_mst at n={n}, d={d} on {smi}: {p_ms:.3f} ms ({p_ms * 1e3 / (n - 1):.3f} us a step over "
-          f"{n - 1} dependent steps; bound {p_bound:.4f} ms by {p_by}; plain {p_plain:.1f} ms); kernel == plain "
-          f"(src equal, w2 bit-equal)", flush=True)
+                          "bound_by": p_by, "us_per_step": p_ms * 1e3 / (n - 1), "plan": plan_str(plan),
+                          "step_floor_ms": floor_ms, "step_floor_us": floor_ms * 1e3 / (n - 1),
+                          "clusters_a_card": pm.max_active_clusters(plan, d, x.device)}
+    print(f"prim_mst at n={n}, d={d} on {smi}: {p_ms:.3f} ms ({p_ms * 1e3 / (n - 1):.4f} us a step over "
+          f"{n - 1} dependent steps; plan {plan_str(plan)}, {record['prim_mst']['clusters_a_card']} such clusters "
+          f"a card; step floor {floor_ms:.3f} ms, {floor_ms * 1e3 / (n - 1):.4f} us a step; bound {p_bound:.4f} ms "
+          f"by {p_by}; plain {p_plain:.1f} ms); kernel == plain (src equal, w2 bit-equal)", flush=True)
     out = [{
         "name": "prim_mst", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/prim_mst.cu",
@@ -1775,38 +1872,47 @@ def new_kernel_times(x, est_16, est_64, launches: dict, smi: str, record: dict) 
     }]
 
     linkage_rec = {}
-    for est in (est_16, est_64):
-        msts = est.model_.msts
-        rows = len(msts.mpts_values)
+    # the plain version runs (and is timed) at R = 15, n = 16000 only: phases 4, 6 and 8 held the kernel
+    # to it on all three MST sets
+    for msts, main in ((est_16.model_.msts, True), (est_64.model_.msts, False), (msts_dualtree, False)):
+        rows, n_l = len(msts.mpts_values), msts.n
         w = torch.from_numpy(np.array(msts.mst_w)).to(x.device)
         _, order = torch.sort(w, dim=1, stable=True)
         ea_s, eb_s = (torch.from_numpy(np.array(a)).to(x.device).gather(1, order) for a in (msts.mst_ea, msts.mst_eb))
-        k_ms = cuda_ms(lambda: got.__setitem__("kernel", sl.single_linkage(ea_s, eb_s, n=n)), 5)
-        plain_ms = cuda_ms(lambda: got.__setitem__("plain", sl.single_linkage_plain(ea_s, eb_s, n=n)), 1,
-                           warm=False)
-        for name, a, b in zip(("left", "right", "size"), got["kernel"], got["plain"]):
-            check(torch.equal(a, b), f"single_linkage {name} at n={n}, R={rows}: kernel differs from plain")
-        l_err = max(float((a - b).abs().max()) for a, b in zip(got["kernel"], got["plain"]))
+        k_ms = cuda_ms(lambda: got.__setitem__("kernel", sl.single_linkage(ea_s, eb_s, n=n_l)), 5)
+        check(bool((got["kernel"][2][:, -1] == n_l).all()), f"single_linkage at n={n_l}, R={rows}: the last merge "
+              f"holds all {n_l} points")
+        plain_ms, l_err = None, 0.0
+        if main:
+            plain_ms = cuda_ms(lambda: got.__setitem__("plain", sl.single_linkage_plain(ea_s, eb_s, n=n_l)), 1,
+                               warm=False)
+            for name, a, b in zip(("left", "right", "size"), got["kernel"], got["plain"]):
+                check(torch.equal(a, b), f"single_linkage {name} at n={n_l}, R={rows}: kernel differs from plain")
+            l_err = max(float((a - b).abs().max()) for a, b in zip(got["kernel"], got["plain"]))
         # each merge reads its two endpoints and writes left, right and size
-        b_ms, b_by = bound(0.0, 20.0 * rows * (n - 1))
-        multi.linkage_range(msts, device=CARD)
-        t0 = time.monotonic()
-        lk_card = multi.linkage_range(msts, device=CARD)
-        card_s = time.monotonic() - t0
-        t0 = time.monotonic()
-        lk_host = multi.linkage_range(msts, device="cpu")
-        host_s = time.monotonic() - t0
-        for f in ("left", "right", "height", "size"):
-            check(np.array_equal(getattr(lk_card, f), getattr(lk_host, f)), f"hierarchy_linkage {f}: card == host")
-        linkage_rec[rows] = {"ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                             "ns_per_merge": k_ms * 1e6 / (n - 1), "max_abs_err": l_err,
-                             "hierarchy_linkage_card_s": card_s,
-                             "hierarchy_linkage_host_s": host_s}
-        print(f"single_linkage at n={n}, R={rows} on {smi}: {k_ms:.3f} ms ({k_ms * 1e6 / (n - 1):.1f} ns a merge "
-              f"over {n - 1} dependent merges; bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.1f} ms); "
-              f"hierarchy_linkage {card_s:.4f} s with the kernel, {host_s:.4f} s with the plain version on "
-              f"the host", flush=True)
-        if rows == KMAX - 1:
+        b_ms, b_by = bound(0.0, 20.0 * rows * (n_l - 1))
+        rec = linkage_rec[f"n={n_l},R={rows}"] = {
+            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "layout": sl.layout_for(n_l),
+            "ns_per_merge": k_ms * 1e6 / (n_l - 1), "max_abs_err": l_err}
+        host = ""
+        if n_l == n:
+            multi.linkage_range(msts, device=CARD)
+            t0 = time.monotonic()
+            lk_card = multi.linkage_range(msts, device=CARD)
+            card_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            lk_host = multi.linkage_range(msts, device="cpu")
+            host_s = time.monotonic() - t0
+            for f in ("left", "right", "height", "size"):
+                check(np.array_equal(getattr(lk_card, f), getattr(lk_host, f)), f"hierarchy_linkage {f}: card == host")
+            rec.update(hierarchy_linkage_card_s=card_s, hierarchy_linkage_host_s=host_s)
+            host = (f"; hierarchy_linkage {card_s:.4f} s with the kernel, {host_s:.4f} s with the plain version on "
+                    f"the host")
+        plain = f"plain {plain_ms:.1f} ms" if main else "plain not timed here"
+        print(f"single_linkage at n={n_l}, R={rows} on {smi}: {k_ms:.4f} ms ({k_ms * 1e6 / (n_l - 1):.1f} ns a merge "
+              f"over {n_l - 1} dependent merges, state in {rec['layout']} memory; bound {b_ms:.4f} ms by {b_by}; "
+              f"{plain}){host}", flush=True)
+        if main:
             out.append({
                 "name": "single_linkage", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/single_linkage.cu",
@@ -2098,7 +2204,7 @@ def main(argv: list[str]) -> int:
 
     phase("8. the dual-tree tier")
     # -- 8. the dual-tree tier -----------------------------------------------
-    dualtree_phase(smi, record)
+    msts_dualtree = dualtree_phase(smi, record)
 
     phase("9. serving")
     # -- 9. serving ------------------------------------------------------------
@@ -2195,7 +2301,7 @@ def main(argv: list[str]) -> int:
         "launches": launches_x["lune_filter"], "max_abs_err": lune_err,
         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
     })
-    kernels += new_kernel_times(x, est_w, est_wide, launches, smi, record)
+    kernels += new_kernel_times(x, est_w, est_wide, msts_dualtree, launches, smi, record)
     kernels += wide_rows
     record["kernels"] = kernels
 

@@ -1,0 +1,71 @@
+"""Build the port's chain kernels (``csrc/prim_mst.cu``, ``csrc/single_linkage.cu``)
+for the CPU with g++ and the emulation headers in ``include/``: every CUDA
+thread runs as a ``std::thread``, so the kernels' barriers, warp
+reductions and pushes between the blocks of a thread-block cluster run as
+they would on the card.  The C entry points keep their signatures, so a
+test calls them with ``ctypes`` on host buffers and holds their outputs to
+the plain PyTorch versions.
+
+    from tools import cuda_emulate
+    lib = ctypes.CDLL(str(cuda_emulate.build("prim_mst", out_dir)))
+
+It checks the kernels' logic (indices, plans, the cluster protocol, the
+union-find), not their speed, nor what only the card's compiler and memory
+model decide.  ``build`` rewrites the few constructs that have no C++
+counterpart (shared-memory declarations, ``<<<...>>>`` launches) and raises
+if a source no longer holds one it expects.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+INCLUDE = Path(__file__).resolve().parent / "include"
+
+# (pattern, replacement) pairs each source must match at least once
+REWRITES = {
+    "prim_mst": [
+        (r"extern __shared__ __align__\(16\) float smem\[\];", "float* smem = (float*)stub_dyn_smem();"),
+        (r"__shared__ unsigned long long s_warp\[MAX_THREADS / 32\];",
+         "STUB_SHARED(unsigned long long, s_warp, MAX_THREADS / 32);"),
+    ],
+    "single_linkage": [
+        (r"extern __shared__ __align__\(16\) int smem\[\];", "int* smem = (int*)stub_dyn_smem();"),
+        (r"(single_linkage_kernel<\w+>)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(", r"stub_run(\1, \2, \3, \4, 1, "),
+    ],
+}
+
+
+def compiler() -> str | None:
+    """The g++ on PATH, or None."""
+    return shutil.which("g++")
+
+
+def build(name: str, out_dir: Path) -> Path:
+    """Rewrite ``csrc/<name>.cu`` for the emulation, compile it into
+    ``out_dir/lib<name>.so`` and return that path."""
+    text = (CSRC / f"{name}.cu").read_text()
+    for pattern, repl in REWRITES[name]:
+        text, hits = re.subn(pattern, repl, text)
+        if not hits:
+            raise RuntimeError(f"{name}.cu no longer holds {pattern!r}; update tools/cuda_emulate")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # the source's own directory comes first for #include "...": the emulated
+    # dsmem.cuh there stands in for csrc's
+    for header in INCLUDE.iterdir():
+        shutil.copy(header, out_dir / header.name)
+    shutil.copy(CSRC / "xla_order.cuh", out_dir / "xla_order.cuh")
+    src = out_dir / f"{name}.cpp"
+    src.write_text(text)
+    lib = out_dir / f"lib{name}.so"
+    cmd = [compiler() or "g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
+           f"-I{out_dir}", "-include", "cuda_stub_core.h", "-x", "c++", str(src), "-o", str(lib)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}.cu:\n{proc.stderr}")
+    return lib

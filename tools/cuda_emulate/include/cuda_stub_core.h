@@ -1,0 +1,146 @@
+// cuda_stub_core.h — a CPU emulation of the CUDA features that the port's
+// chain kernels (prim_mst.cu, single_linkage.cu) use, for g++: every CUDA
+// thread of a launch is a std::thread, so barriers, warp reductions and
+// pushes between the blocks of a cluster run as they would on the card,
+// one ordering of them at a time.  Shared memory is a byte buffer a block
+// (static arrays by name, through STUB_SHARED); a cluster's blocks map each
+// other's dynamic shared memory by offset.  See tools/cuda_emulate/__init__.py.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <string>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+using std::max;
+using std::min;
+using std::signbit;
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() {}
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+#define CUDART_INF_F INFINITY
+// volatile keeps g++ from contracting them into an FMA (with -ffp-contract=off as well)
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
+
+struct StubBlock {
+  std::vector<char> dyn;                              // dynamic shared memory
+  std::map<std::string, std::vector<char>> stat;      // static shared arrays by name
+  std::mutex mu;
+  std::unique_ptr<std::barrier<>> bar;                // __syncthreads
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::vector<std::vector<unsigned>> warp_vals;       // redux.sync and ballot operands
+  std::vector<std::shared_ptr<void>> owned;           // objects that live as long as the launch
+};
+struct StubGrid {
+  std::vector<std::unique_ptr<StubBlock>> blocks;
+  std::vector<std::unique_ptr<std::barrier<>>> cluster_bar;
+  int cluster = 1;
+};
+inline thread_local StubGrid* stub_grid = nullptr;
+inline StubBlock& stub_block() { return *stub_grid->blocks[blockIdx.x]; }
+
+inline void __syncthreads() { stub_block().bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { stub_block().warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+// every lane of the warp takes part, as in the kernels
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  StubBlock& b = stub_block();
+  const int w = threadIdx.x / 32;
+  b.warp_vals[w][threadIdx.x % 32] = v;
+  b.warp_bar[w]->arrive_and_wait();
+  unsigned m = 0xffffffffu;
+  for (unsigned x : b.warp_vals[w]) m = std::min(m, x);
+  b.warp_bar[w]->arrive_and_wait();
+  return m;
+}
+
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  StubBlock& b = stub_block();
+  const int w = threadIdx.x / 32;
+  b.warp_vals[w][threadIdx.x % 32] = pred;
+  b.warp_bar[w]->arrive_and_wait();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (b.warp_vals[w][l] ? 1u : 0u) << l;
+  b.warp_bar[w]->arrive_and_wait();
+  return m;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+
+inline void* stub_dyn_smem() { return stub_block().dyn.data(); }
+inline void* stub_static_smem(const char* name, size_t bytes) {
+  StubBlock& b = stub_block();
+  std::lock_guard<std::mutex> g(b.mu);
+  auto& v = b.stat[name];
+  if (v.empty()) v.assign(bytes, 0);
+  return v.data();
+}
+#define STUB_SHARED(T, name, N) T* name = (T*)stub_static_smem(#name, sizeof(T) * (N))
+
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned num_blocks() const { return stub_grid->cluster; }
+  unsigned block_rank() const { return blockIdx.x % stub_grid->cluster; }
+  void sync() const { stub_grid->cluster_bar[blockIdx.x / stub_grid->cluster]->arrive_and_wait(); }
+  // p must lie in the caller's dynamic shared memory
+  template <typename T>
+  T* map_shared_rank(T* p, unsigned rank) const {
+    const size_t off = (char*)p - stub_block().dyn.data();
+    const unsigned target = blockIdx.x / stub_grid->cluster * stub_grid->cluster + rank;
+    return (T*)(stub_grid->blocks[target]->dyn.data() + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+// Run `kernel` on `grid` blocks of `block` threads (block a multiple of 32),
+// `smem` bytes of dynamic shared memory each, in clusters of `cluster`.
+template <typename K, typename... A>
+void stub_run(K kernel, unsigned grid, unsigned block, size_t smem, int cluster, A... args) {
+  StubGrid g;
+  g.cluster = cluster;
+  for (unsigned b = 0; b < grid; ++b) {
+    auto blk = std::make_unique<StubBlock>();
+    blk->dyn.assign(smem + 16, 0);
+    blk->bar = std::make_unique<std::barrier<>>(block);
+    for (unsigned w = 0; w < block / 32; ++w) {
+      blk->warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+      blk->warp_vals.emplace_back(32, 0u);
+    }
+    g.blocks.push_back(std::move(blk));
+  }
+  for (unsigned c = 0; c < grid / cluster; ++c)
+    g.cluster_bar.push_back(std::make_unique<std::barrier<>>(cluster * block));
+  std::vector<std::thread> ts;
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < block; ++t)
+      ts.emplace_back([&, b, t] {
+        stub_grid = &g;
+        blockIdx = dim3(b);
+        threadIdx = dim3(t);
+        blockDim = dim3(block);
+        gridDim = dim3(grid);
+        kernel(args...);
+      });
+  for (auto& t : ts) t.join();
+}
