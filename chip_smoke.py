@@ -115,8 +115,25 @@ Phases (any failure exits non-zero):
      equal a kmax = 16 fit's bit for bit; then ``pairwise_topk`` at the
      shapes of phases 13 and 14 and ``lune_filter`` at d = 1536, each
      beside its plain version (outputs bit-equal) and its bound; the two
-     sliced rows join the ``{"kernels": ...}`` line (phases 12-14 run
+     sliced rows join the ``{"kernels": ...}`` line (phases 12-15 run
      before 11);
+  15. LM training on a copy of phase 12's masters (the path launches none
+     of the hand-written kernels): (a) one AdamW step at full width and 2
+     layers in float32 (``microbatch`` 2, ``xent_chunk`` 10 of S = 24, a
+     zero mask entry), card against the port's CPU run (loss to relative
+     1e-5, ``grad_norm`` 1e-4, each tensor's gradient 1e-4 and its update
+     1e-3 in relative Frobenius distance, the update over the elements
+     whose two gradients agree to 1e-3); (b) 8 steps at full depth as
+     published (bfloat16 compute, float32 masters and AdamW states, remat,
+     xent chunks of 512) on ``train_batch`` of 4 x 1024 tokens at lr 3e-4,
+     warmup 2: finite losses, the last at least 0.1 below the first; warm
+     seconds a step, tokens/s, ``max_memory_allocated`` and (6 N +
+     attention) FLOPs as a share of the dense bf16 peak; (c) one step each
+     with bfloat16 and int8 states (finite, every tensor moves, state bytes
+     as reckoned from the reference's rules); (d) the reference's
+     preemption drill through ``python -m repro_torch.launch.train`` on the
+     card (reduced qwen2, deterministic algorithms): run A 10 steps, run B
+     preempted after 5 and resumed, final checkpoints bit-equal;
   11. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
@@ -125,8 +142,8 @@ Phases (any failure exits non-zero):
      floor, ``single_linkage`` at R = 15 and 63 and on the n = 24000
      dual-tree fit's MSTs), ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
-     busy share of a fit and of 8 LM decode steps (with the steps' device
-     time by kernel), and a host profile.
+     busy share of a fit, of 8 LM decode steps and of one full-depth train
+     step (with the LM runs' device time by kernel), and a host profile.
 
 Each phase's seconds are printed at the end.  The second-to-last line is
 ``{"kernels": [...]}``, the last
@@ -177,12 +194,19 @@ LM_PROFILED_STEPS = 8
 N_DOCS, N_DOCS_EXACT = 4000, 1500
 N_DOCS_CPU = 1000                 # the CPU comparison fit's rows: at 1500 its worker set phase 13's time
 KMAX_EMBED = 24
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 4, 24
+TRAIN_PARITY_CHUNK = 10           # does not divide TRAIN_PARITY_SEQ: chunks of 10, 10 and 4
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024   # the loss over two xent chunks of 512
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_DELTA_RTOL = 1e-5, 1e-4, 1e-4, 1e-3
+DRILL_ARGS = ("--reduced", "--steps", "10", "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "5")
 MPTS_DENSE = (2, 8, 16, 24)
 CPU_FIT_THREADS = 4               # the CPU fits' worker: half the card host's 8 cores
 CPU_FIT_TIMEOUT = 900
 RTOL = 1e-5
 CARD = "cuda"
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bfloat16 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
@@ -1324,13 +1348,15 @@ def busy_us(spans) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
-    """Device busy share of one warm fit, and of ``lm_decode`` (the
-    ``LM_PROFILED_STEPS`` LM decode steps) in the same profiler session (``torch.profiler``: the
-    union of the device activity intervals inside each one's
-    ``record_function`` window, over the host wall time; one session, since
-    a second one in a process may record no kernels), with the decode
-    steps' device time by kernel name; and the host functions with the most
+def where_the_time_goes(fit, record: dict, lm_decode=None, lm_train_step=None) -> None:
+    """Device busy share of one warm fit, of ``lm_decode`` (the
+    ``LM_PROFILED_STEPS`` LM decode steps) and of ``lm_train_step`` (one
+    full-depth train step of phase 15) in the same profiler session
+    (``torch.profiler``: the union of the device activity intervals inside
+    each one's ``record_function`` window, over the host wall time; one
+    session, since a second one in a process may record no kernels), with
+    the LM runs' device time by kernel name (the train step's also split
+    into GEMMs and the rest); and the host functions with the most
     cumulative time in another fit (``cProfile``)."""
     import cProfile
     import pstats
@@ -1340,7 +1366,7 @@ def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fns = {"fit": fit, "lm_decode": lm_decode}
+    fns = {"fit": fit, "lm_decode": lm_decode, "lm_train_step": lm_train_step}
     walls = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1365,7 +1391,8 @@ def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
         record[f"{key}profiled_fit_s" if name == "fit" else f"{key}profiled_s"] = wall_s
         record[f"{key}device_busy_s"] = busy_s if inside else None
         record[f"{key}device_activities"] = len(inside)
-        what = "fit" if name == "fit" else "run of LM decode steps (qwen2-1.5b, 8 rows, bfloat16)"
+        what = {"fit": "fit", "lm_decode": "run of LM decode steps (qwen2-1.5b, 8 rows, bfloat16)",
+                "lm_train_step": "full-depth train step (qwen2-1.5b, 4 x 1024 tokens, bfloat16)"}[name]
         if not inside:
             print(f"device busy share of the {what}: not measured (the profiler recorded no device activity)",
                   flush=True)
@@ -1380,6 +1407,16 @@ def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
             record["lm_decode_device_ms_by_kernel"] = dict(by_kernel.most_common(12))
             print(f"  {busy_s / LM_PROFILED_STEPS:.5f} s of device work a step; device ms by kernel in those steps: "
                   + json.dumps(record["lm_decode_device_ms_by_kernel"]), flush=True)
+        if name == "lm_train_step":
+            by_kernel, by_kind = Counter(), Counter()
+            for s, e, k in inside:
+                by_kernel[k] += (e - s) / 1e3
+                gemm = any(tag in k.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma"))
+                by_kind["gemm" if gemm else "other"] += (e - s) / 1e3
+            record["lm_train_step_device_ms_by_kind"] = dict(by_kind)
+            record["lm_train_step_device_ms_by_kernel"] = dict(by_kernel.most_common(12))
+            print(f"  device ms of the train step, GEMMs and the rest: {json.dumps(dict(by_kind))}; by kernel: "
+                  + json.dumps(record["lm_train_step_device_ms_by_kernel"]), flush=True)
 
     pr = cProfile.Profile()
     pr.enable()
@@ -1395,15 +1432,17 @@ def where_the_time_goes(fit, record: dict, lm_decode=None) -> None:
         f"{r['fn']} {r['cum_s']:.2f}" for r in record["host_profile"][:14]), flush=True)
 
 
-def truncated(params, cfg, n_layers: int, device):
+def truncated(params, cfg, n_layers: int, device, copy: bool = False):
     """The first ``n_layers`` of ``params`` as a model of its own on
-    ``device`` (the same tensors where ``device`` is theirs)."""
+    ``device``: the same tensors where ``device`` is theirs, unless
+    ``copy`` (a model to train in place, while phase 12's masters, whose
+    norms its serving engine shares, must not move)."""
     import dataclasses
 
     from repro_torch.models import transformer as tf
 
     cfg_t = dataclasses.replace(cfg, n_layers=n_layers)
-    state = {k: v.to(device) for k, v in params.state_dict().items()
+    state = {k: v.to(device, copy=copy) for k, v in params.state_dict().items()
              if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
     p = tf.skeleton(cfg_t)
     p.load_state_dict(state, assign=True)
@@ -1924,6 +1963,238 @@ def new_kernel_times(x, est_16, est_64, msts_dualtree, launches: dict, smi: str,
     return out
 
 
+def rel_fro(got, want) -> float:
+    """Relative Frobenius distance of two tensors, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def train_parity(cfg, params, rec: dict) -> None:
+    """Phase 15 (a): one AdamW step at full width, 2 layers, float32, on
+    the card and on the port's CPU, on the same batch (``microbatch`` 2,
+    a ragged ``xent_chunk``, one zero mask entry)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.train import optim, step as step_lib
+
+    cfg_a = dataclasses.replace(cfg, dtype="float32", microbatch=2, xent_chunk=TRAIN_PARITY_CHUNK)
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    rng = np.random.default_rng(SEED + 30)
+    shape = (TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ)
+    mask = np.ones(shape, np.float32)
+    mask[1, 5] = 0.0
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)),
+             "mask": torch.from_numpy(mask)}
+    half = TRAIN_PARITY_BATCH // 2
+    out = {}
+    for where in (CARD, "cpu"):
+        p2, cfg2 = truncated(params, cfg_a, TRAIN_PARITY_LAYERS, torch.device(where), copy=True)
+        b = {k: v.to(where) for k, v in batch.items()}
+        names, tensors = zip(*p2.named_parameters())
+        # the gradient the step accumulates: the mean of its two slices' losses
+        loss_fn = step_lib.make_loss_fn(cfg2)
+        mean = sum(loss_fn(p2, {k: v[s] for k, v in b.items()})[0] for s in (slice(0, half), slice(half, None))) / 2
+        grads = [g.cpu() for g in torch.autograd.grad(mean, tensors)]
+        before = [t.detach().cpu().clone() for t in tensors]
+        init, _ = optim.make_optimizer(ocfg, cfg2)
+        _, _, m = step_lib.make_train_step(cfg2, ocfg)(p2, init(p2), b)
+        out[where] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names,
+                      "grads": grads, "delta": [t.detach().cpu() - b0 for t, b0 in zip(tensors, before)]}
+        del p2, tensors, before
+    card, cpu = out[CARD], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
+    grad_rel = max(rel_fro(g, w) for g, w in zip(card["grads"], cpu["grads"]))
+    delta_rel, excluded, total = 0.0, 0, 0
+    for name, d_g, d_c, g_g, g in zip(cpu["names"], card["delta"], cpu["delta"], card["grads"], cpu["grads"]):
+        check(bool(torch.isfinite(d_g).all()), f"train parity: {name} finite after the card's step")
+        # Adam's first update g / (|g| + eps) is about sign(g): where a gradient
+        # element is a cancellation, the two summation orders' rounding can flip
+        # it; such elements (the two gradients apart by more than 1e-3 of it)
+        # are held by the gradients' distance instead
+        well = (g_g - g).abs() <= 1e-3 * g.abs()
+        excluded += int((~well).sum())
+        total += g.numel()
+        delta_rel = max(delta_rel, rel_fro(d_g[well], d_c[well]))
+    rec["parity"] = {"layers": TRAIN_PARITY_LAYERS, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+                     "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_rel_fro_max": grad_rel,
+                     "delta_rel_fro_max": delta_rel, "delta_excluded": excluded, "elements": total}
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train parity: loss card {card['loss']} vs CPU {cpu['loss']}")
+    check(norm_rel <= TRAIN_NORM_RTOL, f"train parity: grad_norm relative {norm_rel} > {TRAIN_NORM_RTOL}")
+    check(grad_rel <= TRAIN_GRAD_RTOL, f"train parity: gradients relative Frobenius {grad_rel} > {TRAIN_GRAD_RTOL}")
+    check(delta_rel <= TRAIN_DELTA_RTOL, f"train parity: updates relative Frobenius {delta_rel} > {TRAIN_DELTA_RTOL}")
+    check(excluded <= 1e-2 * total, f"train parity: {excluded} of {total} gradient elements apart by > 1e-3")
+    print(f"  (a) full width, {TRAIN_PARITY_LAYERS} layers, float32, microbatch 2, xent chunk {TRAIN_PARITY_CHUNK} "
+          f"of S={TRAIN_PARITY_SEQ}: card == CPU, loss to {loss_rel:.3g} relative (<= {TRAIN_LOSS_RTOL}), grad_norm "
+          f"{norm_rel:.3g} (<= {TRAIN_NORM_RTOL}), gradients {grad_rel:.3g} relative Frobenius (<= {TRAIN_GRAD_RTOL}), "
+          f"updates {delta_rel:.3g} (<= {TRAIN_DELTA_RTOL}; {excluded} of {total} elements, whose gradients differ by "
+          f"more than 1e-3 of themselves, held by the gradients' distance alone)", flush=True)
+
+
+def state_bytes(state: dict) -> int:
+    import torch
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        return sum(walk(v) for v in x.values()) if isinstance(x, dict) else 0
+
+    return walk({k: v for k, v in state.items() if k != "step"})
+
+
+def reckoned_state_bytes(cfg, state_dtype: str) -> int:
+    """m and v as the reference's rules size them: 4 or 2 bytes an element,
+    or int8 blocks of 32 with a float32 scale (bfloat16 where the
+    reference leaf's last axis is not a multiple of 32)."""
+    import math
+
+    from repro_torch.models import reference_leaves
+    from repro_torch.train import optim
+
+    total = 0
+    for leaf in reference_leaves(cfg).values():
+        n = math.prod(leaf.shape[1:] if leaf.layer is not None else leaf.shape)
+        if state_dtype == "int8" and optim.q8_compatible(leaf.shape):
+            total += n + n // 32 * 4
+        else:
+            total += n * (4 if state_dtype == "float32" else 2)
+    return 2 * total
+
+
+def resume_drill(rec: dict) -> None:
+    """Phase 15 (d): the reference's preemption drill on the card through
+    the launcher: run A takes 10 steps; run B is preempted after 5 (exit
+    42), then resumed; the final checkpoints are equal bit for bit."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    drill = ROOT / "build" / "train_drill"
+    shutil.rmtree(drill, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    common = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH, *DRILL_ARGS, "--device", CARD]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(common + ["--ckpt-dir", str(drill / name), *extra], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for name, extra in (("a", ()), ("b", ("--preempt-after", "5")))]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0, 42], f"resume drill: run A and the preempted run B exit {rcs}, not [0, 42]: "
+          f"{outs[0][1][-800:]} {outs[1][1][-800:]}")
+    check(ckpt_lib.latest_step(str(drill / "b")) == 5, "resume drill: run B left its step-5 checkpoint")
+    r = subprocess.run(common + ["--ckpt-dir", str(drill / "b")], env=env, capture_output=True, text=True,
+                       timeout=300)
+    check(r.returncode == 0 and "[resume] from step 5" in r.stdout, f"resume drill: run B resumed: {r.stderr[-800:]}")
+    sa, step_a = ckpt_lib.restore(str(drill / "a"))
+    sb, step_b = ckpt_lib.restore(str(drill / "b"))
+    fa, fb = ckpt_lib._flatten(sa), ckpt_lib._flatten(sb)
+    check(step_a == step_b == 10 and fa.keys() == fb.keys(), "resume drill: both runs end at step 10")
+    equal = all(fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+    check(equal, "resume drill: the resumed run's checkpoint equals the straight run's bit for bit")
+    rec["resume_drill"] = {"wall_s": time.monotonic() - t0, "tensors": len(fa)}
+    print(f"  (d) resume drill through `python -m repro_torch.launch.train --device {CARD}` (reduced {LM_ARCH}, "
+          f"deterministic algorithms): run A 10 steps, run B preempted after 5 (exit 42) and resumed; the step-10 "
+          f"checkpoints ({len(fa)} tensors, params and AdamW state) equal bit for bit; "
+          f"{rec['resume_drill']['wall_s']:.1f} s wall", flush=True)
+    shutil.rmtree(drill, ignore_errors=True)
+
+
+def training_phase(cfg, params, smi: str, record: dict):
+    """Phase 15: LM training at qwen2-1.5b's published width on a copy of
+    phase 12's masters.  (a) one step at 2 layers, card against CPU;
+    (b) 8 steps at full depth as published (bfloat16 compute, float32
+    masters and AdamW states, remat, xent chunks of 512), timed;
+    (c) one step each with bfloat16 and int8 states; (d) the resume
+    drill through the launcher.  Returns a function that runs one more
+    full-depth step with float32 states, for phase 11's profile."""
+    import dataclasses
+
+    import torch
+    from repro_torch.train import data as data_lib, optim, step as step_lib
+
+    dev = torch.device(CARD)
+    rec: dict = {}
+    check((cfg.dtype, cfg.remat, cfg.xent_chunk, cfg.microbatch, cfg.optimizer_state_dtype)
+          == ("bfloat16", True, 512, 1, "float32"), "qwen2-1.5b trains as published")
+    train_parity(cfg, params, rec)
+
+    # (b) full depth, the config as published
+    p, _ = truncated(params, cfg, cfg.n_layers, dev, copy=True)
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    init, _ = optim.make_optimizer(ocfg, cfg)
+    state = init(p)
+    n_state = state_bytes(state)
+    check(n_state == reckoned_state_bytes(cfg, "float32"), f"float32 AdamW states: {n_state} bytes")
+    train_step = step_lib.make_train_step(cfg, ocfg)
+    dcfg = data_lib.DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [{k: v.to(dev) for k, v in data_lib.train_batch(dcfg, i).items()} for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.monotonic()
+        _, _, m = train_step(p, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in p.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens + 12 * cfg.n_layers * cfg.n_heads * cfg.d_head * TRAIN_SEQ * tokens
+    warm_s = sum(step_s[1:]) / (len(step_s) - 1)
+    rec["full_depth"] = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "losses": losses,
+                         "step_s": step_s, "warm_s_per_step": warm_s, "tokens_per_s": tokens / warm_s,
+                         "max_memory_allocated": peak, "n_params": n_params, "flops_per_step": flops,
+                         "bf16_peak_share": flops / warm_s / PEAK_BF16_FLOPS, "state_bytes_float32": n_state}
+    check(all(torch.isfinite(torch.tensor(losses))), f"full-depth losses finite: {losses}")
+    check(losses[-1] <= losses[0] - 0.1, f"the loss descends by 0.1 over {TRAIN_STEPS} steps: {losses}")
+    print(f"  (b) full depth ({cfg.n_layers} layers, {n_params} parameters) as published, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens at lr {TRAIN_LR} (warmup {TRAIN_WARMUP}) on {smi}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; warm {warm_s:.4f} s a step (steps 2-{TRAIN_STEPS}; first "
+          f"{step_s[0]:.3f} s), {tokens / warm_s:.0f} tokens/s, max_memory_allocated {peak / 1e9:.2f} GB, "
+          f"(6 N + attention) FLOPs {flops:.4g} a step = {rec['full_depth']['bf16_peak_share']:.4f} of the dense "
+          f"bf16 peak; float32 states {n_state / 1e9:.2f} GB", flush=True)
+
+    # (c) one step each with bfloat16 and int8 states
+    rec["state_dtypes"] = {}
+    for state_dtype in ("bfloat16", "int8"):
+        oc = dataclasses.replace(ocfg, state_dtype=state_dtype)
+        init, _ = optim.make_optimizer(oc, cfg)
+        st = init(p)
+        nbytes = state_bytes(st)
+        check(nbytes == reckoned_state_bytes(cfg, state_dtype), f"{state_dtype} states: {nbytes} bytes")
+        heads = [t.detach().flatten()[:4096].clone() for t in p.parameters()]
+        _, _, m = step_lib.make_train_step(cfg, oc)(p, st, batches[-1])
+        torch.cuda.synchronize()
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        moved = all(not torch.equal(h, t.detach().flatten()[:4096]) for h, t in zip(heads, p.parameters()))
+        finite = all(bool(torch.isfinite(t).all()) for t in p.parameters())
+        rec["state_dtypes"][state_dtype] = {"state_bytes": nbytes, "loss": loss, "grad_norm": gnorm}
+        check(finite and torch.isfinite(torch.tensor([loss, gnorm])).all(), f"{state_dtype} states: finite step")
+        check(moved, f"{state_dtype} states: every parameter tensor moved")
+        print(f"  (c) {state_dtype} states ({nbytes / 1e9:.3f} GB, as reckoned; float32 {n_state / 1e9:.3f} GB): "
+              f"one full-depth step finite (loss {loss:.4f}, grad_norm {gnorm:.4f}), every tensor moved", flush=True)
+        del st, heads
+    torch.cuda.empty_cache()
+
+    resume_drill(rec)
+    record["training"] = rec
+
+    def one_step():
+        train_step(p, state, batches[-1])
+
+    return one_step
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2221,13 +2492,18 @@ def main(argv: list[str]) -> int:
     phase("13. embedding curation")
     # -- 13. embedding curation ------------------------------------------------
     launches_emb, x_emb = embedding_phase(lm_cfg, lm_params, smi, record)
-    del lm_params
-    torch.cuda.empty_cache()
 
     phase("14. the kmax = 128 fit, and the wide kernels' times")
     # -- 14. the kmax = 128 fit ------------------------------------------------
     launches_128 = kmax128_phase(smi, record)
     wide_rows = wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
+
+    phase("15. LM training")
+    # -- 15. LM training -------------------------------------------------------
+    print("phase 15: LM training (the training path launches none of the hand-written kernels)", flush=True)
+    lm_train_step = training_phase(lm_cfg, lm_params, smi, record)
+    del lm_params
+    torch.cuda.empty_cache()
 
     phase("11. timings")
     # -- 11. timings ---------------------------------------------------------
@@ -2249,7 +2525,9 @@ def main(argv: list[str]) -> int:
             torch.cuda.set_sync_debug_mode(0)
     record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
-    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record, lm_decode)
+    where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record, lm_decode, lm_train_step)
+    del lm_train_step
+    torch.cuda.empty_cache()
 
     kernels = []
     by_k = record["pairwise_topk_ms_by_k"] = topk_times(x)

@@ -8,16 +8,21 @@ The transformer module exposes the reference's surface:
   prefill(p, cfg, tokens, max_len, cache_dtype=...) -> (last_logits, cache)
   decode_step(p, cfg, cache, cur_tokens) -> (logits, cache)
 
-Only ``"transformer"`` is registered, for the dense configurations.  The
-SSM (mamba2), recurrent (griffin) and encoder-decoder families, and the
-MoE, MLA and frontend transformers, come with later items of
-``ROADMAP.md`` §1 (the LM stack).
+The parameters are float32 masters that require gradients: ``forward``
+runs under autograd, and ``train.step`` trains them.  Only
+``"transformer"`` is registered, for the dense configurations.  The MoE,
+MLA and frontend transformers and the SSM (mamba2), recurrent (griffin)
+and encoder-decoder families come with later items of ``ROADMAP.md`` §1
+(the LM stack).
 
+``reference_leaves`` maps each port tensor to the reference's leaf, and
 ``params_from_jax`` carries a reference parameter pytree (numpy arrays)
-across, so both packages compute the same function in the tests.
+across with it, so both packages compute the same function in the tests.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -50,37 +55,68 @@ def init_params(cfg, generator: torch.Generator, device: str | torch.device = "c
     return get_model(cfg).init(cfg, generator, dev)
 
 
-def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
-    """The port's parameters from the reference's pytree (numpy arrays).
+@dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """Where a port tensor lives in the reference's parameter pytree.
 
     The reference stacks the layers on a leading axis and keeps dense
-    weights as (in, out) for ``x @ W``; ``nn.Linear`` keeps (out, in), so
-    each layer's weight is transposed.  The ``padded_vocab`` rows of the
+    weights as (in, out) for ``x @ W``; ``nn.Linear`` keeps (out, in).
+    ``shape`` is the reference leaf's whole (stacked) shape, ``layer`` the
+    port tensor's index on its leading axis (None for an unstacked leaf),
+    and ``transposed`` says that the port tensor is the transpose of the
+    reference's slice, so the reference's last axis is the port's dim 0.
+    """
+
+    path: tuple[str, ...]
+    layer: int | None
+    transposed: bool
+    shape: tuple[int, ...]
+
+
+def _ref_path(local: str) -> tuple[str, ...]:
+    """A layer tensor's path in the reference: ``attn.wq.weight`` ->
+    (attn, wq), ``attn.wq.bias`` -> (attn, bq), ``ln1`` -> (ln1,)."""
+    parts = local.split(".")
+    if parts[-1] == "weight":
+        return tuple(parts[:-1])
+    if parts[-1] == "bias":
+        return (*parts[:-2], "b" + parts[-2][1:])
+    return tuple(parts)
+
+
+def reference_leaves(cfg) -> dict[str, RefLeaf]:
+    """The reference leaf of every parameter of ``get_model(cfg)``, in the
+    port's ``named_parameters`` order (read off the meta skeleton)."""
+    out = {}
+    for name, t in get_model(cfg).skeleton(cfg).named_parameters():
+        shape = tuple(t.shape)
+        transposed = name.endswith(".weight")
+        if transposed:
+            shape = shape[::-1]
+        if name.startswith("layers."):
+            _, i, local = name.split(".", 2)
+            out[name] = RefLeaf(("layers", *_ref_path(local)), int(i), transposed, (cfg.n_layers, *shape))
+        else:
+            out[name] = RefLeaf((name,), None, transposed, shape)
+    return out
+
+
+def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
+    """The port's parameters from the reference's pytree (numpy arrays):
+    each tensor is its ``reference_leaves`` slice, transposed back where
+    ``nn.Linear`` keeps (out, in).  The ``padded_vocab`` rows of the
     embeddings come across as they are.
     """
     dev = resolve_device(device)
-
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, np.float32)).to(dev)
-
-    state = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
-    if not cfg.tie_embeddings:
-        state["unembed"] = t(tree["unembed"])
-    lay = tree["layers"]
-    for i in range(cfg.n_layers):
-        pre = f"layers.{i}."
-        state[pre + "ln1"] = t(lay["ln1"][i])
-        state[pre + "ln2"] = t(lay["ln2"][i])
-        for name in ("wq", "wk", "wv", "wo"):
-            state[pre + f"attn.{name}.weight"] = t(np.asarray(lay["attn"][name][i]).T)
-        if cfg.qkv_bias:
-            for name in ("q", "k", "v"):
-                state[pre + f"attn.w{name}.bias"] = t(lay["attn"][f"b{name}"][i])
-        for name in ("wi", "wo"):
-            state[pre + f"mlp.{name}.weight"] = t(np.asarray(lay["mlp"][name][i]).T)
-        for name, bias in (("wi", "bi"), ("wo", "bo")):
-            if bias in lay["mlp"]:
-                state[pre + f"mlp.{name}.bias"] = t(lay["mlp"][bias][i])
+    state = {}
+    for name, leaf in reference_leaves(cfg).items():
+        a = tree
+        for key in leaf.path:
+            a = a[key]
+        a = np.asarray(a)
+        if leaf.layer is not None:
+            a = a[leaf.layer]
+        state[name] = torch.from_numpy(np.array(a.T if leaf.transposed else a, np.float32)).to(dev)
     p = get_model(cfg).skeleton(cfg)
     p.load_state_dict(state, assign=True, strict=True)
     return p

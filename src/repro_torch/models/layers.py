@@ -49,9 +49,9 @@ def dense_init(
 def linear(d_in: int, d_out: int, generator: torch.Generator, device: torch.device, *, bias: bool) -> nn.Linear:
     """An ``nn.Linear`` with ``dense_init`` weights and a zero bias."""
     lin = nn.Linear(d_in, d_out, bias=bias, device="meta")
-    lin.weight = nn.Parameter(dense_init((d_out, d_in), generator, device), requires_grad=False)
+    lin.weight = nn.Parameter(dense_init((d_out, d_in), generator, device))
     if bias:
-        lin.bias = nn.Parameter(torch.zeros(d_out, device=device), requires_grad=False)
+        lin.bias = nn.Parameter(torch.zeros(d_out, device=device))
     return lin
 
 
@@ -65,7 +65,7 @@ def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_init(d: int, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(d, device=device), requires_grad=False)
+    return nn.Parameter(torch.zeros(d, device=device))
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

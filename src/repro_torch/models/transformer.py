@@ -1,7 +1,8 @@
 """Decoder-only transformer, the port of ``repro/models/transformer.py`` for
 the dense configurations: no experts, no MLA, no frontend (qwen2-1.5b,
 qwen2.5-14b, gemma3-4b, starcoder2-3b).  The MoE, MLA and frontend
-branches raise ``NotImplementedError``; they come with a later item.
+branches raise ``NotImplementedError``; they come with a later item, as
+do the SSM, recurrent and encoder-decoder families.
 
 The reference scans one layer body over stacked parameters; here the
 layers are an ``nn.ModuleList`` walked in a Python loop, with the same
@@ -11,21 +12,29 @@ per-layer data:
     unbounded;
   * GQA: query head h reads kv head h // g (``layers.attention``).
 
+Training: the parameters are float32 masters that require gradients, and
+``forward`` runs under autograd (``train.step`` takes the gradient).  With
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` while a
+graph is being recorded, which recomputes its activations in the
+backward pass, as ``jax.checkpoint(body)`` does in the reference.  The
+reference's ``_residual_barrier`` only steers XLA's scheduling (it keeps
+the float32 upcast of the residual stream inside the backward loop) and
+has no counterpart: eager PyTorch hoists nothing.
+
 KV cache (decode): a dict of stacked tensors, (L, B, Smax, Hkv, Dh) for
 the global layers and (L, B, window, Hkv, Dh) ring buffers for the local
 ones (slot = pos % window, ``kpos_loc`` starts at -2^30), and ``pos`` as a
 Python int.  ``decode_step`` writes the new entries into the cache's
 tensors in place and returns the same dict, where the reference returns a
 new pytree: a cache is never read again after the step that advanced it.
-
-Serving runs under ``torch.inference_mode()``; parameters carry no
-gradients (no backward pass is ported yet).
+Serving runs under ``torch.inference_mode()``, which records no graph.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..engine.plan import resolve_device
 from . import layers as L
@@ -93,10 +102,10 @@ class Transformer(nn.Module):
         _check_dense(cfg)
         d = cfg.d_model
         self.embed = nn.Parameter(
-            L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02), requires_grad=False)
+            L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02))
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(
-                L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02), requires_grad=False)
+                L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02))
         self.final_norm = L.rmsnorm_init(d, device)
         self.layers = nn.ModuleList(Block(cfg, generator, device) for _ in range(cfg.n_layers))
 
@@ -156,18 +165,30 @@ def embed_inputs(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None) -
     return p.embed.to(_dtype(cfg.dtype))[tokens]
 
 
+def _block(pl: Block, x: torch.Tensor, cfg, positions: torch.Tensor, window: int, theta: float):
+    """One layer over a full sequence -> (x, k, v)."""
+    h = L.rmsnorm(x, pl.ln1)
+    q, k, v = _qkv(pl, h, cfg, positions, theta)
+    x = x + _attn_out(pl, q, k, v, cfg, positions, window, positions, None)
+    h2 = L.rmsnorm(x, pl.ln2)
+    return x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff), k, v
+
+
 def _layers(p: Transformer, cfg, x: torch.Tensor, collect_kv: bool):
     """The layer stack over a full sequence; with ``collect_kv`` also each
-    layer's (k, v)."""
+    layer's (k, v).  Under ``cfg.remat``, while autograd records, each
+    layer is checkpointed (its activations recomputed in the backward)."""
     s_len = x.shape[1]
     positions = torch.arange(s_len, dtype=torch.int32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
     kvs = []
     for pl, w, th in zip(p.layers, _layer_windows_py(cfg), _layer_thetas(cfg)):
-        h = L.rmsnorm(x, pl.ln1)
-        q, k, v = _qkv(pl, h, cfg, positions, th)
-        x = x + _attn_out(pl, q, k, v, cfg, positions, w, positions, None)
-        h2 = L.rmsnorm(x, pl.ln2)
-        x = x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff)
+        if remat:
+            # the layer goes in as an argument, not a closure over the loop
+            # variable: the recomputation runs after the loop has moved on
+            x, k, v = checkpoint(_block, pl, x, cfg, positions, w, th, use_reentrant=False)
+        else:
+            x, k, v = _block(pl, x, cfg, positions, w, th)
         if collect_kv:
             kvs.append((k, v))
     return L.rmsnorm(x, p.final_norm), kvs

@@ -1,8 +1,7 @@
-"""Training layer of the port, as in ``repro.train``: so far the data
-pipeline (``data``), which the embedding path reads.  The train step, the
-optimizer, checkpoints and metrics come with a later item of
-``ROADMAP.md`` §1."""
+"""Training layer of the port, as in ``repro.train``: the data pipeline
+(``data``), the optimizers (``optim``), the train step (``step``),
+checkpoints (``checkpoint``) and metrics (``metrics``)."""
 
-from . import data
+from . import checkpoint, data, metrics, optim, step
 
-__all__ = ["data"]
+__all__ = ["checkpoint", "data", "metrics", "optim", "step"]
