@@ -40,7 +40,10 @@ Phases (any failure exits non-zero):
      and key splits, under both plans) and at K = 135 and 256 at d = 8
      (with exact ties), ``lune_filter`` at d = 320, 777, 1100 and 1536,
      ``edge_cascade`` at d = 1536 (windows of windows) and at
-     k_check = 127;
+     k_check = 127; ``sbcn_tile`` (the SBCN tiles' products and norms in
+     the reference's order above d = 256) bit for bit at d = 320, 1100 and
+     1536 on every fused-path tier, the row path's panel tiles and the slot
+     path's 2-lane tiers, ids padded;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it (``select_all``
      runs its linkage through ``single_linkage`` once, checked on the fit's
@@ -66,7 +69,7 @@ Phases (any failure exits non-zero):
      attachment neighbours equal, probabilities and lambdas to rtol 1e-5,
      equal DBCV profiles), with the rate in queries per second;
   8. the dual-tree tier: ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` at
-     n = 24000 (at or above ``Plan.dualtree_min_n``, so the default plan
+     n = 20000 (``Plan.dualtree_min_n``, so the default plan
      takes the tier), with the ledger's tags exactly ``knn``, ``graph``,
      ``mst``; held bit for bit against the port's own ``device="cpu"`` fit
      (graph edges, d2, w2, MST edge ids, MST weights, labels) and against a
@@ -86,7 +89,7 @@ Phases (any failure exits non-zero):
      on phase 4's points with the counters set to 0 just before it: one
      ``prim_mst`` launch per mpts, one ``pairwise_topk``, one
      ``single_linkage``; MST weight multisets equal the RNG* fit's to rtol
-     1e-5 and partitions agree for every mpts; at n = 4000 the card's
+     1e-5 and partitions agree for every mpts; at n = 2000 the card's
      baseline equals its ``device="cpu"`` run bit for bit; warm stage
      seconds and the ratio of the baseline to ``fit + select_all``;
   12. LM serving: qwen2-1.5b at its published width and depth with random
@@ -98,12 +101,14 @@ Phases (any failure exits non-zero):
      temperature 0.8) with the reference's serving regressions (a greedy
      row alone and behind a hot one under two seeds, EOS masking, the
      stats); tokens/s, prefill seconds and seconds a decode step;
-  13. embedding curation: the phase-12 model embeds 4000 documents (mean
+  13. embedding curation: the phase-12 model embeds 2500 documents (mean
      of the final hidden states over 48 tokens, d = 1536, 40 injected
      near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
      card with the counters set to 0 just before it (``pairwise_topk``,
-     ``edge_cascade`` and ``single_linkage`` must launch); the first 1000
-     rows' card fit equals their CPU fit bit for bit; the exact variant of
+     ``edge_cascade`` and ``single_linkage`` must launch); the first 700
+     rows' card fit equals their CPU fit bit for bit (graph counts, the
+     SBCN candidates included, since the tiles' products follow the
+     reference's order through ``sbcn_tile``, which must launch); the exact variant of
      the first 1500 rows on the card launches the sliced ``lune_filter``,
      keeps a subset of their RNG* graph and its MST weight multisets bit
      for bit,
@@ -113,9 +118,10 @@ Phases (any failure exits non-zero):
   14. ``MultiHDBSCAN(kmax=128)`` at n = 4000, d = 8 (K = 135) with the
      counters set to 0 just before it: mpts 2..16 MST weight multisets
      equal a kmax = 16 fit's bit for bit; then ``pairwise_topk`` at the
-     shapes of phases 13 and 14 and ``lune_filter`` at d = 1536, each
+     shapes of phases 13 and 14 (and at n = 4000, d = 1536 on phase 3's
+     points, the earlier runs' shape) and ``lune_filter`` at d = 1536, each
      beside its plain version (outputs bit-equal) and its bound; the two
-     sliced rows join the ``{"kernels": ...}`` line (phases 12-15 run
+     sliced rows join the ``{"kernels": ...}`` line (phases 12-16 run
      before 11);
   15. LM training on a copy of phase 12's masters (the path launches none
      of the hand-written kernels): (a) one AdamW step at full width and 2
@@ -134,13 +140,29 @@ Phases (any failure exits non-zero):
      preemption drill through ``python -m repro_torch.launch.train`` on the
      card (reduced qwen2, deterministic algorithms): run A 10 steps, run B
      preempted after 5 and resumed, final checkpoints bit-equal;
+  16. MoE, MLA and the patch frontend (after 15, once phase 12's masters
+     are freed): deepseek-v2-lite at its published width and depth
+     (1.621e10 parameters; the cut: bfloat16 masters, 32.4 GB, where the
+     config has float32): float32 logits at 2 layers card vs CPU (max abs
+     1e-3), prefill of 8 prompts + 5 decode steps at 2 layers card vs CPU
+     (an MoE decode does not reproduce the forward, each call's expert
+     capacity being its own), ``Engine`` in bfloat16 at full depth on 8
+     requests (tokens/s, prefill, s a decode step, peak memory), one step
+     at 1 layer in float32 card vs CPU (loss, aux, grad_norm, gradients,
+     updates) and 4 steps at 4 layers in bfloat16 (bfloat16 AdamW states);
+     llava-next-34b at its
+     published width and 8 layers (bfloat16 masters): forward and prefill
+     over 576 patches + 24 text tokens, card vs CPU in float32 at 1 layer
+     and in bfloat16 on the card;
   11. warm per-stage seconds, each kernel's time beside its plain version,
      a library yardstick and its bound (``pairwise_topk`` at K = 1 and each K,
      ``lune_filter`` over its edges per block and its point tile,
      ``edge_cascade`` per stage at kmax = 16 and 64 and over its lanes per
      edge, ``prim_mst`` at the baseline's shape with its plan and step
-     floor, ``single_linkage`` at R = 15 and 63 and on the n = 24000
-     dual-tree fit's MSTs), ``hierarchy_linkage`` with the kernel beside the plain version
+     floor, ``single_linkage`` at R = 15 and 63 and on the n = 20000
+     dual-tree fit's MSTs, ``sbcn_tile`` on the embedding fit's largest
+     panel and tier calls and the SBCN norms on its points),
+     ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
      busy share of a fit, of 8 LM decode steps and of one full-depth train
      step (with the LM runs' device time by kernel), and a host profile.
@@ -175,11 +197,11 @@ N_RAGGED = 1007
 N_DENSE = 2000
 N_EXACT_CPU = 3000
 N_QUERIES = 4096
-N_DUALTREE = 24000                # at or above Plan.dualtree_min_n
+N_DUALTREE = 20000                # at Plan.dualtree_min_n (24000 until the run outgrew its limit)
 N_CLIENTS = 8
 PRIM_WIDTHS = (2, 8, 16, 32, 64, 100, 320)  # 320 streams its points at n = 4000
 N_PRIM = 4000
-N_BASELINE_CPU = 4000
+N_BASELINE_CPU = 2000            # the baseline's CPU comparison (4000 until the run outgrew its limit)
 N_LINKAGE = 5000
 WIDE_WIDTHS = (320, 1536)       # the sliced instances; 1536 is qwen2-1.5b's d_model
 RAGGED_WIDE = (777, 1100)        # a ragged d (d % 4 != 0); two 512-deep panels and windows of windows
@@ -191,8 +213,8 @@ LM_ARCH = "qwen2_1_5b"
 LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_LEN = 8, 24, 48
 LM_PROFILED_STEPS = 8
-N_DOCS, N_DOCS_EXACT = 4000, 1500
-N_DOCS_CPU = 1000                 # the CPU comparison fit's rows: at 1500 its worker set phase 13's time
+N_DOCS, N_DOCS_EXACT = 2500, 1500  # 4000 documents until the run outgrew its limit with phase 16 on a slow host
+N_DOCS_CPU = 700                  # the CPU comparison fit's rows: its worker must not set phase 13's time
 KMAX_EMBED = 24
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 4, 24
 TRAIN_PARITY_CHUNK = 10           # does not divide TRAIN_PARITY_SEQ: chunks of 10, 10 and 4
@@ -201,6 +223,15 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_DELTA_RTOL = 1e-5, 1e-4, 1e-4, 1e-3
 DRILL_ARGS = ("--reduced", "--steps", "10", "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "5")
 MPTS_DENSE = (2, 8, 16, 24)
+SBCN_WIDTHS = (320, 1100, 1536)   # above 256 the SBCN tiles take the reference's order (sbcn_tile); 1100: 8-lane tails
+SBCN_TIERS = ((1, 2), (1, 4), (1, 8), (2, 2), (2, 4), (2, 8), (4, 4), (4, 8))  # every fused-path tier
+SBCN_PANELS = ((32, 64), (256, 512), (2, 32), (32, 32))  # row-path tiles, and slot-path tiers of 1024-deep slices
+SBCN_TIMED_CELLS = 1 << 19        # cells of a fit call timed, its first pairs (the plain version gathers cells x d floats twice)
+MOE_ARCH, VLM_ARCH = "deepseek_v2_lite_16b", "llava_next_34b"
+MOE_PARITY_LAYERS, MOE_PROMPTS, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 2, 8, 12, 5
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 8, 256  # microbatch 4 as published
+MOE_TRAIN_STATES = "bfloat16"     # AdamW states: float32 ones (22 GB at 4 layers) left too little beside phase 11's
+VLM_LAYERS, VLM_PATCHES, VLM_TEXT = 8, 576, 24
 CPU_FIT_THREADS = 4               # the CPU fits' worker: half the card host's 8 cores
 CPU_FIT_TIMEOUT = 900
 RTOL = 1e-5
@@ -463,6 +494,98 @@ def check_topk_cases(dev, x) -> dict:
           f"n={N} and n={N_RAGGED}, K={list(K_LISTS)}; and with exact ties (n=320) and K = n - 1 "
           f"(n=20, d=3; n=40, d=1)", flush=True)
     return errs
+
+
+def check_sbcn_tile_cases(dev) -> float:
+    """``sbcn_tile`` against its plain version on the card at d = 320, 1100
+    and 1536: every tier of the fused path (512 pairs each), the row path's
+    panel tiles ((32, 64) and (256, 512)) and the slot path's 2-lane tiers
+    ((2, 32) and (32, 32)), 4 pairs each, with a tenth of the ids padded
+    (-1), and the points' norms (``pairwise_topk``'s pre-pass): bit-equal.
+    Returns the max abs error (0)."""
+    import numpy as np
+    import torch
+
+    st = kernel_module("sbcn_tile")
+    err = 0.0
+    for d in SBCN_WIDTHS:
+        n = 2000
+        x = torch.from_numpy(make_points(n, d, SEED + 50 + d)).to(dev)
+        check(torch.equal(st.point_norms(x), st.point_norms_plain(x)), f"sbcn_tile norms == plain at d={d}")
+        rng = np.random.default_rng(SEED + d)
+        for a_w, b_w in SBCN_TIERS + SBCN_PANELS:
+            p = 512 if (a_w, b_w) in SBCN_TIERS else 4
+            ids = []
+            for w in (a_w, b_w):
+                v = rng.integers(0, n, (p, w))
+                v[rng.random(v.shape) < 0.1] = -1
+                ids.append(torch.from_numpy(v.astype(np.int32)).to(dev))
+            got, want = st.tile_dots(x, *ids), st.tile_dots_plain(x, *ids)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"sbcn_tile ({a_w}, {b_w}) tiles at d={d} == plain bit for bit (order {st.dot_order(a_w, b_w)})")
+            err = max(err, float((got - want).abs().max()))
+    print(f"sbcn_tile: kernel == plain bit for bit at d={list(SBCN_WIDTHS)} on tiers {list(SBCN_TIERS)} and sliced "
+          f"tiles {list(SBCN_PANELS)} (padded ids), norms too", flush=True)
+    return err
+
+
+def sbcn_tile_rows(x, calls: dict, launches: dict, smi: str, record: dict) -> list:
+    """``sbcn_tile`` on the embedding fit's own largest call of each kind
+    of order it made (``tile_dots.largest``; its first pairs, up to
+    SBCN_TIMED_CELLS cells), beside its plain version, a library yardstick
+    (gather, then ``torch.bmm``: the same products in cuBLAS's order) and
+    its bound (2 d operations a real cell; each referenced row, the ids and
+    the products moved once); and the points' norms (``pairwise_topk``'s
+    pre-pass, ``point_norms``) on the fit's points beside their plain
+    version, ``torch.einsum`` and their bound.  Returns a row of the
+    ``{"kernels": ...}`` line for each."""
+    import torch
+
+    st = kernel_module("sbcn_tile")
+    check(bool(calls), "the embedding fit called sbcn_tile")
+    rows, out = {}, []
+    for kind in ("panel", "lanes"):
+        if kind not in calls:
+            continue
+        a, b = calls[kind]
+        keep = max(1, SBCN_TIMED_CELLS // (a.shape[1] * b.shape[1]))
+        a, b = a[:keep], b[:keep]
+        cells = a.numel() * b.shape[1]
+        d = x.shape[1]
+        got, want = st.tile_dots(x, a, b), st.tile_dots_plain(x, a, b)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)), f"sbcn_tile == plain on the fit's {kind} call")
+        ms = cuda_ms(lambda: st.tile_dots(x, a, b), 5)
+        plain_ms = cuda_ms(lambda: st.tile_dots_plain(x, a, b), 1, warm=False)
+        library_ms = cuda_ms(lambda: torch.bmm(x[a.clamp_min(0).long()], x[b.clamp_min(0).long()].transpose(1, 2)), 5)
+        real = int(((a >= 0)[:, :, None] & (b >= 0)[:, None, :]).sum())
+        rows_read = int(torch.unique(torch.cat([a[a >= 0], b[b >= 0]])).numel())
+        b_ms, b_by = bound(2.0 * d * real, 4.0 * (rows_read * d + a.numel() + b.numel() + cells))
+        rows[kind] = {"shape": [int(a.shape[0]), int(a.shape[1]), int(b.shape[1])], "d": d, "real_cells": real,
+                      "fit_call_pairs": int(calls[kind][0].shape[0]),
+                      "order": list(st.dot_order(int(a.shape[1]), int(b.shape[1]))), "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+        out.append({"name": "sbcn_tile" if kind == "panel" else "sbcn_tile_tiers", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/sbcn_tile.cu", "replaces": "src/repro/core/sbcn.py:53",
+                    "launches": launches["sbcn_tile"], "max_abs_err": float((got - want).abs().max()), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+        print(f"sbcn_tile on the embedding fit's largest {kind} call, {smi}: " + json.dumps(rows[kind]), flush=True)
+    n, d = x.shape
+    got, want = st.point_norms(x), st.point_norms_plain(x)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "point_norms == plain on the fit's points")
+    ms = cuda_ms(lambda: st.point_norms(x), 5)
+    plain_ms = cuda_ms(lambda: st.point_norms_plain(x), 1, warm=False)
+    library_ms = cuda_ms(lambda: torch.einsum("ij,ij->i", x, x), 5)
+    b_ms, b_by = bound(2.0 * n * d, 4.0 * (n * d + n))
+    rows["norms"] = {"n": n, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    out.append({"name": "sbcn_norms", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+                "replaces": "src/repro/core/sbcn.py:48", "launches": launches["sbcn_norms"],
+                "max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": library_ms})
+    print(f"point_norms (the SBCN norms) on the embedding fit's points, {smi}: " + json.dumps(rows["norms"]),
+          flush=True)
+    record["sbcn_tile"] = rows
+    return out
 
 
 def check_wide_cases(dev) -> dict:
@@ -829,7 +952,8 @@ def kernel_resources(record: dict) -> None:
             m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|pairwise_topk_merge_kernel|"
                           r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
                           r"edge_cascade_kernel|edge_cascade_prologue|"
-                          r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                          r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel|"
+                          r"sbcn_dot_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
                           u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
             where = {"0": "device", "1": "shared"}
@@ -839,6 +963,11 @@ def kernel_resources(record: dict) -> None:
             u["state_in"] = where[smem.group(1)] if smem else None
             sliced = "sliced" in u["kernel"] or "merge" in u["kernel"]  # the merge pass: the sliced instance's
             u["d"] = "sliced" if sliced else (int(m.group(2)) or "generic") if m and m.group(2) else None
+            if u["kernel"].startswith("sbcn_"):  # its template arguments: the lanes and whether they halve
+                u["sbcn_lanes"], u["d"] = u["d"], None
+                u["sbcn_halve"], u["state_in"] = u["state_in"] == "shared" if u["sbcn_lanes"] else None, None
+                usage.append(u)
+                continue
             second = int(m.group(2 if sliced else 3)) if m and m.group(2 if sliced else 3) else None
             u["lanes" if u["kernel"] == "edge_cascade_kernel" else "slots"] = second
             usage.append(u)
@@ -1207,7 +1336,7 @@ def dualtree_phase(smi: str, record: dict):
     est_w, views_w, stages_w, _ = fit(plan=engine.resolve_plan(device="cuda", candidate_method="wspd"))
     launches_w = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches}
     mw = est_w.model_.msts
-    check(est_w.graph_.stats.get("path") == "fused", "the wspd fit at n=24000 takes the fused path")
+    check(est_w.graph_.stats.get("path") == "fused", f"the wspd fit at n={N_DUALTREE} takes the fused path")
     check(launches_w["pairwise_topk"] >= 1 and launches_w["edge_cascade"] >= 2, "the wspd fit launched its kernels")
     check(np.array_equal(m.knn_d2, mw.knn_d2) and np.array_equal(m.knn_idx, mw.knn_idx),
           "both tiers' kNN bit-equal")
@@ -1613,7 +1742,8 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     its MST weights bit for bit, and ``lune_filter`` is timed on its
     unresolved edges; MST
     weight multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
-    curation report.  Returns the launches of the fit and the embeddings."""
+    curation report.  Returns the launches of the fit, the embeddings and
+    the fit's largest ``sbcn_tile`` calls (``tile_dots.largest``)."""
     import numpy as np
     import torch
     from repro_torch.api import MultiHDBSCAN
@@ -1621,7 +1751,7 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     from repro_torch.kernels import fused_cascade as fc
     from repro_torch.models import transformer as tf
 
-    lf, pt, sl = (kernel_module(k) for k in ("lune_filter", "pairwise_topk", "single_linkage"))
+    lf, pt, sl, st = (kernel_module(k) for k in ("lune_filter", "pairwise_topk", "single_linkage", "sbcn_tile"))
     t0 = time.monotonic()
     p_c = tf.cast_for_compute(params, cfg)
     x = embed_docs(cfg, p_c, N_DOCS)
@@ -1636,14 +1766,17 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     with cpu_pool() as pool:
         job = start_cpu_fit(pool, x_c, KMAX_EMBED)
         pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
-        sl.single_linkage.launches = 0
+        sl.single_linkage.launches = st.tile_dots.launches = st.point_norms.launches = 0
+        st.tile_dots.largest.clear()
         t0 = time.monotonic()
         est = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x)
         views = est.select_all()
         torch.cuda.synchronize()
         rec["fit_s"] = time.monotonic() - t0
         launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
-                    "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches}
+                    "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches,
+                    "sbcn_tile": st.tile_dots.launches, "sbcn_norms": st.point_norms.launches}
+        calls = dict(st.tile_dots.largest)
         est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
         views_g = est_g.select_all()
         x_x = x[:N_DOCS_EXACT]
@@ -1655,6 +1788,8 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     check(launches["pairwise_topk"] >= 1, "the embedding fit launched pairwise_topk (d=1536, K=31)")
     check(launches["edge_cascade"] >= 2, "the embedding fit launched edge_cascade for both stages")
     check(launches["single_linkage"] == 1, "the embedding fit's select_all launched single_linkage once")
+    check(launches["sbcn_tile"] >= 1, "the embedding fit's SBCN tiles (d=1536 > 256) launched sbcn_tile")
+    check(launches["sbcn_norms"] >= 1, "the embedding fit's SBCN norms (d=1536 > 256) launched the norms pre-pass")
     check(est.plan_.backend == "cuda", "the embedding fit ran on the cuda backend")
     check(len(views) == KMAX_EMBED - 1 and all(v.labels.shape == (N_DOCS,) for v in views), "labels per mpts")
     print(f"  fit + select_all at n={N_DOCS}, d={x.shape[1]}, kmax={KMAX_EMBED} on the card in "
@@ -1662,6 +1797,9 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
           f"graph {est.graph_.stats}", flush=True)
 
     rec["cpu_fit_s"] = cpu["total_s"]
+    check(est_g.graph_.stats == cpu["stats"],
+          f"embedding fit: graph counts (SBCN candidates included) equal the CPU run: {est_g.graph_.stats} "
+          f"vs {cpu['stats']}")
     check(np.array_equal(est_g.graph_.edges, cpu["edges"]), "embedding fit: graph edges equal the CPU run")
     m_g = est_g.model_.msts
     check(np.array_equal(m_g.mst_ea, cpu["mst_ea"]) and np.array_equal(m_g.mst_eb, cpu["mst_eb"]),
@@ -1669,7 +1807,7 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     check(np.array_equal(m_g.mst_w, cpu["mst_w"]), "embedding fit: MST weights equal the CPU run bit for bit")
     for v_g, lab_c in zip(views_g, cpu["labels"]):
         check(np.array_equal(v_g.labels, lab_c), f"embedding fit: labels equal the CPU run at mpts={v_g.mpts}")
-    print(f"  the first {N_DOCS_CPU} embeddings: card fit == device='cpu' fit (edges, MST ids, MST weights, labels "
+    print(f"  the first {N_DOCS_CPU} embeddings: card fit == device='cpu' fit (graph counts, edges, MST ids, MST weights, labels "
           f"for every mpts; CPU fit {rec['cpu_fit_s']:.1f} s in a worker process on {CPU_FIT_THREADS} threads, "
           f"beside the card fits)", flush=True)
 
@@ -1709,7 +1847,7 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
           f"{len(flagged & injected)} of the 40 injected among them (a reading); keep {int(keep.sum())}/{N_DOCS}",
           flush=True)
     record["embedding"] = rec
-    return launches, x
+    return launches, x, calls
 
 
 def exact_phase(x, est_star, smi: str, rec: dict) -> None:
@@ -1805,20 +1943,25 @@ def kmax128_phase(smi: str, record: dict) -> dict:
 
 
 def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> list:
-    """``pairwise_topk`` at the embedding fit's shape (n = 4000, d = 1536,
-    K = 31; its mirrored plan and, as ``split_ms``, the keys split) and the
-    kmax = 128 fit's (n = 4000, d = 8, K = 135), and
-    ``lune_filter`` at d = 1536, each beside its plain version (outputs
+    """``pairwise_topk`` at the embedding fit's shape (n = N_DOCS, d = 1536,
+    K = 31), again at n = N_WIDE on phase 3's synthetic points at that
+    width (the shape of the earlier runs, whose embedding fit had 4000
+    documents), each under its mirrored plan and, as ``split_ms``, the
+    keys split, and at the kmax = 128 fit's (n = 4000, d = 8, K = 135),
+    and ``lune_filter`` at d = 1536, each beside its plain version (outputs
     bit-equal), the library yardstick where there is one, and its bound.
-    Returns the sliced instances' rows of the ``{"kernels": ...}`` line."""
+    Returns the sliced instances' rows of the ``{"kernels": ...}`` line
+    (``pairwise_topk`` at the fit's shape)."""
     import torch
 
     lf, pt = kernel_module("lune_filter"), kernel_module("pairwise_topk")
     dev = torch.device(CARD)
     rows = {}
     x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 30)).to(dev)
+    x_syn = torch.from_numpy(make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1])).to(dev)
     for name, x, k_eff, launches in (("pairwise_topk_d1536_k31", torch.from_numpy(x_emb).to(dev), K_EMBED,
                                       launches_emb["pairwise_topk"]),
+                                     ("pairwise_topk_d1536_k31_n4000", x_syn, K_EMBED, None),
                                      ("pairwise_topk_d8_k135", x8, K_WIDE[0], launches_128["pairwise_topk"])):
         n, d = x.shape
         ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
@@ -1969,10 +2112,12 @@ def rel_fro(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def train_parity(cfg, params, rec: dict) -> None:
-    """Phase 15 (a): one AdamW step at full width, 2 layers, float32, on
-    the card and on the port's CPU, on the same batch (``microbatch`` 2,
-    a ragged ``xent_chunk``, one zero mask entry)."""
+def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, label: str = "(a)") -> None:
+    """Phase 15 (a), phase 16 (d): one AdamW step at full width, ``layers``
+    layers, float32 compute and float32 masters (``params`` cast where they
+    are bfloat16), on the card and on the port's CPU, on the same batch
+    (``microbatch`` 2, a ragged ``xent_chunk``, one zero mask entry); an
+    MoE model's ``aux`` loss held as the loss is."""
     import dataclasses
 
     import numpy as np
@@ -1991,20 +2136,32 @@ def train_parity(cfg, params, rec: dict) -> None:
     half = TRAIN_PARITY_BATCH // 2
     out = {}
     for where in (CARD, "cpu"):
-        p2, cfg2 = truncated(params, cfg_a, TRAIN_PARITY_LAYERS, torch.device(where), copy=True)
+        p2, cfg2 = truncated(params, cfg_a, layers, torch.device(where), copy=True)
+        p2 = p2.float()  # float32 masters (bfloat16 ones cast, exactly)
+        cfg2 = dataclasses.replace(cfg2, param_dtype="float32")
         b = {k: v.to(where) for k, v in batch.items()}
         names, tensors = zip(*p2.named_parameters())
         # the gradient the step accumulates: the mean of its two slices' losses
         loss_fn = step_lib.make_loss_fn(cfg2)
-        mean = sum(loss_fn(p2, {k: v[s] for k, v in b.items()})[0] for s in (slice(0, half), slice(half, None))) / 2
+        parts = [loss_fn(p2, {k: v[s] for k, v in b.items()}) for s in (slice(0, half), slice(half, None))]
+        mean = (parts[0][0] + parts[1][0]) / 2
+        aux = float((parts[0][1]["aux"] + parts[1][1]["aux"]).detach() / 2)
         grads = [g.cpu() for g in torch.autograd.grad(mean, tensors)]
+        del parts, mean
         before = [t.detach().cpu().clone() for t in tensors]
         init, _ = optim.make_optimizer(ocfg, cfg2)
         _, _, m = step_lib.make_train_step(cfg2, ocfg)(p2, init(p2), b)
-        out[where] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names,
+        out[where] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names, "aux": aux,
                       "grads": grads, "delta": [t.detach().cpu() - b0 for t, b0 in zip(tensors, before)]}
         del p2, tensors, before
+        if where == CARD:
+            torch.cuda.empty_cache()
     card, cpu = out[CARD], out["cpu"]
+    if cfg.n_experts:
+        aux_rel = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+        rec["parity_aux"] = {"card": card["aux"], "cpu": cpu["aux"], "rel": aux_rel}
+        check(cpu["aux"] > 0 and aux_rel <= TRAIN_LOSS_RTOL,
+              f"train parity: MoE aux card {card['aux']} vs CPU {cpu['aux']}")
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     norm_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
     grad_rel = max(rel_fro(g, w) for g, w in zip(card["grads"], cpu["grads"]))
@@ -2019,7 +2176,7 @@ def train_parity(cfg, params, rec: dict) -> None:
         excluded += int((~well).sum())
         total += g.numel()
         delta_rel = max(delta_rel, rel_fro(d_g[well], d_c[well]))
-    rec["parity"] = {"layers": TRAIN_PARITY_LAYERS, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+    rec["parity"] = {"layers": layers, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
                      "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_rel_fro_max": grad_rel,
                      "delta_rel_fro_max": delta_rel, "delta_excluded": excluded, "elements": total}
     check(loss_rel <= TRAIN_LOSS_RTOL, f"train parity: loss card {card['loss']} vs CPU {cpu['loss']}")
@@ -2027,8 +2184,9 @@ def train_parity(cfg, params, rec: dict) -> None:
     check(grad_rel <= TRAIN_GRAD_RTOL, f"train parity: gradients relative Frobenius {grad_rel} > {TRAIN_GRAD_RTOL}")
     check(delta_rel <= TRAIN_DELTA_RTOL, f"train parity: updates relative Frobenius {delta_rel} > {TRAIN_DELTA_RTOL}")
     check(excluded <= 1e-2 * total, f"train parity: {excluded} of {total} gradient elements apart by > 1e-3")
-    print(f"  (a) full width, {TRAIN_PARITY_LAYERS} layers, float32, microbatch 2, xent chunk {TRAIN_PARITY_CHUNK} "
-          f"of S={TRAIN_PARITY_SEQ}: card == CPU, loss to {loss_rel:.3g} relative (<= {TRAIN_LOSS_RTOL}), grad_norm "
+    aux_note = f"aux to {rec['parity_aux']['rel']:.3g} relative, " if cfg.n_experts else ""
+    print(f"  {label} full width, {layers} layers, float32, microbatch 2, xent chunk {TRAIN_PARITY_CHUNK} "
+          f"of S={TRAIN_PARITY_SEQ}: card == CPU, loss to {loss_rel:.3g} relative (<= {TRAIN_LOSS_RTOL}), {aux_note}grad_norm "
           f"{norm_rel:.3g} (<= {TRAIN_NORM_RTOL}), gradients {grad_rel:.3g} relative Frobenius (<= {TRAIN_GRAD_RTOL}), "
           f"updates {delta_rel:.3g} (<= {TRAIN_DELTA_RTOL}; {excluded} of {total} elements, whose gradients differ by "
           f"more than 1e-3 of themselves, held by the gradients' distance alone)", flush=True)
@@ -2195,6 +2353,221 @@ def training_phase(cfg, params, smi: str, record: dict):
     return one_step
 
 
+def moe_phase(smi: str, record: dict) -> None:
+    """Phase 16: deepseek-v2-lite (MLA + 64 routed and 2 shared experts,
+    top 6) at its published width and depth, 1.621e10 parameters, on the
+    card with random weights from the port's seeded init.  Its one cut is
+    the masters' dtype: bfloat16 (32.4 GB, ``param_dtype`` honoured since
+    this slice) where the config has float32 (64.8 GB, which leaves no room
+    beside the serving cast).  (a) float32 logits at 2 layers, card against
+    the port's CPU run (max abs 1e-3); (b) prefill of 8 prompts and 5 decode
+    steps at 2 layers in float32, card against CPU (an MoE decode does not
+    reproduce the forward: each call's expert capacity differs); (c)
+    ``serve.lm.Engine`` in bfloat16 at full depth on 8 requests; (d) one
+    AdamW step at 1 layer in float32, card against CPU, then 4 steps at 4
+    of the 27 layers in bfloat16 compute on the bfloat16 masters, with
+    bfloat16 AdamW states (phase 11's closures keep about 22 GB); (e)
+    llava-next-34b at its published width and 8 of its 60 layers
+    (bfloat16 masters): forward and prefill over 576 patch positions and
+    24 text tokens, card against CPU in float32 at 1 layer, and in bfloat16
+    on the card.  The LM path launches none of the hand-written kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_init, init_params, transformer as tf
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.serve.lm import Engine, GenRequest
+    from repro_torch.train import data as data_lib, optim, step as step_lib
+
+    dev = torch.device(CARD)
+    rec: dict = {}
+    pub = get_config(MOE_ARCH)
+    check((pub.n_layers, pub.d_model, pub.n_heads, pub.n_experts, pub.n_shared, pub.top_k, pub.d_ff_expert,
+           pub.kv_lora, pub.qk_nope, pub.qk_rope, pub.v_head, pub.vocab, pub.dtype, pub.param_dtype)
+          == (27, 2048, 16, 64, 2, 6, 1408, 512, 128, 64, 128, 102400, "bfloat16", "float32"),
+          "deepseek-v2-lite as published")
+    n_ref = sum(t.numel() for t in abstract_init(pub).parameters())
+    cfg = dataclasses.replace(pub, param_dtype="bfloat16")  # the cut: bfloat16 masters
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 16), device=dev)
+    torch.cuda.synchronize()
+    rec.update(arch=cfg.name, init_s=time.monotonic() - t0, n_params=sum(t.numel() for t in params.parameters()),
+               param_bytes=sum(t.numel() * t.element_size() for t in params.parameters()))
+    check(rec["n_params"] == n_ref and round(n_ref / 1e10, 3) == 1.621,
+          f"deepseek-v2-lite has the reference's {n_ref} parameters: {rec['n_params']}")
+    check(all(t.dtype == torch.bfloat16 for t in params.parameters()), "bfloat16 masters")
+    print(f"phase 16: {cfg.name} at its published width and depth ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_experts} routed + {cfg.n_shared} shared experts, top {cfg.top_k}, MLA kv_lora {cfg.kv_lora}; "
+          f"{rec['n_params']} parameters, {rec['param_bytes'] / 1e9:.2f} GB of bfloat16 masters) initialised on the "
+          f"card in {rec['init_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 40)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    # (a) and (b): 2 layers at full width in float32, the card against the CPU
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    prompts = torch.from_numpy(rng.integers(2, cfg.vocab, (MOE_PROMPTS, MOE_PROMPT_LEN)).astype(np.int32))
+    follow = torch.from_numpy(rng.integers(2, cfg.vocab, (MOE_PROMPTS, MOE_DECODE_STEPS)).astype(np.int32))
+    outs = {}
+    with torch.inference_mode():
+        for where in (CARD, "cpu"):
+            t0 = time.monotonic()
+            p2, cfg2 = truncated(params, cfg32, MOE_PARITY_LAYERS, torch.device(where))
+            h, aux = tf.forward(p2, cfg2, toks.to(where))
+            logits = tf.logits_fn(p2, cfg2, h).float().cpu()
+            last, cache = tf.prefill(p2, cfg2, prompts.to(where), max_len=MOE_PROMPT_LEN + MOE_DECODE_STEPS,
+                                     cache_dtype=torch.float32)
+            steps = [last.float().cpu()]
+            for t in range(MOE_DECODE_STEPS):
+                lg, cache = tf.decode_step(p2, cfg2, cache, follow[:, t : t + 1].to(where))
+                steps.append(lg.float().cpu())
+            outs[where] = {"logits": logits, "aux": float(aux), "steps": torch.stack(steps, dim=1),
+                           "s": time.monotonic() - t0}
+            del p2, h, cache
+    card, cpu = outs[CARD], outs["cpu"]
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    aux_rel = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    err_dec = float((card["steps"] - cpu["steps"]).abs().max())
+    rec["parity"] = {"layers": MOE_PARITY_LAYERS, "logits_max_abs": err, "aux_card": card["aux"],
+                     "aux_cpu": cpu["aux"], "aux_rel": aux_rel, "decode_max_abs": err_dec, "cpu_s": cpu["s"]}
+    check(bool(torch.isfinite(card["logits"]).all()) and card["logits"].shape == (2, 24, cfg.padded_vocab),
+          "2-layer logits finite, (B, S, padded_vocab)")
+    check(err <= LM_PARITY_TOL, f"2-layer float32 logits: card vs CPU max abs {err} > {LM_PARITY_TOL}")
+    check(cpu["aux"] > 0 and aux_rel <= TRAIN_LOSS_RTOL, f"2-layer aux: card {card['aux']} vs CPU {cpu['aux']}")
+    check(bool(torch.isfinite(card["steps"]).all()), "prefill and decode logits finite")
+    check(err_dec <= LM_PARITY_TOL, f"prefill + decode, 2 layers, float32: card vs CPU max abs {err_dec}")
+    print(f"  (a) full width, {MOE_PARITY_LAYERS} layers, float32: card logits == the port's CPU logits to {err:.3g} "
+          f"max abs (<= {LM_PARITY_TOL}), aux {card['aux']:.6g} to {aux_rel:.3g} relative", flush=True)
+    print(f"  (b) prefill of {MOE_PROMPTS} prompts of {MOE_PROMPT_LEN} tokens + {MOE_DECODE_STEPS} decode steps "
+          f"(latent cache, expert capacity {moe_capacity(cfg, MOE_PROMPTS)} "
+          f"a decode step) at {MOE_PARITY_LAYERS} layers, float32: card == CPU to {err_dec:.3g} max abs "
+          f"(<= {LM_PARITY_TOL}); CPU side {cpu['s']:.1f} s", flush=True)
+
+    # (c) serving at full depth in bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_len=LM_MAX_LEN, device=CARD)
+    reqs = [GenRequest(prompt=rng.integers(2, cfg.vocab, size=int(rng.integers(3, 13))).astype(np.int32),
+                       max_new_tokens=LM_NEW_TOKENS, temperature=0.0 if i % 2 == 0 else 0.8)
+            for i in range(LM_REQUESTS)]
+    eng.generate(reqs, seed=0)  # warm
+    torch.cuda.synchronize()
+    answers = eng.generate(reqs, seed=1)
+    stats = dict(eng.last_stats)
+    stats["s_per_decode_step"] = (stats["wall_s"] - stats["prefill_s"]) / max(1, stats["batch_steps"] - 1)
+    stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    check(len(answers) == LM_REQUESTS and all(1 <= len(o) <= LM_NEW_TOKENS for o in answers), "one answer a request")
+    check(all(((o >= 0) & (o < cfg.padded_vocab)).all() for o in answers), "tokens in the vocabulary")
+    check(stats["tokens"] == sum(len(o) for o in answers), "the stats count the answers' tokens")
+    greedy = [r.temperature == 0.0 for r in reqs]
+    again = eng.generate([r for r, g in zip(reqs, greedy) if g], seed=2)
+    check(len(again) == sum(greedy), "greedy rows answer again")
+    rec["serving"] = {**stats, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS}
+    print(f"  (c) serving at full depth in bfloat16 on {smi}: {LM_REQUESTS} requests (prompts 3-12 tokens, "
+          f"{LM_NEW_TOKENS} new, half greedy, half at temperature 0.8): {stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.3f} s, prefill {stats['prefill_s']:.4f} s, "
+          f"{stats['s_per_decode_step']:.4f} s a decode step, max_memory_allocated "
+          f"{stats['max_memory_allocated'] / 1e9:.2f} GB", flush=True)
+    del eng
+
+    # (d) training: 1 layer in float32 against the CPU, then 4 layers in bfloat16 compute
+    train_rec: dict = {}
+    train_parity(cfg, params, train_rec, layers=1, label="(d)")
+    rec["train_parity"] = train_rec
+    p4, cfg4 = truncated(params, cfg, MOE_TRAIN_LAYERS, dev, copy=True)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=MOE_TRAIN_STEPS,
+                           state_dtype=MOE_TRAIN_STATES)
+    init, _ = optim.make_optimizer(ocfg, cfg4)
+    state = init(p4)
+    train_step = step_lib.make_train_step(cfg4, ocfg)
+    dcfg = data_lib.DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=MOE_TRAIN_SEQ, global_batch=MOE_TRAIN_BATCH)
+    batches = [{k: v.to(dev) for k, v in data_lib.train_batch(dcfg, i).items()} for i in range(MOE_TRAIN_STEPS)]
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.monotonic()
+        _, _, m = train_step(p4, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        aux = float(step_lib.make_loss_fn(cfg4)(p4, batches[-1])[1]["aux"])
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(t).all()) for t in p4.parameters())
+    rec["train"] = {"layers": MOE_TRAIN_LAYERS, "steps": MOE_TRAIN_STEPS, "batch": MOE_TRAIN_BATCH,
+                    "states": MOE_TRAIN_STATES,
+                    "seq_len": MOE_TRAIN_SEQ, "microbatch": cfg4.microbatch, "losses": losses, "step_s": step_s,
+                    "aux": aux, "max_memory_allocated": peak,
+                    "n_params": sum(t.numel() for t in p4.parameters())}
+    check(finite and all(np.isfinite(losses)), f"MoE training: finite losses and masters: {losses}")
+    check(aux > 0, f"MoE training: aux {aux} > 0")
+    print(f"  (d) {MOE_TRAIN_STEPS} steps at full width, {MOE_TRAIN_LAYERS} of {cfg.n_layers} layers "
+          f"({rec['train']['n_params']} parameters, bfloat16 masters and compute, {MOE_TRAIN_STATES} AdamW states, microbatch "
+          f"{cfg4.microbatch}) on {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens on {smi}: losses "
+          f"{[round(v, 4) for v in losses]}, aux {aux:.5f}, {step_s[-1]:.3f} s the last step, max_memory_allocated "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    del p4, state, batches, train_step
+    torch.cuda.empty_cache()
+
+    # (e) the patch frontend: llava-next-34b at its published width, 8 layers
+    pubv = get_config(VLM_ARCH)
+    check((pubv.n_layers, pubv.d_model, pubv.n_heads, pubv.n_kv, pubv.d_head, pubv.d_ff, pubv.vocab, pubv.frontend,
+           pubv.frontend_dim) == (60, 7168, 56, 8, 128, 20480, 64000, "patches", 1152), "llava-next-34b as published")
+    cfgv = dataclasses.replace(pubv, n_layers=VLM_LAYERS, param_dtype="bfloat16")
+    t0 = time.monotonic()
+    pv = init_params(cfgv, torch.Generator(device=dev).manual_seed(SEED + 17), device=dev)
+    torch.cuda.synchronize()
+    vrec = {"layers": VLM_LAYERS, "init_s": time.monotonic() - t0, "n_params": sum(t.numel() for t in pv.parameters()),
+            "patches": VLM_PATCHES, "text": VLM_TEXT}
+    patches = torch.from_numpy(rng.normal(size=(1, VLM_PATCHES, cfgv.frontend_dim)).astype(np.float32))
+    vtoks = torch.from_numpy(rng.integers(0, cfgv.vocab, (1, VLM_TEXT)).astype(np.int32))
+    s_all = VLM_PATCHES + VLM_TEXT
+    outs = {}
+    with torch.inference_mode():
+        for where in (CARD, "cpu"):
+            p1, c1 = truncated(pv, dataclasses.replace(cfgv, dtype="float32"), 1, torch.device(where))
+            h, _ = tf.forward(p1, c1, vtoks.to(where), patches.to(where))
+            text = tf.logits_fn(p1, c1, h[:, -VLM_TEXT:]).float().cpu()
+            last, cache = tf.prefill(p1, c1, vtoks.to(where), max_len=s_all + 4, patch_embeds=patches.to(where),
+                                     cache_dtype=torch.float32)
+            outs[where] = {"text": text, "last": last.float().cpu(), "shape": tuple(h.shape), "pos": cache["pos"]}
+            del p1, h, cache
+        card, cpu = outs[CARD], outs["cpu"]
+        err = float((card["text"] - cpu["text"]).abs().max())
+        err_last = float((card["last"] - cpu["last"]).abs().max())
+        check(card["shape"] == (1, s_all, cfgv.d_model) and card["pos"] == s_all, "patches come first in the stream")
+        check(err <= LM_PARITY_TOL and err_last <= LM_PARITY_TOL,
+              f"llava, 1 layer, float32: text logits card vs CPU {err}, prefill {err_last} (<= {LM_PARITY_TOL})")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        h, _ = tf.forward(pv, cfgv, vtoks.to(dev), patches.to(dev))
+        lg = tf.logits_fn(pv, cfgv, h[:, -1:]).float()
+        torch.cuda.synchronize()
+        vrec["forward_bf16_s"] = time.monotonic() - t0
+        last, cache = tf.prefill(pv, cfgv, vtoks.to(dev), max_len=s_all + 4, patch_embeds=patches.to(dev),
+                                 cache_dtype=torch.bfloat16)
+        scale = max(1.0, float(lg.abs().max()))
+        err_bf16 = float((last.float() - lg[:, 0]).abs().max())
+        check(bool(torch.isfinite(h).all()) and bool(torch.isfinite(last).all()), "llava bfloat16 forward finite")
+        check(cache["k"].shape == (VLM_LAYERS, 1, s_all + 4, cfgv.n_kv, cfgv.d_head) and cache["pos"] == s_all,
+              "llava's cache holds the patch and text positions")
+        check(err_bf16 <= 1e-2 * scale, f"llava bfloat16: prefill's last logits vs the forward's {err_bf16}")
+    vrec.update(parity_text_max_abs=err, parity_prefill_max_abs=err_last, bf16_prefill_vs_forward=err_bf16)
+    rec["vlm"] = vrec
+    print(f"  (e) {cfgv.name} at its published width (d={cfgv.d_model}, {cfgv.n_heads} heads, kv {cfgv.n_kv}), "
+          f"{VLM_LAYERS} of {pubv.n_layers} layers ({vrec['n_params']} parameters, bfloat16 masters): "
+          f"{VLM_PATCHES} patch positions + {VLM_TEXT} text tokens; 1 layer float32 card == CPU to {err:.3g} (text "
+          f"logits) and {err_last:.3g} (prefill) max abs; bfloat16 on the card: forward {vrec['forward_bf16_s']:.3f} s, "
+          f"prefill's last logits == the forward's to {err_bf16:.3g}", flush=True)
+    del pv, h, cache, last
+    torch.cuda.empty_cache()
+    record["moe"] = rec
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2224,6 +2597,7 @@ def main(argv: list[str]) -> int:
         """Close the running phase's seconds and start ``name``."""
         now = time.monotonic()
         phase_s[clock["name"]] = now - clock["t"]
+        print(f"[{clock['name']}: {phase_s[clock['name']]:.1f} s]", flush=True)
         clock.update(name=name, t=now)
 
     smi = subprocess.run(
@@ -2263,6 +2637,7 @@ def main(argv: list[str]) -> int:
     check_prim_cases(dev)
     check_linkage_cases()
     record["wide_pairwise_topk_max_abs_err"] = check_wide_cases(dev)
+    record["sbcn_tile_max_abs_err"] = check_sbcn_tile_cases(dev)
     if kernels_only:
         record["pairwise_topk_ms_by_k"] = topk_times(x)
         record["lune_filter_ms_by_block_e"], record["lune_filter_ms_by_block_c"] = lune_sweep(
@@ -2337,6 +2712,7 @@ def main(argv: list[str]) -> int:
     for v_g, v_c in zip(est_dup.select_all(), est_dup_cpu.select_all()):
         check(np.array_equal(v_g.labels, v_c.labels), f"slot path: labels equal the CPU run at mpts={v_g.mpts}")
     print(f"n={len(x_dup)} duplicate-heavy: slot path on the card == CPU run for mpts 2..{KMAX}", flush=True)
+
 
     phase("5. the exact variant")
     # -- 5. the exact variant ------------------------------------------------
@@ -2491,7 +2867,7 @@ def main(argv: list[str]) -> int:
 
     phase("13. embedding curation")
     # -- 13. embedding curation ------------------------------------------------
-    launches_emb, x_emb = embedding_phase(lm_cfg, lm_params, smi, record)
+    launches_emb, x_emb, sbcn_fit_calls = embedding_phase(lm_cfg, lm_params, smi, record)
 
     phase("14. the kmax = 128 fit, and the wide kernels' times")
     # -- 14. the kmax = 128 fit ------------------------------------------------
@@ -2504,6 +2880,10 @@ def main(argv: list[str]) -> int:
     lm_train_step = training_phase(lm_cfg, lm_params, smi, record)
     del lm_params
     torch.cuda.empty_cache()
+
+    phase("16. MoE, MLA and patches")
+    # -- 16. MoE, MLA and the patch frontend -------------------------------------
+    moe_phase(smi, record)
 
     phase("11. timings")
     # -- 11. timings ---------------------------------------------------------
@@ -2581,6 +2961,7 @@ def main(argv: list[str]) -> int:
     })
     kernels += new_kernel_times(x, est_w, est_wide, msts_dualtree, launches, smi, record)
     kernels += wide_rows
+    kernels += sbcn_tile_rows(torch.from_numpy(x_emb).to(CARD), sbcn_fit_calls, launches_emb, smi, record)
     record["kernels"] = kernels
 
     phase("end")

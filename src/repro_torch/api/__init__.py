@@ -9,8 +9,8 @@
     est.model_.save("fitted.npz")                     # loads in either package
 """
 
-from .estimator import MultiHDBSCAN
+from .estimator import Membership, MultiHDBSCAN
 from .model import ArtifactError, Clustering, FittedModel
 from .selection import SelectionPolicy
 
-__all__ = ["ArtifactError", "Clustering", "FittedModel", "MultiHDBSCAN", "SelectionPolicy"]
+__all__ = ["ArtifactError", "Clustering", "FittedModel", "Membership", "MultiHDBSCAN", "SelectionPolicy"]

@@ -2,19 +2,43 @@
 port of ``repro/api/estimator.py``.
 
 ``fit`` builds a ``FittedModel`` (``est.model_``) and every query delegates
-to it.  The reference's deprecated per-level accessors (``labels_for`` and
-friends) are not ported; ``est.model_.select(mpts)`` replaces them.
+to it; ``est.model_.select(mpts, policy)`` is the first-class query
+surface.  The original per-level accessors (``labels_for`` /
+``hierarchy_for`` / ``membership_for`` / ``probabilities_for``) remain as
+deprecation shims, as in the reference: they answer as before but emit a
+``FutureWarning`` pointing at the ``select`` surface.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import warnings
 from typing import Sequence
 
 import numpy as np
 
-from ..core import multi
+from ..core import multi, predict
 from .model import FittedModel
 from .selection import SelectionPolicy
+
+
+@dataclasses.dataclass
+class Membership:
+    """Per-fitted-point view of one density level: labels + strengths."""
+
+    mpts: int
+    labels: np.ndarray         # (n,) int64, -1 = noise
+    probabilities: np.ndarray  # (n,) float64 in [0, 1], 0 for noise
+    lambdas: np.ndarray        # (n,) float64 departure lambda (0 for noise)
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"MultiHDBSCAN.{old} is deprecated and will be removed next release; use {new} instead",
+        FutureWarning,
+        stacklevel=3,
+    )
 
 
 class MultiHDBSCAN:
@@ -47,7 +71,9 @@ class MultiHDBSCAN:
     plan : "auto" | "single" | engine.Plan
         Pass a pre-built ``engine.Plan`` to pin every chunk/tile size.
     max_cached_hierarchies : int, optional
-        Bound on the per-(mpts, policy) extraction cache (LRU eviction).
+        Bound on the per-(mpts, policy) extraction cache (LRU eviction);
+        settable after ``fit`` too (the ``max_cached_hierarchies``
+        property), ``None`` keeps every requested level.
     """
 
     def __init__(
@@ -89,7 +115,7 @@ class MultiHDBSCAN:
         self.variant = variant
         self.device = device
         self.plan = plan
-        self.max_cached_hierarchies = max_cached_hierarchies
+        self._max_cached_hierarchies = max_cached_hierarchies
         self._model: FittedModel | None = None
         # eager policy construction: bad selection knobs fail here, not at fit
         self._selection_policy()
@@ -120,7 +146,7 @@ class MultiHDBSCAN:
             variant=self.variant,
             device=self.device,
             plan=self.plan,
-            max_cached_hierarchies=self.max_cached_hierarchies,
+            max_cached_hierarchies=self._max_cached_hierarchies,
         )
         self.plan_ = self._model.plan
         self.n_features_in_ = self._model.n_features
@@ -156,6 +182,77 @@ class MultiHDBSCAN:
     def save(self, path: str) -> str:
         """Persist the fitted state as an artifact (``FittedModel.save``)."""
         return self.model_.save(path)
+
+    # -- legacy internal surface (kept for compatibility) ------------------
+
+    @property
+    def max_cached_hierarchies(self) -> int | None:
+        return self._max_cached_hierarchies
+
+    @max_cached_hierarchies.setter
+    def max_cached_hierarchies(self, value: int | None) -> None:
+        if value is not None and value < 1:
+            raise ValueError(f"max_cached_hierarchies must be >= 1 or None; got {value}")
+        self._max_cached_hierarchies = value
+        if self._model is not None:
+            self._model.max_cached_hierarchies = value
+
+    @property
+    def _msts(self) -> multi.MultiMSTResult | None:
+        return None if self._model is None else self._model.msts
+
+    @property
+    def _X(self) -> np.ndarray | None:
+        return None if self._model is None else self._model.X
+
+    @property
+    def _linkage(self) -> multi.LinkageRange | None:
+        return None if self._model is None else self._model._linkage
+
+    @property
+    def _hierarchy_cache(self) -> "collections.OrderedDict[int, multi.HierarchyResult]":
+        """Legacy view of the model's cache: default-policy entries by mpts."""
+        if self._model is None:
+            return collections.OrderedDict()
+        default = self._model.default_policy
+        return collections.OrderedDict((mpts, h) for (mpts, pol), h in self._model._cache.items() if pol == default)
+
+    @property
+    def _walk_cache(self) -> dict[int, predict.WalkTable]:
+        if self._model is None:
+            return {}
+        return self._model._walk_cache(self._model.default_policy)
+
+    def _check_fitted(self) -> multi.MultiMSTResult:
+        return self.model_.msts
+
+    def _ensure_linkage(self) -> multi.LinkageRange:
+        return self.model_._ensure_linkage()
+
+    # -- deprecated per-level accessors (FutureWarning) --------------------
+
+    def hierarchy_for(self, mpts: int) -> multi.HierarchyResult:
+        """Deprecated: use ``est.model_.select(mpts).hierarchy``."""
+        _deprecated("hierarchy_for(mpts)", "model_.select(mpts).hierarchy")
+        return self.model_.hierarchy(mpts)
+
+    def labels_for(self, mpts: int) -> np.ndarray:
+        """Deprecated: use ``est.model_.select(mpts).labels``."""
+        _deprecated("labels_for(mpts)", "model_.select(mpts).labels")
+        return self.model_.hierarchy(mpts).labels
+
+    def membership_for(self, mpts: int) -> Membership:
+        """Deprecated: use ``est.model_.select(mpts)`` (same fields)."""
+        _deprecated("membership_for(mpts)", "model_.select(mpts)")
+        c = self.model_.select(mpts)
+        return Membership(mpts=mpts, labels=c.labels, probabilities=c.probabilities, lambdas=c.lambdas)
+
+    def probabilities_for(self, mpts: int) -> np.ndarray:
+        """Deprecated: use ``est.model_.select(mpts).probabilities``."""
+        _deprecated("probabilities_for(mpts)", "model_.select(mpts).probabilities")
+        return self.model_.select(mpts).probabilities
+
+    # -- stable query surface (delegates to the model) ----------------------
 
     def approximate_predict(self, Q, mpts: int | None = None, policy: SelectionPolicy | None = None):
         """Assign unseen points to the fitted clusters, no refit.

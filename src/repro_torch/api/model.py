@@ -353,6 +353,9 @@ class FittedModel:
 
     # -- out-of-sample prediction ------------------------------------------
 
+    def _walk_cache(self, policy: SelectionPolicy) -> dict[int, predict.WalkTable]:
+        return self._walk.setdefault(policy, {})
+
     def predict_range(
         self,
         Q,
@@ -371,7 +374,7 @@ class FittedModel:
             lambda m: self.hierarchy(m, pol),
             plan=self.plan,
             mpts_values=mpts_values,
-            table_cache=self._walk.setdefault(pol, {}),
+            table_cache=self._walk_cache(pol),
         )
 
     def approximate_predict(self, Q, mpts: int | None = None, policy: SelectionPolicy | None = None):

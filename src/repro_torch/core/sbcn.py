@@ -23,8 +23,12 @@ is the same, and the keys are sorted before anyone reads them.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
+
+from ..kernels import sbcn_tile
 
 _PAIR_ELEM_CAP = 1 << 18  # max padded |A|*|B| handled by the batched slot path
 _TILE_ELEMS = 1 << 22     # elements per slot-path tier chunk
@@ -54,18 +58,34 @@ def compact_idx(mask: torch.Tensor, cap: int) -> torch.Tensor:
     return out[:cap]
 
 
-def _mrd_tile(x, cd2k, a_idx, b_idx):
+def point_norms(x):
+    """Per-point |x|^2 for the tiles' exact order where the width needs it
+    (d > ``sbcn_tile.EXACT_ORDER_D``), else None (the torch products)."""
+    return sbcn_tile.point_norms(x) if x.shape[1] > sbcn_tile.EXACT_ORDER_D else None
+
+
+def _mrd_tile(x, cd2k, a_idx, b_idx, xn=None):
     """(P, A, B) squared mrd tile (inf on padded cells) + its tie tolerance.
 
     a_idx (P, A) / b_idx (P, B) point ids padded with -1.  Matmul-form d2,
-    as the reference's ``_mutual_mask`` computes it.
+    as the reference's ``_mutual_mask`` computes it.  With ``xn`` (the
+    points' norms from ``point_norms``, d > 256) the norms and the dot
+    carry the reference's float32 bits (``kernels.sbcn_tile``: the kernel
+    on the card, its plain version on the CPU); without, torch's own sums,
+    whose candidates equal the reference's on every fixture up to d = 100.
     """
     eps = torch.tensor(_EPS, dtype=torch.float32, device=x.device)
-    xa = x[a_idx.clamp_min(0).long()].float()
-    xb = x[b_idx.clamp_min(0).long()].float()
-    an = (xa * xa).sum(-1)
-    bn = (xb * xb).sum(-1)
-    d2 = an[:, :, None] + bn[:, None, :] - 2.0 * torch.bmm(xa, xb.transpose(1, 2))
+    if xn is not None:
+        an = xn[a_idx.clamp_min(0).long()]
+        bn = xn[b_idx.clamp_min(0).long()]
+        dot = sbcn_tile.tile_dots(x, a_idx, b_idx)
+    else:
+        xa = x[a_idx.clamp_min(0).long()].float()
+        xb = x[b_idx.clamp_min(0).long()].float()
+        an = (xa * xa).sum(-1)
+        bn = (xb * xb).sum(-1)
+        dot = torch.bmm(xa, xb.transpose(1, 2))
+    d2 = an[:, :, None] + bn[:, None, :] - 2.0 * dot
     d2 = torch.clamp_min(d2, 0.0)
     ca = cd2k[a_idx.clamp_min(0).long()]
     cb = cd2k[b_idx.clamp_min(0).long()]
@@ -76,9 +96,9 @@ def _mrd_tile(x, cd2k, a_idx, b_idx):
     return mrd2, tol
 
 
-def _mutual_mask(x, cd2k, a_idx, b_idx):
+def _mutual_mask(x, cd2k, a_idx, b_idx, xn=None):
     """(P, A, B) bool SBCN mask for one batch of padded pairs."""
-    mrd2, tol = _mrd_tile(x, cd2k, a_idx, b_idx)
+    mrd2, tol = _mrd_tile(x, cd2k, a_idx, b_idx, xn)
     row_min = mrd2.amin(dim=2, keepdim=True)
     col_min = mrd2.amin(dim=1, keepdim=True)
     return (mrd2 <= row_min + tol) & (mrd2 <= col_min + tol) & torch.isfinite(mrd2)
@@ -121,12 +141,12 @@ def _emit_from_mask(mask, a_idx, b_idx, n_pack: int, tie_cap: int):
     return torch.stack(keys, dim=-1).reshape(-1), counters
 
 
-def _tier_emit(x, cd2k, a_idx, b_idx, n_pack: int, *, tie_cap: int):
+def _tier_emit(x, cd2k, a_idx, b_idx, n_pack: int, *, tie_cap: int, xn=None):
     """One bucketed-tier chunk -> bounded packed keys + counters."""
-    return _emit_from_mask(_mutual_mask(x, cd2k, a_idx, b_idx), a_idx, b_idx, n_pack, tie_cap)
+    return _emit_from_mask(_mutual_mask(x, cd2k, a_idx, b_idx, xn), a_idx, b_idx, n_pack, tie_cap)
 
 
-def _rowpath_emit(x, cd2k, a_chunks, b_idx, n_pack: int, *, tie_cap: int):
+def _rowpath_emit(x, cd2k, a_chunks, b_idx, n_pack: int, *, tie_cap: int, xn=None):
     """Row-chunked SBCN emission for a block of same-shape oversized pairs.
 
     a_chunks (Pb, nc, rc) int32 padded -1; b_idx (Pb, nb) padded -1.  Pass 1
@@ -135,16 +155,16 @@ def _rowpath_emit(x, cd2k, a_chunks, b_idx, n_pack: int, *, tie_cap: int):
     """
     nc = a_chunks.shape[1]
     if nc == 1:
-        return _tier_emit(x, cd2k, a_chunks[:, 0], b_idx, n_pack, tie_cap=tie_cap)
+        return _tier_emit(x, cd2k, a_chunks[:, 0], b_idx, n_pack, tie_cap=tie_cap, xn=xn)
     col_min = None
     for c in range(nc):
-        mrd2, _ = _mrd_tile(x, cd2k, a_chunks[:, c], b_idx)
+        mrd2, _ = _mrd_tile(x, cd2k, a_chunks[:, c], b_idx, xn)
         cm = mrd2.amin(dim=1, keepdim=True)
         col_min = cm if col_min is None else torch.minimum(col_min, cm)
     keys, counters = [], []
     for c in range(nc):
         ac = a_chunks[:, c]
-        mrd2, tol = _mrd_tile(x, cd2k, ac, b_idx)
+        mrd2, tol = _mrd_tile(x, cd2k, ac, b_idx, xn)
         row_min = mrd2.amin(dim=2, keepdim=True)
         mask = (mrd2 <= row_min + tol) & (mrd2 <= col_min + tol) & torch.isfinite(mrd2)
         k, cnt = _emit_from_mask(mask, ac, b_idx, n_pack, tie_cap)
@@ -214,6 +234,7 @@ def cascade_candidates(
     """
     dev = x.device
     n = int(x.shape[0])
+    xn = point_norms(x)
     perm = perm.astype(np.int32)
     a_start, a_len, b_start, b_len = _canonical_pairs(a_start, a_len, b_start, b_len)
     key_parts: list[torch.Tensor] = []
@@ -241,7 +262,7 @@ def cascade_candidates(
             for c0 in range(0, len(sel), chunk):
                 keys_c, counters_c = _tier_emit(
                     x, cd2_kmax, a_pad[c0 : c0 + chunk], b_pad[c0 : c0 + chunk], n,
-                    tie_cap=tie_cap,
+                    tie_cap=tie_cap, xn=xn,
                 )
                 key_parts.append(keys_c)
                 counter_parts.append(counters_c)
@@ -267,7 +288,7 @@ def cascade_candidates(
                     keys_c, counters_c = _rowpath_emit(
                         x, cd2_kmax,
                         _dev(a_blk.reshape(len(grp), ncc, rcc), dev), _dev(b_blk, dev), n,
-                        tie_cap=tie_cap,
+                        tie_cap=tie_cap, xn=xn,
                     )
                     key_parts.append(keys_c)
                     counter_parts.append(counters_c)
@@ -288,9 +309,9 @@ def cascade_candidates(
 # ---------------------------------------------------------------------------
 
 
-def _sbcn_tier_chunk(x, cd2k, a_idx, b_idx):
+def _sbcn_tier_chunk(x, cd2k, a_idx, b_idx, xn=None):
     """One tier chunk -> flat (lo, hi) candidate slots, sentinel off-mask."""
-    mutual = _mutual_mask(x, cd2k, a_idx, b_idx)
+    mutual = _mutual_mask(x, cd2k, a_idx, b_idx, xn)
     lo = torch.minimum(a_idx[:, :, None], b_idx[:, None, :])
     hi = torch.maximum(a_idx[:, :, None], b_idx[:, None, :])
     return (
@@ -299,21 +320,27 @@ def _sbcn_tier_chunk(x, cd2k, a_idx, b_idx):
     )
 
 
-def _sbcn_large(x, cd2k, a_idx, b_idx, *, row_chunk: int = _ROW_CHUNK):
+def _sbcn_large(x, cd2k, a_idx, b_idx, *, row_chunk: int = _ROW_CHUNK, xn=None):
     """Row-chunked SBCN mask (na, nb) for one oversized pair: pass 1 reduces
-    the column minima, pass 2 re-evaluates each chunk against them."""
+    the column minima, pass 2 re-evaluates each chunk against them.  The
+    reference pads the rows to whole chunks of ``min(row_chunk, na)``, so
+    its 2-D products have that many rows; a ragged last chunk here
+    pads likewise."""
     b2 = b_idx[None]
-    chunks = [a_idx[None, r0 : r0 + row_chunk] for r0 in range(0, a_idx.shape[0], row_chunk)]
+    rc = min(row_chunk, a_idx.shape[0])
+    pad = -a_idx.shape[0] % rc
+    a_pad = torch.cat([a_idx, torch.full((pad,), -1, dtype=a_idx.dtype, device=a_idx.device)])
+    chunks = [a_pad[None, r0 : r0 + rc] for r0 in range(0, a_pad.shape[0], rc)]
     col_min = None
     for ac in chunks:
-        cm = _mrd_tile(x, cd2k, ac, b2)[0].amin(dim=1, keepdim=True)
+        cm = _mrd_tile(x, cd2k, ac, b2, xn)[0].amin(dim=1, keepdim=True)
         col_min = cm if col_min is None else torch.minimum(col_min, cm)
     masks = []
     for ac in chunks:
-        m, tol = _mrd_tile(x, cd2k, ac, b2)
+        m, tol = _mrd_tile(x, cd2k, ac, b2, xn)
         row_min = m.amin(dim=2, keepdim=True)
         masks.append(((m <= row_min + tol) & (m <= col_min + tol) & torch.isfinite(m))[0])
-    return torch.cat(masks)
+    return torch.cat(masks)[: a_idx.shape[0]]
 
 
 def _dedup_sorted(lo, hi):
@@ -348,6 +375,7 @@ def sbcn_candidates(
     from .. import engine
 
     dev = x.device
+    xn = point_norms(x)
     perm = perm.astype(np.int64)
     a_start, a_len, b_start, b_len = _canonical_pairs(a_start, a_len, b_start, b_len)
     los: list[torch.Tensor] = []
@@ -360,6 +388,7 @@ def sbcn_candidates(
         los.append(_dev(np.minimum(pa, pb), dev))
         his.append(_dev(np.maximum(pa, pb), dev))
 
+    guessed = 0  # pairs whose tiles take an order not read from XLA
     rest = np.nonzero(~ss)[0]
     if len(rest):
         al, bl = a_len[rest], b_len[rest]
@@ -376,21 +405,34 @@ def sbcn_candidates(
             a_pad = _dev(_padded_gather(perm, a_start[sel], a_len[sel], kaa, len(sel)), dev)
             b_pad = _dev(_padded_gather(perm, b_start[sel], b_len[sel], kbb, len(sel)), dev)
             chunk = max(1, min(tile_elems // (kaa * kbb), _pow2_ceil(len(sel))))
+            if xn is not None and not sbcn_tile.order_known(kaa, kbb, int(x.shape[1]), chunk):
+                guessed += len(sel)
             for c0 in range(0, len(sel), chunk):
                 lo_c, hi_c = _sbcn_tier_chunk(
-                    x, cd2_kmax, a_pad[c0 : c0 + chunk], b_pad[c0 : c0 + chunk]
+                    x, cd2_kmax, a_pad[c0 : c0 + chunk], b_pad[c0 : c0 + chunk], xn
                 )
                 los.append(lo_c)
                 his.append(hi_c)
         for gi in np.nonzero(big)[0]:
             sel = rest[gi]
+            if xn is not None and not sbcn_tile.order_known(min(int(a_len[sel]), row_chunk), int(b_len[sel]),
+                                                             int(x.shape[1]), 1):
+                guessed += 1
             a = _dev(perm[a_start[sel] : a_start[sel] + a_len[sel]].astype(np.int32), dev)
             b = _dev(perm[b_start[sel] : b_start[sel] + b_len[sel]].astype(np.int32), dev)
-            mutual = _sbcn_large(x, cd2_kmax, a, b, row_chunk=row_chunk)
+            mutual = _sbcn_large(x, cd2_kmax, a, b, row_chunk=row_chunk, xn=xn)
             lo = torch.minimum(a[:, None], b[None, :])
             hi = torch.maximum(a[:, None], b[None, :])
             los.append(torch.where(mutual, lo, _SENTINEL).reshape(-1))
             his.append(torch.where(mutual, hi, _SENTINEL).reshape(-1))
+    if guessed:
+        warnings.warn(
+            f"SBCN slot path at d={int(x.shape[1])}: the tiles of {guessed} pair(s) take a float32 order "
+            "that was not read from XLA (sbcn_tile.order_known); their candidates may differ from the "
+            "reference's at near-ties",
+            RuntimeWarning,
+            stacklevel=2,
+        )
 
     empty = (
         torch.zeros((0,), dtype=torch.int32, device=dev),

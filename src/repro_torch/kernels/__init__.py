@@ -7,7 +7,8 @@ wrapper, its plain version and its launch counter); ``ops.py`` holds the
 kNN, query-kNN and lune-scan dispatch and ``ref.py`` the oracles.
 ``prim_mst`` (the baseline's dense Prim) and ``single_linkage`` (the
 union-find of extraction) port device loops the reference runs outside
-any Pallas kernel.
+any Pallas kernel, and ``sbcn_tile`` the SBCN tiles' products above
+d = 256 in the reference's float32 order.
 
 As in the reference, the package binds ``pairwise_topk``, ``edge_cascade``
 and ``lune_filter`` to the kernel functions; reach a kernel's module by its

@@ -24,7 +24,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNEL_SOURCES = ("pairwise_topk", "edge_cascade", "lune_filter", "prim_mst", "single_linkage")
+KERNEL_SOURCES = ("pairwise_topk", "edge_cascade", "lune_filter", "prim_mst", "single_linkage", "sbcn_tile")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -811,6 +811,13 @@ extern "C" int repro_pairwise_topk_occupancy(int n, int d, int k, int* occ) {
   return dispatch(nullptr, n, d, k, nullptr, nullptr, nullptr, occ, nullptr, nullptr);
 }
 
+// x: (n, d) float32 -> out: (n,) |x|^2 of each row in XLA's windows of 32,
+// the pre-pass alone (the SBCN tiles' norms, kernels/sbcn_tile.py).
+extern "C" int repro_pairwise_topk_norms(const float* x, int n, int d, float* out, void* stream) {
+  if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  return launch_norms(x, n, d, out, (cudaStream_t)stream);
+}
+
 // Sets the bytes the sliced instance's mirrored plan may take for partial
 // lists, and returns the setting before; 0 makes every launch split the
 // keys, so that the two plans can be timed at one shape.

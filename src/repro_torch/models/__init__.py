@@ -8,12 +8,14 @@ The transformer module exposes the reference's surface:
   prefill(p, cfg, tokens, max_len, cache_dtype=...) -> (last_logits, cache)
   decode_step(p, cfg, cache, cur_tokens) -> (logits, cache)
 
-The parameters are float32 masters that require gradients: ``forward``
-runs under autograd, and ``train.step`` trains them.  Only
-``"transformer"`` is registered, for the dense configurations.  The MoE,
-MLA and frontend transformers and the SSM (mamba2), recurrent (griffin)
-and encoder-decoder families come with later items of ``ROADMAP.md`` §1
-(the LM stack).
+The parameters are masters in ``cfg.param_dtype`` (float32 but for
+kimi-k2's bfloat16) that require gradients: ``forward`` runs under
+autograd, and ``train.step`` trains them.  Only ``"transformer"`` is
+registered: the dense, MoE, MLA and patch-frontend configurations.  The
+SSM (mamba2), recurrent (griffin) and encoder-decoder families come with
+a later item of ``ROADMAP.md`` §1 (the LM stack).  ``abstract_init``
+gives the parameters' shapes and master dtypes on the meta device, with
+no memory behind them, at any size (kimi-k2's 1.045e12 parameters).
 
 ``reference_leaves`` maps each port tensor to the reference's leaf, and
 ``params_from_jax`` carries a reference parameter pytree (numpy arrays)
@@ -46,13 +48,21 @@ def get_model(cfg):
 
 
 def init_params(cfg, generator: torch.Generator, device: str | torch.device = "cuda"):
-    """Random float32 master parameters on ``device`` (default the card,
-    which raises without one unless ``device="cpu"``), drawn from
-    ``generator``, which must lie on that device."""
+    """Random master parameters in ``cfg.param_dtype`` on ``device``
+    (default the card, which raises without one unless ``device="cpu"``),
+    drawn in float32 from ``generator``, which must lie on that device,
+    and cast tensor by tensor (the reference casts every float32 leaf)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lies on {generator.device}, the parameters go to {dev}")
     return get_model(cfg).init(cfg, generator, dev)
+
+
+def abstract_init(cfg):
+    """The parameters on the meta device in the master dtype (shapes and
+    dtypes, nothing allocated): the counterpart of the reference's
+    ``abstract_init``, whose leaves are ``reference_leaves(cfg)``."""
+    return get_model(cfg).skeleton(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +96,9 @@ def _ref_path(local: str) -> tuple[str, ...]:
 
 def reference_leaves(cfg) -> dict[str, RefLeaf]:
     """The reference leaf of every parameter of ``get_model(cfg)``, in the
-    port's ``named_parameters`` order (read off the meta skeleton)."""
+    port's ``named_parameters`` order (read off the meta skeleton).  A
+    tensor that is no ``nn.Linear`` weight (the MoE's (E, d, 2f) and
+    (E, f, d) experts, embeddings, norms) keeps the reference's layout."""
     out = {}
     for name, t in get_model(cfg).skeleton(cfg).named_parameters():
         shape = tuple(t.shape)
@@ -97,15 +109,26 @@ def reference_leaves(cfg) -> dict[str, RefLeaf]:
             _, i, local = name.split(".", 2)
             out[name] = RefLeaf(("layers", *_ref_path(local)), int(i), transposed, (cfg.n_layers, *shape))
         else:
-            out[name] = RefLeaf((name,), None, transposed, shape)
+            out[name] = RefLeaf(_ref_path(name), None, transposed, shape)
     return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor of its own dtype.  A bfloat16 array (the
+    ``ml_dtypes`` type JAX hands out, which ``torch.from_numpy`` refuses)
+    crosses through its 16-bit integer view."""
+    a = np.array(a)  # a contiguous, writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
     """The port's parameters from the reference's pytree (numpy arrays):
     each tensor is its ``reference_leaves`` slice, transposed back where
-    ``nn.Linear`` keeps (out, in).  The ``padded_vocab`` rows of the
-    embeddings come across as they are.
+    ``nn.Linear`` keeps (out, in), in its leaf's dtype (float32 or
+    bfloat16 masters).  The ``padded_vocab`` rows of the embeddings come
+    across as they are.
     """
     dev = resolve_device(device)
     state = {}
@@ -116,10 +139,10 @@ def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
         a = np.asarray(a)
         if leaf.layer is not None:
             a = a[leaf.layer]
-        state[name] = torch.from_numpy(np.array(a.T if leaf.transposed else a, np.float32)).to(dev)
+        state[name] = _tensor(a.T if leaf.transposed else a).to(dev)
     p = get_model(cfg).skeleton(cfg)
     p.load_state_dict(state, assign=True, strict=True)
     return p
 
 
-__all__ = ["layers", "transformer", "get_model", "init_params"]
+__all__ = ["layers", "transformer", "get_model", "abstract_init", "init_params"]

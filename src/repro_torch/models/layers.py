@@ -1,21 +1,23 @@
-"""Shared model layers, the port of ``repro/models/layers.py`` (the dense
-parts).
+"""Shared model layers, the port of ``repro/models/layers.py``.
 
 Conventions, as in the reference:
-  * weights are float32 masters, cast to the compute dtype where they are
-    used (``W.to(dt)``, the reference's ``.astype(dt)``); a weight already
-    in that dtype is used as it is, so a copy cast once gives the same bits;
+  * weights are masters in ``cfg.param_dtype`` (drawn in float32 and cast
+    once), cast to the compute dtype where they are used (``W.to(dt)``,
+    the reference's ``.astype(dt)``); a weight already in that dtype is
+    used as it is, so a copy cast once gives the same bits;
   * the compute dtype comes from the input; normalisation, rotary
-    embeddings and the attention softmax run in float32;
+    embeddings, the attention softmax and the MoE router run in float32;
   * attention is the double-chunked online softmax of the reference, in the
     reference's order of operations (no ``scaled_dot_product_attention``,
     which sums in its own order).
 
 Dense weights live in ``nn.Linear`` modules, (out, in) as PyTorch keeps
 them; the reference keeps (in, out) and computes ``x @ W``, so
-``models.params_from_jax`` transposes them.  The reference's logical-axis
-specs and ``dist.sharding.constrain`` (the identity outside a mesh) have no
-counterpart here: multi-GPU placement is a later item (``ROADMAP.md`` §1).
+``models.params_from_jax`` transposes them.  The MoE's expert tensors,
+(E, d, 2f) and (E, f, d), are no ``nn.Linear`` and keep the reference's
+layout.  The reference's logical-axis specs and ``dist.sharding.constrain``
+(the identity outside a mesh) have no counterpart here: multi-GPU
+placement is a later item (``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -26,32 +28,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_MOE_MLA = "the MoE and MLA transformer (ROADMAP.md §1, the LM stack)"
-
-
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
 
 def dense_init(
-    shape: tuple[int, ...], generator: torch.Generator | None, device: torch.device, scale: float | None = None
+    shape: tuple[int, ...], generator: torch.Generator | None, device: torch.device, scale: float | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Normal(0, 1) * scale in float32, scale 1/sqrt(fan_in) by default.
+    """Normal(0, 1) * scale drawn in float32 and cast to ``dtype`` (the
+    master dtype), scale 1/sqrt(fan_in) by default.
 
     ``shape`` is PyTorch's (out, in) for a matrix, so fan_in is its last
     axis (the reference draws (in, out) and scales by 1/sqrt(shape[0])).
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-1])
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * scale
+    return (torch.randn(shape, generator=generator, device=device, dtype=torch.float32) * scale).to(dtype)
 
 
-def linear(d_in: int, d_out: int, generator: torch.Generator, device: torch.device, *, bias: bool) -> nn.Linear:
+def linear(d_in: int, d_out: int, generator: torch.Generator, device: torch.device, *, bias: bool,
+           dtype: torch.dtype = torch.float32) -> nn.Linear:
     """An ``nn.Linear`` with ``dense_init`` weights and a zero bias."""
     lin = nn.Linear(d_in, d_out, bias=bias, device="meta")
-    lin.weight = nn.Parameter(dense_init((d_out, d_in), generator, device))
+    lin.weight = nn.Parameter(dense_init((d_out, d_in), generator, device, dtype=dtype))
     if bias:
-        lin.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        lin.bias = nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype))
     return lin
 
 
@@ -64,16 +66,20 @@ def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def rmsnorm_init(d: int, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(d, device=device))
+def rmsnorm_init(d: int, device: torch.device, dtype: torch.dtype = torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in float32, scaled by ``(1 + w)`` (w starts at zero)."""
+    """RMS norm in float32, scaled by ``(1 + w)`` (w starts at zero).
+
+    ``1 + w`` is taken in float32 also for a bfloat16 master ``w``: XLA
+    keeps that bfloat16 sum unrounded inside the reference's fusion (its
+    default excess precision), so rounding it here would differ."""
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + w)).to(dt)
+    return (x * (1.0 + w.float())).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +209,19 @@ class MLP(nn.Module):
     """swiglu / geglu (``wi`` holds [u | g], 2 d_ff wide) or gelu with
     optional biases.  Weights (out, in), as ``nn.Linear`` keeps them."""
 
-    def __init__(self, cfg, d_ff: int, generator: torch.Generator, device: torch.device):
+    def __init__(self, cfg, d_ff: int, generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d = cfg.d_model
         gated = cfg.act in ("swiglu", "geglu")
         bias = not gated and cfg.mlp_bias
-        self.wi = linear(d, 2 * d_ff if gated else d_ff, generator, device, bias=bias)
-        self.wo = linear(d_ff, d, generator, device, bias=bias)
+        self.wi = linear(d, 2 * d_ff if gated else d_ff, generator, device, bias=bias, dtype=dtype)
+        self.wo = linear(d_ff, d, generator, device, bias=bias, dtype=dtype)
 
 
-def init_mlp(cfg, d_ff: int, generator: torch.Generator, device: torch.device) -> MLP:
-    return MLP(cfg, d_ff, generator, device)
+def init_mlp(cfg, d_ff: int, generator: torch.Generator, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> MLP:
+    return MLP(cfg, d_ff, generator, device, dtype)
 
 
 def mlp(p: MLP, x: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
@@ -228,26 +236,148 @@ def mlp(p: MLP, x: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
     return dense(p.wo, h)
 
 
+
+
 # ---------------------------------------------------------------------------
-# Mixture of Experts and Multi-head Latent Attention: a later item
+# Mixture of Experts (top-k routing, per-expert top-C capacity)
 # ---------------------------------------------------------------------------
 
 
-def init_moe(*args, **kwargs):
-    raise NotImplementedError(f"MoE layers come with {_MOE_MLA}")
+class MoE(nn.Module):
+    """``router`` (d -> E) and the shared SwiGLU (``shared_wi``/``shared_wo``,
+    ``d_ff_expert * n_shared`` wide) are ``nn.Linear``; the routed experts'
+    ``wi`` (E, d, 2f) and ``wo`` (E, f, d) keep the reference's layout."""
+
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+        self.router = linear(d, e, generator, device, bias=False, dtype=dtype)
+        # the reference scales every dense_init by 1/sqrt(shape[0]), which for
+        # the stacked experts is 1/sqrt(E), not 1/sqrt(d): kept as it is
+        scale = 1.0 / math.sqrt(e)
+        self.wi = nn.Parameter(dense_init((e, d, 2 * f), generator, device, scale, dtype))
+        self.wo = nn.Parameter(dense_init((e, f, d), generator, device, scale, dtype))
+        if cfg.n_shared:
+            fs = f * cfg.n_shared
+            self.shared_wi = linear(d, 2 * fs, generator, device, bias=False, dtype=dtype)
+            self.shared_wo = linear(fs, d, generator, device, bias=False, dtype=dtype)
 
 
-def moe(*args, **kwargs):
-    raise NotImplementedError(f"MoE layers come with {_MOE_MLA}")
+def init_moe(cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype = torch.float32) -> MoE:
+    return MoE(cfg, generator, device, dtype)
 
 
-def init_mla(*args, **kwargs):
-    raise NotImplementedError(f"MLA comes with {_MOE_MLA}")
+def moe_capacity(cfg, t: int) -> int:
+    """Tokens an expert takes from a call of ``t`` tokens:
+    ``min(ceil(t * top_k * capacity_factor / E), t)``, at least 1.  It
+    depends on the call, so a decode step of B tokens keeps far fewer
+    than a forward over the sequence (deepseek-v2-lite at B = 8: one)."""
+    return min(max(1, math.ceil(t * cfg.top_k * cfg.capacity_factor / cfg.n_experts)), t)
 
 
-def mla_expand_kv(*args, **kwargs):
-    raise NotImplementedError(f"MLA comes with {_MOE_MLA}")
+def moe_route(p: MoE, xf: torch.Tensor, cfg):
+    """The router over (T, d) tokens -> (gsel (E, C), idx (E, C), aux).
+
+    Gates are a float32 softmax (full float32 on the card too: the package
+    turns TF32 off when it is imported, or the top-k choice would move);
+    a token keeps every expert whose gate
+    reaches its k-th largest (ties kept, so possibly more than k).  Each
+    expert takes its top C kept gates over the tokens, the lower token
+    first among equal gates (a stable descending sort: ``jax.lax.top_k``'s
+    order, and most of an expert's column is exact zeros).  ``aux`` is the
+    Switch load-balance loss ``sum(mean gate * mean kept) * E * weight``.
+    """
+    e = cfg.n_experts
+    gates = torch.softmax(xf.float() @ p.router.weight.float().T, dim=-1)  # (T, E) float32
+    topv = torch.topk(gates, cfg.top_k, dim=-1).values
+    keep = gates >= topv[:, -1:]
+    gk = torch.where(keep, gates, 0.0)
+    aux = torch.sum(gates.mean(dim=0) * keep.float().mean(dim=0)) * e * cfg.router_aux_weight
+    cap = moe_capacity(cfg, xf.shape[0])
+    gsel, idx = torch.sort(gk.T, dim=1, descending=True, stable=True)
+    return gsel[:, :cap], idx[:, :cap], aux
 
 
-def mla_qkv(*args, **kwargs):
-    raise NotImplementedError(f"MLA comes with {_MOE_MLA}")
+def moe(p: MoE, x: torch.Tensor, cfg):
+    """x: (B, S, D) -> ((B, S, D), aux loss).
+
+    Capacity-bounded dispatch (a token an expert does not take is dropped
+    for that expert): gathers, one batched product per expert matrix
+    (plain matrix products, which the reference also computes outside any
+    Pallas kernel), SwiGLU, the gate-weighted outputs scattered back with
+    ``index_add_``, then the shared experts.
+    """
+    b, s_len, d = x.shape
+    dt = x.dtype
+    xf = x.reshape(b * s_len, d)
+    gsel, idx, aux = moe_route(p, xf, cfg)
+    xe = xf[idx]                                                 # (E, C, D)
+    u, g = torch.chunk(torch.bmm(xe, p.wi.to(dt)), 2, dim=-1)
+    y = torch.bmm(F.silu(g) * u, p.wo.to(dt))
+    y = y * gsel[..., None].to(dt)
+    out = torch.zeros_like(xf).index_add_(0, idx.reshape(-1), y.reshape(-1, d))
+    if cfg.n_shared:
+        us, gs = torch.chunk(xf @ p.shared_wi.weight.to(dt).T, 2, dim=-1)
+        out = out + (F.silu(gs) * us) @ p.shared_wo.weight.to(dt).T
+    return out.reshape(b, s_len, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """``wq`` (d -> H (qk_nope + qk_rope)), the latent down-projection
+    ``wdkv`` (d -> kv_lora), the shared rope key ``wkr`` (d -> qk_rope),
+    the up-projections ``wuk`` and ``wuv`` and ``wo``; no q compression
+    (V2-Lite)."""
+
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        kw = dict(bias=False, dtype=dtype)
+        self.wq = linear(d, h * (cfg.qk_nope + cfg.qk_rope), generator, device, **kw)
+        self.wdkv = linear(d, cfg.kv_lora, generator, device, **kw)
+        self.wkr = linear(d, cfg.qk_rope, generator, device, **kw)
+        self.wuk = linear(cfg.kv_lora, h * cfg.qk_nope, generator, device, **kw)
+        self.wuv = linear(cfg.kv_lora, h * cfg.v_head, generator, device, **kw)
+        self.wo = linear(h * cfg.v_head, d, generator, device, **kw)
+
+
+def init_mla(cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype = torch.float32) -> MLA:
+    return MLA(cfg, generator, device, dtype)
+
+
+def mla_expand_kv(p: MLA, ckv: torch.Tensor, k_rope: torch.Tensor, cfg, dt: torch.dtype):
+    """Latent cache -> full K (B, S, H, qk_nope + qk_rope), V (B, S, H, v_head).
+
+    ckv: (B, S, kv_lora); k_rope: (B, S, qk_rope).  K is ``[k_nope |
+    k_rope broadcast over the heads]``.  The products run in the promoted
+    type of the cache and ``dt``, as ``ckv @ W.astype(dt)`` promotes in
+    the reference (a float32 cache under bfloat16 compute expands in
+    float32).
+    """
+    b, s_len, _ = ckv.shape
+    h = cfg.n_heads
+    ct = torch.promote_types(ckv.dtype, dt)
+    c = ckv.to(ct)
+    k_nope = (c @ p.wuk.weight.to(dt).to(ct).T).reshape(b, s_len, h, cfg.qk_nope)
+    v = (c @ p.wuv.weight.to(dt).to(ct).T).reshape(b, s_len, h, cfg.v_head)
+    kr = k_rope[:, :, None, :].to(dt).expand(b, s_len, h, cfg.qk_rope)
+    kt = torch.promote_types(k_nope.dtype, dt)
+    return torch.cat([k_nope.to(kt), kr.to(kt)], dim=-1), v
+
+
+def mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """x: (B, S, d) -> (q (B, S, H, qk_nope + qk_rope) with rope on its
+    last qk_rope dims, ckv (B, S, kv_lora), k_rope (B, S, qk_rope) with
+    rope): the latent parts are what the cache keeps."""
+    b, s_len, _ = x.shape
+    dt = x.dtype
+    q = (x @ p.wq.weight.to(dt).T).reshape(b, s_len, cfg.n_heads, cfg.qk_nope + cfg.qk_rope)
+    q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope :]
+    q = torch.cat([q_nope, rope(q_rope, positions[None, :], cfg.rope_theta)], dim=-1)
+    ckv = x @ p.wdkv.weight.to(dt).T
+    k_rope = rope((x @ p.wkr.weight.to(dt).T)[:, :, None, :], positions[None, :], cfg.rope_theta)[:, :, 0, :]
+    return q, ckv, k_rope

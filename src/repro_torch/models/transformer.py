@@ -1,8 +1,8 @@
-"""Decoder-only transformer, the port of ``repro/models/transformer.py`` for
-the dense configurations: no experts, no MLA, no frontend (qwen2-1.5b,
-qwen2.5-14b, gemma3-4b, starcoder2-3b).  The MoE, MLA and frontend
-branches raise ``NotImplementedError``; they come with a later item, as
-do the SSM, recurrent and encoder-decoder families.
+"""Decoder-only transformer, the port of ``repro/models/transformer.py``:
+the dense configurations (qwen2-1.5b, qwen2.5-14b, gemma3-4b,
+starcoder2-3b), MLA and MoE (deepseek-v2-lite; kimi-k2 with GQA and
+MoE) and the patch frontend (llava-next-34b).  The SSM, recurrent and
+encoder-decoder families are other modules, still to come.
 
 The reference scans one layer body over stacked parameters; here the
 layers are an ``nn.ModuleList`` walked in a Python loop, with the same
@@ -10,42 +10,46 @@ per-layer data:
   * mixed local:global attention (gemma3): per-layer windows and rope
     thetas (``_layer_windows_py``, ``_layer_thetas``); window <= 0 is
     unbounded;
-  * GQA: query head h reads kv head h // g (``layers.attention``).
+  * GQA: query head h reads kv head h // g (``layers.attention``);
+  * MLA (``cfg.kv_lora > 0``) and MoE (``cfg.n_experts > 0``), chosen per
+    config; an MoE layer's ``aux`` loss is summed over the layers;
+  * patches (``cfg.frontend == "patches"``): ``proj_in`` and ``proj_mid``
+    map (B, P, frontend_dim) patch embeddings into the stream ahead of the
+    text tokens, with tanh GELU between them (``jax.nn.gelu``'s default).
 
-Training: the parameters are float32 masters that require gradients, and
-``forward`` runs under autograd (``train.step`` takes the gradient).  With
-``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` while a
-graph is being recorded, which recomputes its activations in the
-backward pass, as ``jax.checkpoint(body)`` does in the reference.  The
-reference's ``_residual_barrier`` only steers XLA's scheduling (it keeps
-the float32 upcast of the residual stream inside the backward loop) and
-has no counterpart: eager PyTorch hoists nothing.
+Training: the parameters are masters in ``cfg.param_dtype`` that require
+gradients, and ``forward`` runs under autograd (``train.step`` takes the
+gradient).  With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` while a graph is being recorded, which
+recomputes its activations in the backward pass, as
+``jax.checkpoint(body)`` does in the reference.  The reference's
+``_residual_barrier`` only steers XLA's scheduling (it keeps the float32
+upcast of the residual stream inside the backward loop) and has no
+counterpart: eager PyTorch hoists nothing.
 
 KV cache (decode): a dict of stacked tensors, (L, B, Smax, Hkv, Dh) for
 the global layers and (L, B, window, Hkv, Dh) ring buffers for the local
-ones (slot = pos % window, ``kpos_loc`` starts at -2^30), and ``pos`` as a
-Python int.  ``decode_step`` writes the new entries into the cache's
-tensors in place and returns the same dict, where the reference returns a
-new pytree: a cache is never read again after the step that advanced it.
-Serving runs under ``torch.inference_mode()``, which records no graph.
+ones (slot = pos % window, ``kpos_loc`` starts at -2^30), or for MLA the
+latent cache ``ckv`` (L, B, Smax, kv_lora) and ``kr`` (L, B, Smax,
+qk_rope); and ``pos`` as a Python int.  ``decode_step`` writes the new
+entries into the cache's tensors in place and returns the same dict,
+where the reference returns a new pytree: a cache is never read again
+after the step that advanced it.  Serving runs under
+``torch.inference_mode()``, which records no graph.  An MoE layer's
+expert capacity depends on the tokens of the call (``layers.moe_capacity``),
+so a decode step of an MoE model drops more routed tokens than a forward
+over the whole sequence and does not reproduce it, in the reference too.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..engine.plan import resolve_device
 from . import layers as L
-
-_LATER = "the MoE and MLA transformer and the frontends (ROADMAP.md §1, the LM stack)"
-
-
-def _check_dense(cfg) -> None:
-    if cfg.kv_lora > 0 or cfg.n_experts > 0 or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: MLA, MoE and frontend configurations come with {_LATER}")
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -75,62 +79,82 @@ def _layer_thetas(cfg) -> list[float]:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, generator: torch.Generator, device: torch.device):
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype):
         super().__init__()
         d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv * cfg.d_head
-        self.wq = L.linear(d, hq, generator, device, bias=cfg.qkv_bias)
-        self.wk = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias)
-        self.wv = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias)
-        self.wo = L.linear(hq, d, generator, device, bias=False)
+        self.wq = L.linear(d, hq, generator, device, bias=cfg.qkv_bias, dtype=dtype)
+        self.wk = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias, dtype=dtype)
+        self.wv = L.linear(d, hkv, generator, device, bias=cfg.qkv_bias, dtype=dtype)
+        self.wo = L.linear(hq, d, generator, device, bias=False, dtype=dtype)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, generator: torch.Generator, device: torch.device):
+    """``attn`` is MLA where ``cfg.kv_lora > 0``; ``moe`` replaces ``mlp``
+    where ``cfg.n_experts > 0``."""
+
+    def __init__(self, cfg, generator: torch.Generator, device: torch.device, dtype: torch.dtype):
         super().__init__()
-        self.ln1 = L.rmsnorm_init(cfg.d_model, device)
-        self.ln2 = L.rmsnorm_init(cfg.d_model, device)
-        self.attn = Attention(cfg, generator, device)
-        self.mlp = L.init_mlp(cfg, cfg.d_ff, generator, device)
+        self.ln1 = L.rmsnorm_init(cfg.d_model, device, dtype)
+        self.ln2 = L.rmsnorm_init(cfg.d_model, device, dtype)
+        if cfg.kv_lora > 0:
+            self.attn = L.init_mla(cfg, generator, device, dtype)
+        else:
+            self.attn = Attention(cfg, generator, device, dtype)
+        if cfg.n_experts > 0:
+            self.moe = L.init_moe(cfg, generator, device, dtype)
+        else:
+            self.mlp = L.init_mlp(cfg, cfg.d_ff, generator, device, dtype)
 
 
 class Transformer(nn.Module):
     """The parameters: ``embed`` (padded_vocab, d), ``unembed`` when the
-    embeddings are untied, ``final_norm`` and the ``layers``."""
+    embeddings are untied, ``final_norm``, the frontend's ``proj_in`` and
+    ``proj_mid`` where there is one, and the ``layers``."""
 
-    def __init__(self, cfg, generator: torch.Generator | None, device: torch.device):
+    def __init__(self, cfg, generator: torch.Generator | None, device: torch.device, dtype: torch.dtype):
         super().__init__()
-        _check_dense(cfg)
         d = cfg.d_model
         self.embed = nn.Parameter(
-            L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02))
+            L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02, dtype=dtype))
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(
-                L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02))
-        self.final_norm = L.rmsnorm_init(d, device)
-        self.layers = nn.ModuleList(Block(cfg, generator, device) for _ in range(cfg.n_layers))
+                L.dense_init((cfg.padded_vocab, d), generator, device, scale=0.02, dtype=dtype))
+        self.final_norm = L.rmsnorm_init(d, device, dtype)
+        if cfg.frontend:
+            self.proj_in = L.linear(cfg.frontend_dim, d, generator, device, bias=False, dtype=dtype)
+            self.proj_mid = L.linear(d, d, generator, device, bias=False, dtype=dtype)
+        self.layers = nn.ModuleList(Block(cfg, generator, device, dtype) for _ in range(cfg.n_layers))
 
 
 def init(cfg, generator: torch.Generator, device: torch.device) -> Transformer:
-    """Random float32 parameters on ``device`` from ``generator`` (which
-    lies on that device): embeddings normal * 0.02 (``padded_vocab``
-    rows), dense weights normal / sqrt(fan_in), norms and biases zero."""
-    return Transformer(cfg, generator, torch.device(device))
+    """Random master parameters in ``cfg.param_dtype`` on ``device`` from
+    ``generator`` (which lies on that device): embeddings normal * 0.02
+    (``padded_vocab`` rows), dense weights normal / sqrt(fan_in) (the
+    experts / sqrt(E)), norms and biases zero; each drawn in float32 and
+    cast, as the reference casts its float32 init."""
+    return Transformer(cfg, generator, torch.device(device), _dtype(cfg.param_dtype))
 
 
 def skeleton(cfg) -> Transformer:
-    """The parameter structure on the meta device, to load a state into
-    (``load_state_dict(state, assign=True)``)."""
-    return Transformer(cfg, None, torch.device("meta"))
+    """The parameter structure on the meta device in the master dtype,
+    with no memory behind it: to load a state into
+    (``load_state_dict(state, assign=True)``) or to reckon sizes."""
+    return Transformer(cfg, None, torch.device("meta"), _dtype(cfg.param_dtype))
+
+
+# tensors the reference uses in float32 whatever the compute dtype
+_KEPT = ("ln1", "ln2", "final_norm", "router.weight")
 
 
 def cast_for_compute(p: Transformer, cfg) -> Transformer:
     """A copy of ``p`` with every tensor the reference casts with
-    ``.astype(cfg.dtype)`` (embeddings, dense weights and biases) cast
-    once, and the norms kept float32.  The layers then use the cast
-    tensors as they are, so the result is bit for bit that of casting at
-    each use."""
+    ``.astype(cfg.dtype)`` (embeddings, dense and expert weights, biases)
+    cast once, and the norms and the MoE router kept as they are (the
+    router runs in float32 from its master).  The layers then use the
+    cast tensors as they are, so the result is bit for bit that of casting
+    at each use; a tensor already in ``cfg.dtype`` is shared, not copied."""
     dt = _dtype(cfg.dtype)
-    state = {k: v if k.endswith(("ln1", "ln2", "final_norm")) else v.to(dt) for k, v in p.state_dict().items()}
+    state = {k: v if k.endswith(_KEPT) else v.to(dt) for k, v in p.state_dict().items()}
     out = skeleton(cfg)
     out.load_state_dict(state, assign=True)
     return out
@@ -159,47 +183,88 @@ def _attn_out(pl: Block, q, k_all, v_all, cfg, positions, window, k_pos, kv_vali
     return o.reshape(b, sq, cfg.n_heads * cfg.d_head) @ pl.attn.wo.weight.to(q.dtype).T
 
 
+def _mla_out(pl: Block, q, ckv_all, kr_all, cfg, positions, k_pos, kv_valid) -> torch.Tensor:
+    """MLA attention over the latent ``ckv_all``/``kr_all``: V is padded
+    up to the qk head dim for the shared ``attention`` and sliced back to
+    ``v_head`` (the reference's way)."""
+    b, sq = q.shape[:2]
+    dt = q.dtype
+    k, v = L.mla_expand_kv(pl.attn, ckv_all, kr_all, cfg, dt)
+    v = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
+    o = L.attention(q, k, v, q_pos=positions, k_pos=k_pos, window=0, kv_valid=kv_valid)[..., : cfg.v_head]
+    return o.reshape(b, sq, cfg.n_heads * cfg.v_head) @ pl.attn.wo.weight.to(dt).T
+
+
 def embed_inputs(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
-    if patch_embeds is not None:
-        raise NotImplementedError(f"frontend inputs come with {_LATER}")
-    return p.embed.to(_dtype(cfg.dtype))[tokens]
+    """Token embeddings in the compute dtype; with a frontend and
+    ``patch_embeds`` (B, P, frontend_dim), the projected patches come
+    first: ``gelu_tanh(pe @ proj_in) @ proj_mid``."""
+    dt = _dtype(cfg.dtype)
+    x = p.embed.to(dt)[tokens]
+    if cfg.frontend and patch_embeds is not None:
+        pe = patch_embeds.to(dt) @ p.proj_in.weight.to(dt).T
+        pe = F.gelu(pe, approximate="tanh") @ p.proj_mid.weight.to(dt).T
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _ffn(pl: Block, x: torch.Tensor, cfg):
+    """The second half of a layer: x + MLP or MoE of rmsnorm(x), and the
+    layer's aux loss (None without experts)."""
+    h2 = L.rmsnorm(x, pl.ln2)
+    if cfg.n_experts > 0:
+        mo, aux = L.moe(pl.moe, h2, cfg)
+        return x + mo, aux
+    return x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff), None
 
 
 def _block(pl: Block, x: torch.Tensor, cfg, positions: torch.Tensor, window: int, theta: float):
-    """One layer over a full sequence -> (x, k, v)."""
+    """One layer over a full sequence -> (x, its cache entries, aux): the
+    cache entries are (k, v), or (ckv, k_rope) for MLA."""
     h = L.rmsnorm(x, pl.ln1)
-    q, k, v = _qkv(pl, h, cfg, positions, theta)
-    x = x + _attn_out(pl, q, k, v, cfg, positions, window, positions, None)
-    h2 = L.rmsnorm(x, pl.ln2)
-    return x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff), k, v
+    if cfg.kv_lora > 0:
+        q, ckv, kr = L.mla_qkv(pl.attn, h, positions, cfg)
+        x = x + _mla_out(pl, q, ckv, kr, cfg, positions, positions, None)
+        kv = (ckv, kr)
+    else:
+        q, k, v = _qkv(pl, h, cfg, positions, theta)
+        x = x + _attn_out(pl, q, k, v, cfg, positions, window, positions, None)
+        kv = (k, v)
+    x, aux = _ffn(pl, x, cfg)
+    return x, kv, aux
 
 
 def _layers(p: Transformer, cfg, x: torch.Tensor, collect_kv: bool):
-    """The layer stack over a full sequence; with ``collect_kv`` also each
-    layer's (k, v).  Under ``cfg.remat``, while autograd records, each
-    layer is checkpointed (its activations recomputed in the backward)."""
+    """The layer stack over a full sequence -> (normed x, each layer's
+    cache entries if ``collect_kv``, the summed aux loss).  Under
+    ``cfg.remat``, while autograd records, each layer is checkpointed (its
+    activations recomputed in the backward)."""
     s_len = x.shape[1]
     positions = torch.arange(s_len, dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for pl, w, th in zip(p.layers, _layer_windows_py(cfg), _layer_thetas(cfg)):
         if remat:
             # the layer goes in as an argument, not a closure over the loop
             # variable: the recomputation runs after the loop has moved on
-            x, k, v = checkpoint(_block, pl, x, cfg, positions, w, th, use_reentrant=False)
+            x, kv, a = checkpoint(_block, pl, x, cfg, positions, w, th, use_reentrant=False)
         else:
-            x, k, v = _block(pl, x, cfg, positions, w, th)
+            x, kv, a = _block(pl, x, cfg, positions, w, th)
+        if a is not None:
+            aux = aux + a
         if collect_kv:
-            kvs.append((k, v))
-    return L.rmsnorm(x, p.final_norm), kvs
+            kvs.append(kv)
+    return L.rmsnorm(x, p.final_norm), kvs, aux
 
 
 def forward(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None):
-    """Full-sequence forward -> final hidden states (B, S, D) and the aux
-    loss (0: no experts)."""
+    """Full-sequence forward -> final hidden states (B, S, D), S counting
+    the patch positions first where there are patches, and the aux loss
+    summed over the MoE layers (0 without experts)."""
     x = embed_inputs(p, cfg, tokens, patch_embeds)
-    x, _ = _layers(p, cfg, x, collect_kv=False)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _layers(p, cfg, x, collect_kv=False)
+    return x, aux
 
 
 def logits_fn(p: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -232,10 +297,16 @@ def _cache_layout(cfg, max_len: int):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
-    """An empty KV cache (ring buffers for the local layers) on ``device``
-    (default the card, which raises without one unless ``device="cpu"``)."""
-    _check_dense(cfg)
+    """An empty cache on ``device`` (default the card, which raises without
+    one unless ``device="cpu"``): the latent cache for MLA, else KV with
+    ring buffers for the local layers."""
     device = resolve_device(device)
+    if cfg.kv_lora > 0:
+        return {
+            "ckv": torch.zeros((cfg.n_layers, batch, max_len, cfg.kv_lora), dtype=dtype, device=device),
+            "kr": torch.zeros((cfg.n_layers, batch, max_len, cfg.qk_rope), dtype=dtype, device=device),
+            "pos": 0,
+        }
     _, _, _, nl, ng, win = _cache_layout(cfg, max_len)
     hkv, dh = cfg.n_kv, cfg.d_head
     cache: dict = {"pos": 0}
@@ -249,12 +320,28 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda
     return cache
 
 
+def _decode_mla(p: Transformer, cfg, cache: dict, x: torch.Tensor, positions: torch.Tensor, pos: int):
+    """The layers of one MLA decode step over the latent cache."""
+    max_len = cache["ckv"].shape[2]
+    k_pos = torch.arange(max_len, dtype=torch.int32, device=x.device)
+    valid = k_pos <= pos
+    for i, pl in enumerate(p.layers):
+        h = L.rmsnorm(x, pl.ln1)
+        q, ckv_new, kr_new = L.mla_qkv(pl.attn, h, positions, cfg)
+        ckv, kr = cache["ckv"][i], cache["kr"][i]
+        ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+        kr[:, pos] = kr_new[:, 0].to(kr.dtype)
+        x = x + _mla_out(pl, q, ckv, kr, cfg, positions, k_pos, valid)
+        x, _ = _ffn(pl, x, cfg)
+    return x
+
+
 def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
     """One decode step.  cur_tokens: (B, 1).  Returns (logits (B, V), cache).
 
     Local-window layers read and write a ring buffer (slot = pos % window);
-    global layers keep the full-length cache.  The cache's tensors are
-    updated in place.
+    global layers keep the full-length cache; MLA layers the latent one.
+    The cache's tensors are updated in place.
     """
     dt = _dtype(cfg.dtype)
     pos = int(cache["pos"])
@@ -262,6 +349,11 @@ def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
     dev = x.device
     # a fill, not a copy from host memory: a step makes no host sync of its own
     positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    if cfg.kv_lora > 0:
+        x = _decode_mla(p, cfg, cache, x, positions, pos)
+        x = L.rmsnorm(x, p.final_norm)
+        cache["pos"] = pos + 1
+        return logits_fn(p, cfg, x)[:, 0], cache
     if "k" in cache:
         max_len = cache["k"].shape[2]
     else:
@@ -288,8 +380,7 @@ def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
         kc[:, at] = k_new[:, 0].to(kc.dtype)
         vc[:, at] = v_new[:, 0].to(vc.dtype)
         x = x + _attn_out(pl, q, kc.to(dt), vc.to(dt), cfg, positions, w, k_pos, valid)
-        h2 = L.rmsnorm(x, pl.ln2)
-        x = x + L.mlp(pl.mlp, h2, cfg, cfg.d_ff)
+        x, _ = _ffn(pl, x, cfg)
     x = L.rmsnorm(x, p.final_norm)
     cache["pos"] = pos + 1
     return logits_fn(p, cfg, x)[:, 0], cache
@@ -297,14 +388,21 @@ def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
 
 def prefill(p: Transformer, cfg, tokens: torch.Tensor, max_len: int, patch_embeds=None,
             cache_dtype=torch.bfloat16):
-    """Prefill a cache from a full prompt.  Returns (last logits (B, V), cache)."""
+    """Prefill a cache from a full prompt (patches first where given).
+    Returns (last logits (B, V), cache)."""
     x = embed_inputs(p, cfg, tokens, patch_embeds)
     b, s_len, _ = x.shape
-    x, kvs = _layers(p, cfg, x, collect_kv=True)
+    x, kvs, _ = _layers(p, cfg, x, collect_kv=True)
     logits = logits_fn(p, cfg, x[:, -1:])
-    is_local, _, _, nl, ng, win = _cache_layout(cfg, max_len)
     dev = x.device
     cache: dict = {"pos": s_len}
+    if cfg.kv_lora > 0:
+        for key, j, width in (("ckv", 0, cfg.kv_lora), ("kr", 1, cfg.qk_rope)):
+            c = torch.zeros((cfg.n_layers, b, max_len, width), dtype=cache_dtype, device=dev)
+            c[:, :, :s_len] = torch.stack([kv[j] for kv in kvs]).to(cache_dtype)
+            cache[key] = c
+        return logits[:, 0], cache
+    is_local, _, _, nl, ng, win = _cache_layout(cfg, max_len)
     if ng:
         glob = [i for i, ll in enumerate(is_local) if not ll]
         for key, j in (("k", 0), ("v", 1)):

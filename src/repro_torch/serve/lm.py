@@ -32,10 +32,13 @@ class GenRequest:
 
 
 class Engine:
-    """``params`` are the model's float32 masters on ``device`` (default
-    the card, which raises without one unless ``device="cpu"``); the engine
-    keeps a copy with the weights cast once to ``cfg.dtype``, which gives
-    the bits of casting them at each step."""
+    """``params`` are the model's masters on ``device`` (default the card,
+    which raises without one unless ``device="cpu"``); the engine keeps a
+    copy with the weights cast once to ``cfg.dtype``, which gives the bits
+    of casting them at each step (bfloat16 masters under bfloat16 compute
+    are shared, not copied).  Every transformer configuration serves: the
+    dense ones, MLA through its latent cache, MoE.  As in the reference,
+    ``generate`` takes token prompts only (no patch embeddings)."""
 
     def __init__(self, cfg, params, max_len: int = 512, cache_dtype=torch.float32,
                  device: str | torch.device = "cuda"):

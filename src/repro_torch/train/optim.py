@@ -256,7 +256,12 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> torch.Tensor:
     gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-12), 1.0)
     for g in grads.values():
-        g.mul_(scale)
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            # the reference's ``(g * scale).astype(g.dtype)``: the product in
+            # float32, rounded once (a bfloat16 gradient of a bfloat16 master)
+            g.copy_(g.float() * scale)
     return gn
 
 

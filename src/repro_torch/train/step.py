@@ -10,7 +10,7 @@ Memory discipline, as in the reference:
   * gradients accumulate over ``cfg.microbatch`` contiguous slices of the
     batch, as ``g / micro`` in ``cfg.grad_accum_dtype``.
 
-The step updates the parameters (an ``nn.Module`` of float32 masters) and
+The step updates the parameters (an ``nn.Module`` of masters) and
 the optimizer state in place, where the reference's launcher donates them
 to its jitted step (``repro/launch/train.py``): after a step the old
 values are gone, and the returned objects are the ones passed in.
@@ -59,20 +59,23 @@ def xent_chunked(logits_fn: Callable, p, cfg, hidden, labels, mask) -> torch.Ten
 
 
 def make_loss_fn(cfg):
-    """loss_fn(params, batch) -> (loss, {"xent", "aux"}) for the dense
-    decoder: batch holds ``tokens``, ``labels`` and optionally ``mask``."""
+    """loss_fn(params, batch) -> (loss + aux, {"xent", "aux"}) for the
+    decoder: batch holds ``tokens``, ``labels``, optionally ``mask`` and,
+    for a patch frontend, ``patch_embeds``.  ``aux`` is the MoE layers'
+    summed load-balance loss (0 without experts)."""
     if cfg.arch == "encdec":
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder loss comes with {_LATER}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the loss over frontend inputs comes with {_LATER}")
     model = get_model(cfg)
 
     def loss_fn(params, batch):
-        hidden, aux = model.forward(params, cfg, batch["tokens"])
+        hidden, aux = model.forward(params, cfg, batch["tokens"], batch.get("patch_embeds"))
         labels = batch["labels"]
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        if cfg.frontend == "patches":
+            # hidden covers [patches | text]; the loss runs over the text only
+            hidden = hidden[:, -labels.shape[1]:]
         loss = xent_chunked(model.logits_fn, params, cfg, hidden, labels, mask)
         return loss + aux, {"xent": loss, "aux": aux}
 

@@ -80,26 +80,19 @@ def fits():
 
 @pytest.mark.parametrize("name", ["d1536", "d320", "kmax128"])
 def test_wide_fit_graph_equals_the_reference(fits, name):
-    """kNN, core distances and the graph equal the reference's.  The SBCN
-    emission's candidate counts may differ by a few near-ties: it keeps
-    every pair within its tie tolerance of the matmul-form d2, which XLA's
-    einsum and ``torch.bmm`` sum in different orders, and at d >= 320 that
-    noise moves a few pairs across the tolerance (d = 1536: 3 of 36359).
-    Such a pair only adds a candidate that the cascade then removes, so
-    the edges, their weights and every later count are equal."""
+    """kNN, core distances and the graph equal the reference's, and so do
+    the SBCN emission's candidate counts: it keeps every pair within its
+    tie tolerance of the matmul-form d2, and above d = 256 the port's tiles
+    carry XLA's float32 bits (``kernels.sbcn_tile``; with ``torch.bmm``'s
+    order, 3 of d = 1536's 36359 candidates moved across the tolerance)."""
     _, ref, port = fits[name]
     np.testing.assert_array_equal(port.knn_idx, np.asarray(ref.knn_idx))
     np.testing.assert_array_equal(np.asarray(port.cd2), np.asarray(ref.cd2))
     np.testing.assert_array_equal(port.graph.edges, ref.graph.edges)
     np.testing.assert_array_equal(port.graph.d2, ref.graph.d2)
     np.testing.assert_array_equal(port.graph.w2_kmax, ref.graph.w2_kmax)
-    for key in ("path", "n_wspd_pairs", "m_certified", "m_edges"):
+    for key in ("path", "n_wspd_pairs", "m_certified", "m_edges", "m_candidates", "m_removed_knn"):
         assert port.graph.stats[key] == ref.graph.stats[key], key
-    for key in ("m_candidates", "m_removed_knn"):
-        got, want = port.graph.stats[key], ref.graph.stats[key]
-        assert abs(got - want) <= 1e-3 * want, (key, got, want)
-    assert (port.graph.stats["m_candidates"] - port.graph.stats["m_removed_knn"]
-            == ref.graph.stats["m_candidates"] - ref.graph.stats["m_removed_knn"])
 
 
 @pytest.mark.parametrize("name", ["d1536", "d320", "kmax128"])

@@ -1,8 +1,9 @@
-"""Build the port's chain kernels (``csrc/prim_mst.cu``, ``csrc/single_linkage.cu``)
-for the CPU with g++ and the emulation headers in ``include/``: every CUDA
-thread runs as a ``std::thread``, so the kernels' barriers, warp
-reductions and pushes between the blocks of a thread-block cluster run as
-they would on the card.  The C entry points keep their signatures, so a
+"""Build the port's chain kernels (``csrc/prim_mst.cu``,
+``csrc/single_linkage.cu``) and the SBCN tile products
+(``csrc/sbcn_tile.cu``) for the CPU with g++ and the emulation headers in
+``include/``: every CUDA thread runs as a ``std::thread``, so the kernels'
+barriers, warp reductions and pushes between the blocks of a thread-block
+cluster run as they would on the card.  The C entry points keep their signatures, so a
 test calls them with ``ctypes`` on host buffers and holds their outputs to
 the plain PyTorch versions.
 
@@ -37,6 +38,10 @@ REWRITES = {
     "single_linkage": [
         (r"extern __shared__ __align__\(16\) int smem\[\];", "int* smem = (int*)stub_dyn_smem();"),
         (r"(single_linkage_kernel<\w+>)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(", r"stub_run(\1, \2, \3, \4, 1, "),
+    ],
+    "sbcn_tile": [
+        (r"extern __shared__ float smem\[\];", "float* smem = (float*)stub_dyn_smem();"),
+        (r"(sbcn_dot_kernel<L, HALVE>)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(", r"stub_run(\1, \2, \3, \4, 1, "),
     ],
 }
 
