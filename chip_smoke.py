@@ -42,8 +42,10 @@ Phases (any failure exits non-zero):
      ``edge_cascade`` at d = 1536 (windows of windows) and at
      k_check = 127; ``sbcn_tile`` (the SBCN tiles' products and norms in
      the reference's order above d = 256) bit for bit at d = 320, 1100 and
-     1536 on every fused-path tier, the row path's panel tiles and the slot
-     path's 2-lane tiers, ids padded;
+     1536 on every fused-path tier, the row path's panel tiles (the dense
+     path), the slot path's 2-lane tiers, single pairs (XLA's loop) and
+     ``_sbcn_large``'s 2-D chunks, ids padded, one bucket of 16000 cells,
+     and the direct path past 131072 points;
   4. the main path, ``MultiHDBSCAN(kmax=16).fit(X).select_all()`` on the
      card with the launch counters set to 0 just before it (``select_all``
      runs its linkage through ``single_linkage`` once, checked on the fit's
@@ -161,7 +163,11 @@ Phases (any failure exits non-zero):
      edge, ``prim_mst`` at the baseline's shape with its plan and step
      floor, ``single_linkage`` at R = 15 and 63 and on the n = 20000
      dual-tree fit's MSTs, ``sbcn_tile`` on the embedding fit's largest
-     panel and tier calls and the SBCN norms on its points),
+     call on each of its paths (its kernels by ``torch.profiler``, its
+     bucketing beside ``torch.sort``'s; a row-path block on the dense and
+     the bucketed path) and the SBCN norms on its points, on the card
+     alone and with the host's enqueue; the kernels line's ``ms`` is with
+     the host's enqueue on every row),
      ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
      busy share of a fit, of 8 LM decode steps and of one full-depth train
@@ -224,8 +230,11 @@ TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_DELTA_RTOL = 1e-5, 1e-4
 DRILL_ARGS = ("--reduced", "--steps", "10", "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "5")
 MPTS_DENSE = (2, 8, 16, 24)
 SBCN_WIDTHS = (320, 1100, 1536)   # above 256 the SBCN tiles take the reference's order (sbcn_tile); 1100: 8-lane tails
-SBCN_TIERS = ((1, 2), (1, 4), (1, 8), (2, 2), (2, 4), (2, 8), (4, 4), (4, 8))  # every fused-path tier
-SBCN_PANELS = ((32, 64), (256, 512), (2, 32), (32, 32))  # row-path tiles, and slot-path tiers of 1024-deep slices
+SBCN_TIERS = tuple((a, b, "batched") for a, b in ((1, 2), (1, 4), (1, 8), (2, 2), (2, 4), (2, 8), (4, 4), (4, 8)))
+SBCN_PANELS = ((32, 64, "batched"), (256, 512, "batched"), (2, 32, "batched"), (32, 32, "batched"),
+               (1, 16, "single"), (1, 600, "2d"), (3, 600, "2d"), (100, 700, "2d"), (17, 1000, "2d"))
+# the row path's tiles (dense), the slot path's tiers of 1024-deep slices, single pairs and _sbcn_large's chunks
+SBCN_DENSE_SHAPE = ((32, 64), (32, 128))  # a row-path block of the fused path (32 pairs of 64 x 128 cells)
 SBCN_TIMED_CELLS = 1 << 19        # cells of a fit call timed, its first pairs (the plain version gathers cells x d floats twice)
 MOE_ARCH, VLM_ARCH = "deepseek_v2_lite_16b", "llava_next_34b"
 MOE_PARITY_LAYERS, MOE_PROMPTS, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 2, 8, 12, 5
@@ -499,89 +508,187 @@ def check_topk_cases(dev, x) -> dict:
 def check_sbcn_tile_cases(dev) -> float:
     """``sbcn_tile`` against its plain version on the card at d = 320, 1100
     and 1536: every tier of the fused path (512 pairs each), the row path's
-    panel tiles ((32, 64) and (256, 512)) and the slot path's 2-lane tiers
-    ((2, 32) and (32, 32)), 4 pairs each, with a tenth of the ids padded
-    (-1), and the points' norms (``pairwise_topk``'s pre-pass): bit-equal.
-    Returns the max abs error (0)."""
+    panel tiles ((32, 64) and (256, 512): the dense path) and the slot
+    path's tiers and chunks ((2, 32), (32, 32); single pairs at a = 1 in
+    XLA's loop; ``_sbcn_large``'s 2-D chunks at 600, 700 and 1000 columns,
+    in 2, 1 and 4 lanes), 4 pairs each, with a tenth of the ids padded (-1);
+    a tier whose cells all fall in one bucket (16 work items), and the
+    direct path past ``MAX_TILES`` tiles of points; and the points' norms
+    (the windows-of-32 pre-pass): bit-equal.  Returns the max abs error (0)."""
     import numpy as np
     import torch
 
     st = kernel_module("sbcn_tile")
     err = 0.0
+
+    def held(x, a, b, kind, what):
+        nonlocal err
+        got, want = st.tile_dots(x, a, b, kind), st.tile_dots_plain(x, a, b, kind=kind)
+        order = st.dot_order(a.shape[1], b.shape[1], x.shape[1], kind)
+        path = st.kernel_path(order, a.shape[1], b.shape[1], x.shape[0])
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"sbcn_tile {what} == plain bit for bit (order {order}, {path} path)")
+        err = max(err, float((got - want).abs().max()))
+
+    def ids(rng, n, shape, hi=None):
+        v = rng.integers(0, hi or n, shape)
+        v[rng.random(v.shape) < 0.1] = -1
+        return torch.from_numpy(v.astype(np.int32)).to(dev)
+
     for d in SBCN_WIDTHS:
         n = 2000
         x = torch.from_numpy(make_points(n, d, SEED + 50 + d)).to(dev)
         check(torch.equal(st.point_norms(x), st.point_norms_plain(x)), f"sbcn_tile norms == plain at d={d}")
         rng = np.random.default_rng(SEED + d)
-        for a_w, b_w in SBCN_TIERS + SBCN_PANELS:
-            p = 512 if (a_w, b_w) in SBCN_TIERS else 4
-            ids = []
-            for w in (a_w, b_w):
-                v = rng.integers(0, n, (p, w))
-                v[rng.random(v.shape) < 0.1] = -1
-                ids.append(torch.from_numpy(v.astype(np.int32)).to(dev))
-            got, want = st.tile_dots(x, *ids), st.tile_dots_plain(x, *ids)
-            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                  f"sbcn_tile ({a_w}, {b_w}) tiles at d={d} == plain bit for bit (order {st.dot_order(a_w, b_w)})")
-            err = max(err, float((got - want).abs().max()))
-    print(f"sbcn_tile: kernel == plain bit for bit at d={list(SBCN_WIDTHS)} on tiers {list(SBCN_TIERS)} and sliced "
-          f"tiles {list(SBCN_PANELS)} (padded ids), norms too", flush=True)
+        for a_w, b_w, kind in SBCN_TIERS + SBCN_PANELS:
+            p = 512 if (a_w, b_w, kind) in SBCN_TIERS else 4
+            held(x, ids(rng, n, (p, a_w)), ids(rng, n, (p, b_w)), kind, f"({a_w}, {b_w}) {kind} tiles at d={d}")
+        held(x, ids(rng, n, (2000, 1), 128), ids(rng, n, (2000, 8), 128), "batched",
+             f"one bucket's 16000 cells at d={d}")
+    n_far = st.BUCKET_ROWS * st.MAX_TILES + 7
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(size=(n_far, 260)).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(SEED + 1)
+    held(x, ids(rng, n_far, (4000, 1)), ids(rng, n_far, (4000, 2)), "batched", f"(1, 2) tiles over n={n_far} (direct)")
+    print(f"sbcn_tile: kernel == plain bit for bit at d={list(SBCN_WIDTHS)} on tiers {list(SBCN_TIERS)} and "
+          f"tiles {list(SBCN_PANELS)} (padded ids), one bucket of 16000 cells, the direct path at n={n_far}; "
+          f"norms too", flush=True)
+    del x
     return err
 
 
-def sbcn_tile_rows(x, calls: dict, launches: dict, smi: str, record: dict) -> list:
-    """``sbcn_tile`` on the embedding fit's own largest call of each kind
-    of order it made (``tile_dots.largest``; its first pairs, up to
-    SBCN_TIMED_CELLS cells), beside its plain version, a library yardstick
-    (gather, then ``torch.bmm``: the same products in cuBLAS's order) and
-    its bound (2 d operations a real cell; each referenced row, the ids and
-    the products moved once); and the points' norms (``pairwise_topk``'s
-    pre-pass, ``point_norms``) on the fit's points beside their plain
-    version, ``torch.einsum`` and their bound.  Returns a row of the
-    ``{"kernels": ...}`` line for each."""
+def sort_buckets(a, b, n: int):
+    """The bucketed path's bucketing in torch ops, for timing only (the
+    port uses none of it): each real cell's key (its bucket of 128-row
+    tiles, then its a-row in the tile), sorted, and each bucket's first
+    place found by ``searchsorted``; no host sync, as the kernel's counting
+    pass.  Returns the cells in key order and the (buckets + 1) bounds."""
     import torch
+
+    t = kernel_module("sbcn_tile").BUCKET_ROWS
+    nt = -(-n // t)
+    ia, ib = a[:, :, None].long(), b[:, None, :].long()
+    key = ((ia // t) * nt + ib // t) * t + ia % t
+    key = torch.where((ia >= 0) & (ib >= 0), key, torch.iinfo(torch.int64).max).reshape(-1)
+    sorted_key, cells = torch.sort(key)
+    return cells, torch.searchsorted(sorted_key, torch.arange(nt * nt + 1, device=a.device) * t)
+
+
+def bucketed_breakdown(fn, calls: int) -> dict:
+    """Device microseconds a call of each kernel (and memset) that ``fn``
+    launches, from ``torch.profiler`` over ``calls`` calls (empty where the
+    profiler records no device activity)."""
+    import re
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:  # "void (anonymous namespace)::name<...>(args)", "Memset (Device)"
+            m = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+            us[m.group(1) if m else e.name.strip()] += (e.time_range.end - e.time_range.start) / calls
+    return dict(us)
+
+
+SBCN_ROW_NAMES = {"dense": "sbcn_tile", "bucketed": "sbcn_tile_tiers", "loop": "sbcn_tile_loop",
+                  "direct": "sbcn_tile_direct"}
+
+
+def sbcn_tile_rows(x, calls: dict, launches: dict, smi: str, record: dict) -> list:
+    """``sbcn_tile`` on the embedding fit's own largest call on each path
+    of the kernel it took (``tile_dots.largest``; its first pairs, up to
+    SBCN_TIMED_CELLS cells; where the fit made no row-path call, one
+    row-path block of SBCN_DENSE_SHAPE on the fit's points, its
+    ``fit_call_pairs`` 0), beside its plain version, a library yardstick
+    (gather, then ``torch.bmm``: the same products in cuBLAS's order; on
+    the dense path that is ``mm`` a pair on the same gathered rows) and
+    its bound (2 d operations a real cell; each referenced row, the ids and
+    the products moved once); and the points' norms (the windows-of-32
+    pre-pass, ``point_norms``) on the fit's points beside their plain
+    version, ``torch.einsum`` and their bound.  ``ms`` and ``library_ms``
+    count the host's enqueue (``cuda_ms``), as every row of the
+    ``{"kernels": ...}`` line; ``device_ms`` and ``library_device_ms`` time
+    the card alone (``device_ms``); the call's bucketing is inside both.
+    The row-path block is timed on the dense path and on the bucketed path
+    forced (``bucketed_ms``); the bucketed call's kernels are broken down
+    by ``torch.profiler`` and its bucketing timed against ``sort_buckets``
+    (``torch.sort``).  Each row's launches are its path's in the fit
+    (``tile_dots.path_launches``).  Returns a row of the kernels line for
+    each path the fit launched, and for the norms."""
+    import torch
+
+    import numpy as np
 
     st = kernel_module("sbcn_tile")
     check(bool(calls), "the embedding fit called sbcn_tile")
     rows, out = {}, []
-    for kind in ("panel", "lanes"):
-        if kind not in calls:
-            continue
-        a, b = calls[kind]
+    n, d = x.shape
+    fit, calls = set(calls), dict(calls)
+    if "dense" not in calls:  # the fit made no row-path call: time one at the row path's shape on its points
+        rng = np.random.default_rng(SEED + 22)
+        calls["dense"] = tuple(torch.from_numpy(rng.integers(0, n, shape).astype(np.int32)).to(x.device)
+                               for shape in SBCN_DENSE_SHAPE) + ("batched",)
+    for path, (a, b, kind) in sorted(calls.items()):
         keep = max(1, SBCN_TIMED_CELLS // (a.shape[1] * b.shape[1]))
         a, b = a[:keep], b[:keep]
         cells = a.numel() * b.shape[1]
-        d = x.shape[1]
-        got, want = st.tile_dots(x, a, b), st.tile_dots_plain(x, a, b)
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)), f"sbcn_tile == plain on the fit's {kind} call")
-        ms = cuda_ms(lambda: st.tile_dots(x, a, b), 5)
-        plain_ms = cuda_ms(lambda: st.tile_dots_plain(x, a, b), 1, warm=False)
-        library_ms = cuda_ms(lambda: torch.bmm(x[a.clamp_min(0).long()], x[b.clamp_min(0).long()].transpose(1, 2)), 5)
+        got, want = st.tile_dots(x, a, b, kind), st.tile_dots_plain(x, a, b, kind=kind)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"sbcn_tile == plain on the fit's {path} call")
+        kernel = lambda: st.tile_dots(x, a, b, kind)  # noqa: E731
+        library = lambda: torch.bmm(x[a.clamp_min(0).long()], x[b.clamp_min(0).long()].transpose(1, 2))  # noqa: E731
+        dev_ms, library_dev_ms = device_ms(kernel, 10), device_ms(library, 10)
+        ms, library_ms = cuda_ms(kernel, 10), cuda_ms(library, 10)
+        plain_ms = cuda_ms(lambda: st.tile_dots_plain(x, a, b, kind=kind), 1, warm=False)
         real = int(((a >= 0)[:, :, None] & (b >= 0)[:, None, :]).sum())
         rows_read = int(torch.unique(torch.cat([a[a >= 0], b[b >= 0]])).numel())
         b_ms, b_by = bound(2.0 * d * real, 4.0 * (rows_read * d + a.numel() + b.numel() + cells))
-        rows[kind] = {"shape": [int(a.shape[0]), int(a.shape[1]), int(b.shape[1])], "d": d, "real_cells": real,
-                      "fit_call_pairs": int(calls[kind][0].shape[0]),
-                      "order": list(st.dot_order(int(a.shape[1]), int(b.shape[1]))), "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
-        out.append({"name": "sbcn_tile" if kind == "panel" else "sbcn_tile_tiers", "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/sbcn_tile.cu", "replaces": "src/repro/core/sbcn.py:53",
-                    "launches": launches["sbcn_tile"], "max_abs_err": float((got - want).abs().max()), "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
-        print(f"sbcn_tile on the embedding fit's largest {kind} call, {smi}: " + json.dumps(rows[kind]), flush=True)
-    n, d = x.shape
+        order = st.dot_order(int(a.shape[1]), int(b.shape[1]), d, kind)
+        rows[path] = {"shape": [int(a.shape[0]), int(a.shape[1]), int(b.shape[1])], "d": d, "kind": kind,
+                      "real_cells": real, "fit_call_pairs": int(calls[path][0].shape[0]) if path in fit else 0,
+                      "order": list(order), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "library_device_ms": library_dev_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+        if path == "dense":  # the same block through the bucketed path
+            forced = lambda: st.tile_dots(x, a, b, kind, path="bucketed")  # noqa: E731
+            check(torch.equal(forced().view(torch.int32), want.view(torch.int32)),
+                  "sbcn_tile's bucketed path == plain on the row-path block")
+            rows[path]["bucketed_ms"], rows[path]["bucketed_device_ms"] = cuda_ms(forced, 10), device_ms(forced, 10)
+        if path == "bucketed":  # its kernels, and its bucketing against torch.sort's
+            rows[path]["device_us_by_kernel"] = bucketed_breakdown(kernel, 5)
+            rows[path]["sort_buckets_device_ms"] = device_ms(lambda: sort_buckets(a, b, n), 10)
+        what = f"the embedding fit's largest {path} call" if path in fit else "a row-path block (the fit made none)"
+        print(f"sbcn_tile on {what}, {smi}: " + json.dumps(rows[path]), flush=True)
+        if path not in fit:  # not on the main path: in the record, not in the kernels line
+            continue
+        out.append({"name": SBCN_ROW_NAMES[path], "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/sbcn_tile.cu",
+                    "replaces": "src/repro/core/sbcn.py:" + ("109" if kind == "2d" else "53"),
+                    "launches": launches["sbcn_tile_paths"].get(path, 0),
+                    "max_abs_err": float((got - want).abs().max()), "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                    "library_device_ms": library_dev_ms})
     got, want = st.point_norms(x), st.point_norms_plain(x)
     check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "point_norms == plain on the fit's points")
-    ms = cuda_ms(lambda: st.point_norms(x), 5)
+    kernel, library = (lambda: st.point_norms(x)), (lambda: torch.einsum("ij,ij->i", x, x))
+    dev_ms, library_dev_ms = device_ms(kernel, 20), device_ms(library, 20)
+    ms, library_ms = cuda_ms(kernel, 20), cuda_ms(library, 20)
     plain_ms = cuda_ms(lambda: st.point_norms_plain(x), 1, warm=False)
-    library_ms = cuda_ms(lambda: torch.einsum("ij,ij->i", x, x), 5)
     b_ms, b_by = bound(2.0 * n * d, 4.0 * (n * d + n))
-    rows["norms"] = {"n": n, "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-                     "bound_by": b_by}
-    out.append({"name": "sbcn_norms", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+    rows["norms"] = {"n": n, "d": d, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_device_ms": library_dev_ms, "bound_ms": b_ms, "bound_by": b_by}
+    out.append({"name": "sbcn_norms", "route": "cuda", "source": "src/repro_torch/kernels/csrc/norms_win32.cuh",
                 "replaces": "src/repro/core/sbcn.py:48", "launches": launches["sbcn_norms"],
-                "max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": library_ms})
+                "max_abs_err": float((got - want).abs().max()), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "library_device_ms": library_dev_ms})
     print(f"point_norms (the SBCN norms) on the embedding fit's points, {smi}: " + json.dumps(rows["norms"]),
           flush=True)
     record["sbcn_tile"] = rows
@@ -953,7 +1060,8 @@ def kernel_resources(record: dict) -> None:
                           r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
                           r"edge_cascade_kernel|edge_cascade_prologue|"
                           r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel|"
-                          r"sbcn_dot_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                          r"sbcn_bucket_kernel|sbcn_cell_kernel|sbcn_dense_kernel|bucket_count_kernel|"
+                          r"bucket_plan_kernel|bucket_fill_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
                           u["function"])
             u["kernel"] = m.group(1) if m else u["function"]
             where = {"0": "device", "1": "shared"}
@@ -963,9 +1071,24 @@ def kernel_resources(record: dict) -> None:
             u["state_in"] = where[smem.group(1)] if smem else None
             sliced = "sliced" in u["kernel"] or "merge" in u["kernel"]  # the merge pass: the sliced instance's
             u["d"] = "sliced" if sliced else (int(m.group(2)) or "generic") if m and m.group(2) else None
-            if u["kernel"].startswith("sbcn_"):  # its template arguments: the lanes and whether they halve
-                u["sbcn_lanes"], u["d"] = u["d"], None
-                u["sbcn_halve"], u["state_in"] = u["state_in"] == "shared" if u["sbcn_lanes"] else None, None
+            if u["kernel"].startswith(("sbcn_", "bucket_")):  # template arguments: the lanes, whether they halve
+                lanes = int(m.group(2)) if m.group(2) else None  # 0: XLA's loop (sbcn_cell_kernel)
+                u["sbcn_lanes"], u["d"] = lanes, None
+                u["sbcn_halve"], u["state_in"] = u["state_in"] == "shared" if lanes else None, None
+                if u["kernel"] == "sbcn_bucket_kernel":  # resident blocks, threads, shared bytes, cells a thread
+                    occ = (ctypes.c_int * 4)()
+                    fn = _build.load("sbcn_tile").repro_sbcn_tile_occupancy
+                    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+                    check(fn(lanes, int(u["sbcn_halve"]), occ) == 0, "sbcn_tile's occupancy query")
+                    u.update(blocks_per_sm=occ[0], threads=occ[1], smem=occ[2], cells_a_thread=occ[3])
+                elif u["kernel"] == "sbcn_dense_kernel":
+                    u.update(threads=256, smem=2 * 32 * 68 * 4)
+                usage.append(u)
+                continue
+            if u["kernel"] == "norms_win32_kernel":  # rows staged a block at d = 1536 (NormPlan)
+                w = -(-WIDE_WIDTHS[-1] // 32)
+                u.update(threads=256, rows_a_block=min(64, 12288 // (34 * w)),
+                         smem=min(64, 12288 // (34 * w)) * 34 * w * 4)
                 usage.append(u)
                 continue
             second = int(m.group(2 if sliced else 3)) if m and m.group(2 if sliced else 3) else None
@@ -1166,11 +1289,13 @@ def cascade_times(fits: dict, counts: dict, record: dict) -> dict:
     (``cuda_ms``, ``wrapper_ms``), beside the plain
     version and the bound; and the kmax = 16 stage 1 with no checks
     (k_check = 0: the prologue and the d2, w2 and certificate alone).
-    Returns the kmax = 16 kernel row's numbers."""
+    Returns the kmax = 16 kernel row's numbers: ``ms`` with the host's
+    enqueue, as every row of the ``{"kernels": ...}`` line, ``device_ms``
+    the card alone."""
     from repro_torch.kernels import fused_cascade as fc, ops
 
     per_stage, by_lanes = [], {}
-    row = {"ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    row = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
     for kmax, (base, stages) in fits.items():
         n, d = base[0].shape
         order = ops.sum_order(d, "cascade")
@@ -1188,7 +1313,8 @@ def cascade_times(fits: dict, counts: dict, record: dict) -> dict:
                               "certified": cert, "lanes": fc.pick_lanes(k_check), "ms": t_k, "wrapper_ms": t_w,
                               "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "ms_by_lanes": by_g})
             if kmax == KMAX:
-                row["ms"] += t_k
+                row["ms"] += t_w
+                row["device_ms"] += t_k
                 row["plain_ms"] += t_p
                 row["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
                 row["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
@@ -1767,16 +1893,20 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
         job = start_cpu_fit(pool, x_c, KMAX_EMBED)
         pt.pairwise_topk.launches = fc.edge_cascade.launches = lf.lune_filter.launches = 0
         sl.single_linkage.launches = st.tile_dots.launches = st.point_norms.launches = 0
-        st.tile_dots.largest.clear()
+        st.tile_dots.path_launches.clear()
+        st.tile_dots.record = True  # keep the fit's largest call a path
         t0 = time.monotonic()
         est = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x)
         views = est.select_all()
         torch.cuda.synchronize()
         rec["fit_s"] = time.monotonic() - t0
+        st.tile_dots.record = False
         launches = {"pairwise_topk": pt.pairwise_topk.launches, "edge_cascade": fc.edge_cascade.launches,
                     "single_linkage": sl.single_linkage.launches, "lune_filter": lf.lune_filter.launches,
-                    "sbcn_tile": st.tile_dots.launches, "sbcn_norms": st.point_norms.launches}
+                    "sbcn_tile": st.tile_dots.launches, "sbcn_norms": st.point_norms.launches,
+                    "sbcn_tile_paths": dict(st.tile_dots.path_launches)}
         calls = dict(st.tile_dots.largest)
+        st.tile_dots.largest.clear()
         est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
         views_g = est_g.select_all()
         x_x = x[:N_DOCS_EXACT]
@@ -2938,7 +3068,7 @@ def main(argv: list[str]) -> int:
         "source": "src/repro_torch/kernels/csrc/edge_cascade.cu",
         "replaces": "src/repro/kernels/fused_cascade.py:129",
         "launches": launches["edge_cascade"], "max_abs_err": casc_err,
-        "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": max(c["ops_ms"], c["bytes_ms"]),
         "bound_by": "operations" if c["ops_ms"] >= c["bytes_ms"] else "bytes",
         "library_ms": None,

@@ -23,8 +23,6 @@ is the same, and the keys are sorted before anyone reads them.
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
@@ -64,21 +62,23 @@ def point_norms(x):
     return sbcn_tile.point_norms(x) if x.shape[1] > sbcn_tile.EXACT_ORDER_D else None
 
 
-def _mrd_tile(x, cd2k, a_idx, b_idx, xn=None):
+def _mrd_tile(x, cd2k, a_idx, b_idx, xn=None, kind="batched"):
     """(P, A, B) squared mrd tile (inf on padded cells) + its tie tolerance.
 
     a_idx (P, A) / b_idx (P, B) point ids padded with -1.  Matmul-form d2,
     as the reference's ``_mutual_mask`` computes it.  With ``xn`` (the
     points' norms from ``point_norms``, d > 256) the norms and the dot
     carry the reference's float32 bits (``kernels.sbcn_tile``: the kernel
-    on the card, its plain version on the CPU); without, torch's own sums,
-    whose candidates equal the reference's on every fixture up to d = 100.
+    on the card, its plain version on the CPU; ``kind`` names the product
+    the reference computes, ``sbcn_tile.dot_order``); without, torch's own
+    sums, whose candidates equal the reference's on every fixture up to
+    d = 100.
     """
     eps = torch.tensor(_EPS, dtype=torch.float32, device=x.device)
     if xn is not None:
         an = xn[a_idx.clamp_min(0).long()]
         bn = xn[b_idx.clamp_min(0).long()]
-        dot = sbcn_tile.tile_dots(x, a_idx, b_idx)
+        dot = sbcn_tile.tile_dots(x, a_idx, b_idx, kind)
     else:
         xa = x[a_idx.clamp_min(0).long()].float()
         xb = x[b_idx.clamp_min(0).long()].float()
@@ -96,9 +96,9 @@ def _mrd_tile(x, cd2k, a_idx, b_idx, xn=None):
     return mrd2, tol
 
 
-def _mutual_mask(x, cd2k, a_idx, b_idx, xn=None):
+def _mutual_mask(x, cd2k, a_idx, b_idx, xn=None, kind="batched"):
     """(P, A, B) bool SBCN mask for one batch of padded pairs."""
-    mrd2, tol = _mrd_tile(x, cd2k, a_idx, b_idx, xn)
+    mrd2, tol = _mrd_tile(x, cd2k, a_idx, b_idx, xn, kind)
     row_min = mrd2.amin(dim=2, keepdim=True)
     col_min = mrd2.amin(dim=1, keepdim=True)
     return (mrd2 <= row_min + tol) & (mrd2 <= col_min + tol) & torch.isfinite(mrd2)
@@ -309,9 +309,10 @@ def cascade_candidates(
 # ---------------------------------------------------------------------------
 
 
-def _sbcn_tier_chunk(x, cd2k, a_idx, b_idx, xn=None):
-    """One tier chunk -> flat (lo, hi) candidate slots, sentinel off-mask."""
-    mutual = _mutual_mask(x, cd2k, a_idx, b_idx, xn)
+def _sbcn_tier_chunk(x, cd2k, a_idx, b_idx, xn=None, kind="batched"):
+    """One tier chunk -> flat (lo, hi) candidate slots, sentinel off-mask;
+    ``kind`` is ``"single"`` where the reference's chunk is one pair."""
+    mutual = _mutual_mask(x, cd2k, a_idx, b_idx, xn, kind)
     lo = torch.minimum(a_idx[:, :, None], b_idx[:, None, :])
     hi = torch.maximum(a_idx[:, :, None], b_idx[:, None, :])
     return (
@@ -325,7 +326,8 @@ def _sbcn_large(x, cd2k, a_idx, b_idx, *, row_chunk: int = _ROW_CHUNK, xn=None):
     the column minima, pass 2 re-evaluates each chunk against them.  The
     reference pads the rows to whole chunks of ``min(row_chunk, na)``, so
     its 2-D products have that many rows; a ragged last chunk here
-    pads likewise."""
+    pads likewise.  Each chunk's product is the reference's 2-D
+    ``xa @ xb.T`` (``sbcn_tile.dot_order``'s ``"2d"``)."""
     b2 = b_idx[None]
     rc = min(row_chunk, a_idx.shape[0])
     pad = -a_idx.shape[0] % rc
@@ -333,11 +335,11 @@ def _sbcn_large(x, cd2k, a_idx, b_idx, *, row_chunk: int = _ROW_CHUNK, xn=None):
     chunks = [a_pad[None, r0 : r0 + rc] for r0 in range(0, a_pad.shape[0], rc)]
     col_min = None
     for ac in chunks:
-        cm = _mrd_tile(x, cd2k, ac, b2, xn)[0].amin(dim=1, keepdim=True)
+        cm = _mrd_tile(x, cd2k, ac, b2, xn, "2d")[0].amin(dim=1, keepdim=True)
         col_min = cm if col_min is None else torch.minimum(col_min, cm)
     masks = []
     for ac in chunks:
-        m, tol = _mrd_tile(x, cd2k, ac, b2, xn)
+        m, tol = _mrd_tile(x, cd2k, ac, b2, xn, "2d")
         row_min = m.amin(dim=2, keepdim=True)
         masks.append(((m <= row_min + tol) & (m <= col_min + tol) & torch.isfinite(m))[0])
     return torch.cat(masks)[: a_idx.shape[0]]
@@ -388,7 +390,6 @@ def sbcn_candidates(
         los.append(_dev(np.minimum(pa, pb), dev))
         his.append(_dev(np.maximum(pa, pb), dev))
 
-    guessed = 0  # pairs whose tiles take an order not read from XLA
     rest = np.nonzero(~ss)[0]
     if len(rest):
         al, bl = a_len[rest], b_len[rest]
@@ -405,19 +406,15 @@ def sbcn_candidates(
             a_pad = _dev(_padded_gather(perm, a_start[sel], a_len[sel], kaa, len(sel)), dev)
             b_pad = _dev(_padded_gather(perm, b_start[sel], b_len[sel], kbb, len(sel)), dev)
             chunk = max(1, min(tile_elems // (kaa * kbb), _pow2_ceil(len(sel))))
-            if xn is not None and not sbcn_tile.order_known(kaa, kbb, int(x.shape[1]), chunk):
-                guessed += len(sel)
+            kind = "single" if chunk == 1 else "batched"
             for c0 in range(0, len(sel), chunk):
                 lo_c, hi_c = _sbcn_tier_chunk(
-                    x, cd2_kmax, a_pad[c0 : c0 + chunk], b_pad[c0 : c0 + chunk], xn
+                    x, cd2_kmax, a_pad[c0 : c0 + chunk], b_pad[c0 : c0 + chunk], xn, kind
                 )
                 los.append(lo_c)
                 his.append(hi_c)
         for gi in np.nonzero(big)[0]:
             sel = rest[gi]
-            if xn is not None and not sbcn_tile.order_known(min(int(a_len[sel]), row_chunk), int(b_len[sel]),
-                                                             int(x.shape[1]), 1):
-                guessed += 1
             a = _dev(perm[a_start[sel] : a_start[sel] + a_len[sel]].astype(np.int32), dev)
             b = _dev(perm[b_start[sel] : b_start[sel] + b_len[sel]].astype(np.int32), dev)
             mutual = _sbcn_large(x, cd2_kmax, a, b, row_chunk=row_chunk, xn=xn)
@@ -425,14 +422,6 @@ def sbcn_candidates(
             hi = torch.maximum(a[:, None], b[None, :])
             los.append(torch.where(mutual, lo, _SENTINEL).reshape(-1))
             his.append(torch.where(mutual, hi, _SENTINEL).reshape(-1))
-    if guessed:
-        warnings.warn(
-            f"SBCN slot path at d={int(x.shape[1])}: the tiles of {guessed} pair(s) take a float32 order "
-            "that was not read from XLA (sbcn_tile.order_known); their candidates may differ from the "
-            "reference's at near-ties",
-            RuntimeWarning,
-            stacklevel=2,
-        )
 
     empty = (
         torch.zeros((0,), dtype=torch.int32, device=dev),

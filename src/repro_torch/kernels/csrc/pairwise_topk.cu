@@ -70,15 +70,15 @@
 // and a tile's columns feed the lists of its keys' rows as its rows feed
 // its own: half the products (n = 4000: 528 tiles, four waves of 132).
 // Past that budget the keys are split across blocks instead, so that the
-// 32 row tiles of n = 4000 fill the card.  |x|^2 comes from a pre-pass, a
-// warp a row, once a call.
+// 32 row tiles of n = 4000 fill the card.  |x|^2 comes from a pre-pass
+// (norms_win32.cuh: rows staged a block at a time), once a call.
 //
 // Arithmetic per pair, in the reference's order: d2 = fmaxf((qn + kn) -
 // 2 dot, 0), with the norms and the dot product summed as XLA on the CPU
 // sums the reference's top-K (its Pallas kernel in interpret mode, and its
 // jnp twin): |x|^2 as an fmaf chain in index order at d = 2-4 and 9-32,
 // unfused in index order at d = 5-8, and in XLA's windows of 32
-// (xla_order.cuh) above 32 (kernels/ops.py::sum_order, program "topk");
+// (norms_win32.cuh) above 32 (kernels/ops.py::sum_order, program "topk");
 // q.k as one fmaf chain in index order per PANEL = 512 floats of d, each
 // chain starting from its first product, and the panel sums added in order
 // (kernels/pairwise_topk.py::PANEL says where 512 comes from).  Products
@@ -91,7 +91,7 @@
 #include <math_constants.h>
 
 #include "cp_async.cuh"
-#include "xla_order.cuh"
+#include "norms_win32.cuh"
 
 namespace {
 
@@ -110,7 +110,6 @@ constexpr int STAGES = 2;                // slices in flight
 constexpr int PANEL = 512;               // one fmaf chain per PANEL floats of d; BK divides it
 constexpr int SD2 = BN + 1;              // row stride of the d2 tile: rows and columns read conflict-free
 constexpr int STAGE_FLOATS = STAGES * (BM + BN) * BKP;
-constexpr int NORM_WARPS = 4;            // rows a block of the norms' pre-pass
 constexpr int UNION_FLOATS = TM * TN * THREADS > BM * SD2 ? TM * TN * THREADS : BM * SD2;
 constexpr size_t SLICED_SMEM = (size_t)(STAGE_FLOATS + UNION_FLOATS + BM) * sizeof(float);
 static_assert(PANEL % BK == 0, "a panel ends on a slice boundary");
@@ -145,36 +144,6 @@ __device__ __forceinline__ float norm_of(const float (&v)[D]) {
     for (int j = 0; j < D; ++j) s = fmaf(v[j], v[j], s);
     return s;
   }
-}
-
-// |x|^2 of each row in XLA's windows of 32 (kernels/ops.py::sum_sq_win32),
-// the pre-pass of the d > 32 instances: a warp a row; lane l sums the
-// first-level windows l, l + 32, ... in index order, and lane 0 sums the
-// window sums in the tree's order
-__global__ void __launch_bounds__(NORM_WARPS * 32) norms_win32_kernel(
-    const float* __restrict__ x, int n, int d, float* __restrict__ out) {
-  extern __shared__ float wsum[];  // (NORM_WARPS, W): the window sums
-  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
-  const int row = blockIdx.x * NORM_WARPS + wib;
-  if (row >= n) return;  // warp-uniform
-  const int w_n = (d + 31) / 32, pad = (32 * w_n - d) / 2;
-  const float* r = x + (size_t)row * d;
-  float* ws = wsum + wib * w_n;
-  for (int w = lane; w < w_n; w += 32) {
-    const int j0 = max(0, 32 * w - pad), j1 = min(d, 32 * w + 32 - pad);
-    float s = __fmul_rn(r[j0], r[j0]);
-    for (int j = j0 + 1; j < j1; ++j) s = __fadd_rn(s, __fmul_rn(r[j], r[j]));
-    ws[w] = s;
-  }
-  __syncwarp();
-  if (lane == 0) out[row] = tree_sum([&](int w) { return ws[w]; }, w_n);
-}
-
-int launch_norms(const float* x, int n, int d, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)NORM_WARPS * ((d + 31) / 32) * sizeof(float);
-  if (smem > (size_t)SMEM_DEFAULT) return (int)cudaErrorInvalidValue;  // d > 98304
-  norms_win32_kernel<<<(n + NORM_WARPS - 1) / NORM_WARPS, NORM_WARPS * 32, smem, stream>>>(x, n, d, out);
-  return (int)cudaGetLastError();
 }
 
 // Merge key c into the warp's sorted list (entry p in lane p / S, slot

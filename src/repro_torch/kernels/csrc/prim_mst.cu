@@ -292,7 +292,10 @@ __global__ void __launch_bounds__(MAX_THREADS) prim_mst_kernel(
 // The step floor: the key exchange of prim_mst_kernel alone (each block's
 // warp 0 pushes an 8-byte key to every block, every block waits on its
 // mbarrier and reduces the C keys), `steps` times, at the same cluster
-// shape; no update, no block reduction, no cd2 or coordinates.
+// shape, with its block barrier a step; no update, no warp reduction of
+// candidates, no cd2 or coordinates.  The barrier keeps every warp within
+// one step of warp 0: a warp two phases behind would wait on the parity of
+// a later phase and read slots that warp 0's next pushes overwrite.
 __global__ void __launch_bounds__(MAX_THREADS) prim_mst_floor_kernel(int steps, unsigned* __restrict__ out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
@@ -309,6 +312,7 @@ __global__ void __launch_bounds__(MAX_THREADS) prim_mst_floor_kernel(int steps, 
   unsigned long long key = 0;
   for (int step = 0; step < steps; ++step) {
     const int par = step & 1;
+    __syncthreads();  // every warp has read the last step's slots
     if (tid == 0) mbar_expect_tx(&bars[par], (unsigned)(C * sizeof(unsigned long long)));
     if (tid < 32 && lane < C)
       push_u64(&slots[par * C + r], ((unsigned long long)(step * 2654435761u + (unsigned)r) << 32) | (unsigned)key,

@@ -3,22 +3,21 @@
 
 XLA hands the reference's tier einsum ``"pad,pbd->pab"`` and the row
 path's 2-D products to YNNPACK, whose kernel depends on the tile: the bits
-of ``tile_dots_plain`` under ``dot_order(A, B)`` are held to XLA's own
+of ``tile_dots_plain`` under ``dot_order(A, B, d)`` are held to XLA's own
 output for every tier of the fused path, for the slot path's wider tiles,
 on ragged widths (tails of one to seven products) and across 512- and
-1024-deep slices; ``point_norms_plain`` to ``jnp.sum(x * x, -1)`` under
-``jit``.  Where ``order_known`` says the order is a guess, XLA's bits do
-differ and the slot path warns.  The reference's own ``_tier_emit`` and
+1024-deep slices; the slot path's products too: ``_sbcn_large``'s 2-D
+chunks, single pairs at a = 1 (XLA's own loop, ``sbcn_tile.LOOP``, at
+every remainder of d % 32) and odd last slices; ``point_norms_plain`` to
+``jnp.sum(x * x, -1)`` under ``jit``.  The slot path's candidates equal
+the reference's.  The reference's own ``_tier_emit`` and
 ``_rowpath_emit`` then give the port's keys and counters on
 embedding-like inputs, where the torch products miss by a candidate.
-Last, the CUDA source (``csrc/sbcn_tile.cu``) runs on the CPU through
-``tools/cuda_emulate`` and equals the plain version bit for bit, padded
-cells included.
+The CUDA sources run on the CPU in ``test_torch_sbcn_kernels.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import importlib
 import os
 import sys
@@ -29,10 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-from tools import cuda_emulate  # noqa: E402
 
 from repro.core import sbcn as j_sbcn  # noqa: E402
 from repro.train.data import embedding_stream  # noqa: E402
@@ -74,7 +69,6 @@ def test_tile_dots_match_xla_batched_dot(tile, d):
     the 8-lane one (d = 1100, 1099, 326 at A = 1) an FMA chain, and the
     (A >= 2, 32) tiles' 2 lanes over 1024-deep slices."""
     a, b = tile
-    assert st.order_known(a, b, d, 24)
     rng = np.random.default_rng(d + 7 * a + b)
     n, P = 64, 24
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -85,40 +79,104 @@ def test_tile_dots_match_xla_batched_dot(tile, d):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("batch,tile,d", [(1, (1, 8), 320), (1, (1, 2), 1536), (8, (2, 32), 1101),
-                                          (1, (3, 600), 320), (1, (512, 600), 1536)])
-def test_guessed_orders_differ_from_xla_and_are_flagged(batch, tile, d):
-    """Where ``order_known`` is False, XLA's bits differ from
-    ``dot_order``'s: single pairs at A = 1, the (A >= 2, 32) tiles at odd
-    d past one slice, and the slot path's oversized pairs (P = 1, sides
-    not powers of two)."""
+def _cells(rng, rc: int, nb: int, m: int = 1500):
+    """Sampled (row, column) cells of an (rc, nb) product: random ones and
+    the last rows and columns, where a tiling's edge tiles fall."""
+    ci = np.concatenate([rng.integers(0, rc, m), np.full(64, rc - 1), np.arange(64) % rc])
+    cj = np.concatenate([rng.integers(0, nb, m), np.arange(nb - 64, nb), np.full(64, nb - 1)])
+    return ci.astype(np.int32), cj.astype(np.int32)
+
+
+@pytest.mark.parametrize("rc,nb,d", [(3, 600, 320), (512, 600, 1536), (100, 700, 320), (2048, 2100, 320),
+                                     (2048, 2080, 1536), (2, 1000, 1536), (17, 513, 1101), (5, 4000, 777),
+                                     (1, 600, 320), (1, 1000, 1536), (1, 513, 1101), (3, 544, 4097),
+                                     (1, 600, 4097)])
+def test_sbcn_large_chunks_match_xla_2d_dot(rc, nb, d):
+    """``_sbcn_large``'s products (the reference's 2-D ``xa @ xb.T`` over
+    a chunk of rc = min(2048, na) rows): the library's lanes follow the
+    columns (2 lanes at nb = 600, 2080 and 4000, one chain at 700 and
+    2100, 4 lanes at 513 and 1000, each in its slices, the tail after
+    them); a single row takes XLA's own loop below d = 4096 and one FMA
+    chain from there."""
+    rng = np.random.default_rng(rc + nb + d)
+    x = rng.normal(size=(rc + nb, d)).astype(np.float32)
+    want = _DOT2D(x[:rc], x[rc:])
+    order = st.dot_order(rc, nb, d, "2d")
+    assert (order == st.LOOP) == (rc == 1 and d < st.LOOP_MAX_D)
+    ci, cj = _cells(rng, rc, nb)
+    got = st.tile_dots_plain(torch.from_numpy(x), torch.from_numpy(ci)[:, None], torch.from_numpy(rc + cj)[:, None],
+                             order)
+    np.testing.assert_array_equal(_bits(got[:, 0, 0]), _bits(np.asarray(want)[ci, cj]))
+
+
+@pytest.mark.parametrize("tile,d", [((1, 8), 320), ((1, 2), 1536), ((1, 512), 777), ((1, 64), 1101),
+                                    ((1, 4), 4097), ((2, 8), 1536)])
+def test_single_pairs_match_xla_einsum(tile, d):
+    """A tier of one pair (the reference's chunk of 1): at a = 1 XLA's own
+    loop (``LOOP``) below d = 4096, the batched kernel's 8 lanes from
+    there; at a >= 2 the batched order."""
     a, b = tile
-    assert not st.order_known(a, b, d, batch)
     rng = np.random.default_rng(d + a + b)
-    n = b + 64
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    ai = rng.integers(0, n, (batch, a)).astype(np.int32)
-    bi = rng.integers(0, n, (batch, b)).astype(np.int32)
-    want = _EINSUM(x[ai], x[bi])
+    x = rng.normal(size=(b + 64, d)).astype(np.float32)
+    ai = rng.integers(0, b + 64, (1, a)).astype(np.int32)
+    bi = rng.integers(0, b + 64, (1, b)).astype(np.int32)
+    got = st.tile_dots_plain(torch.from_numpy(x), torch.from_numpy(ai), torch.from_numpy(bi), kind="single")
+    np.testing.assert_array_equal(_bits(got), _bits(_EINSUM(x[ai], x[bi])))
+
+
+@pytest.mark.parametrize("tile,batch,d", [((2, 32), 8, 1101), ((4, 32), 8, 1101), ((2, 32), 2, 1027),
+                                          ((8, 32), 4, 1537), ((4, 8), 4, 5000), ((2, 4), 2, 8200)])
+def test_odd_last_slices_match_xla_einsum(tile, batch, d):
+    """The (a >= 2, 32) tiers past one 1024-deep slice with an odd last
+    slice: the 2 lanes run over d - 1 products in slices, the last product
+    after them; and the 4-lane tiers in slices of 32768 / b past 4096."""
+    a, b = tile
+    rng = np.random.default_rng(d + batch + a)
+    x = rng.normal(size=(96, d)).astype(np.float32)
+    ai = rng.integers(0, 96, (batch, a)).astype(np.int32)
+    bi = rng.integers(0, 96, (batch, b)).astype(np.int32)
     got = st.tile_dots_plain(torch.from_numpy(x), torch.from_numpy(ai), torch.from_numpy(bi))
-    assert (_bits(got) != _bits(want)).any()
+    np.testing.assert_array_equal(_bits(got), _bits(_EINSUM(x[ai], x[bi])))
 
 
-def test_the_slot_path_warns_on_guessed_orders():
-    """Every pair oversized (``pair_cap=1``) at d = 320: the slot path
-    warns; at a pair cap that keeps the pairs in known tiers it does not."""
-    rng = np.random.default_rng(3)
-    n, d = 40, 320
-    xt = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
-    cd = torch.zeros(n)
-    perm = np.arange(n)
-    a_start, a_len = np.array([0, 10]), np.array([3, 2])
-    b_start, b_len = np.array([20, 30]), np.array([7, 8])
-    with pytest.warns(RuntimeWarning, match="not read from XLA"):
-        t_sbcn.sbcn_candidates(xt, cd, perm, a_start, a_len, b_start, b_len, pair_cap=1)
+@pytest.mark.parametrize("d", [32 * t + r for t in (9, 24) for r in range(32)])
+def test_xla_loop_matches_every_remainder(d):
+    """XLA's own loop (``LOOP``), unrolled (9 steps of 32) and looped (24),
+    at each of the 32 remainders d % 32 (``LOOP_EPILOGUE``)."""
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(9, d)).astype(np.float32)
+    got = st.tile_dots_plain(torch.from_numpy(x), torch.zeros((1, 1), dtype=torch.int32),
+                             torch.arange(1, 9, dtype=torch.int32)[None], st.LOOP)
+    np.testing.assert_array_equal(_bits(got), _bits(_EINSUM(x[None, :1], x[None, 1:])))
+
+
+@pytest.mark.parametrize("d,pair_cap", [(320, 1), (1536, 1), (320, None), (1536, None)])
+def test_the_slot_path_matches_the_reference(d, pair_cap):
+    """``sbcn_candidates`` on ``embedding_stream`` points with
+    near-duplicates: every pair oversized (``pair_cap=1``: 2-D chunks, the
+    one-row ones in XLA's loop) or in its tier (single pairs at a = 1 and
+    batched tiers): no warning, and ``(lo, hi, keep)`` equal to the
+    reference's."""
+    n = 400
+    x = embedding_stream(5, n, d)
+    x[-30:] = x[:30] + np.random.default_rng(d).normal(0, 1e-3, x[:30].shape).astype(np.float32)
+    cd = np.zeros(n, np.float32)
+    perm = np.random.default_rng(1).permutation(n)
+    # one (1, 8) tier pair, one (1, 2), two (2, 32), and 3 x 600-ish pairs past the tiers
+    a_start = np.array([0, 1, 2, 4, 6, 10, 100])
+    a_len = np.array([1, 1, 2, 2, 1, 3, 90])
+    b_start = np.array([200, 210, 220, 260, 20, 120, 210])
+    b_len = np.array([7, 2, 30, 32, 190, 100, 190])
+    kw = {} if pair_cap is None else {"pair_cap": pair_cap}
+    want = j_sbcn.sbcn_candidates(jnp.asarray(x), jnp.asarray(cd), perm, a_start, a_len, b_start, b_len, **kw)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        t_sbcn.sbcn_candidates(xt, cd, perm, a_start, a_len, b_start, b_len)
+        got = t_sbcn.sbcn_candidates(torch.from_numpy(x), torch.from_numpy(cd), perm, a_start, a_len, b_start,
+                                     b_len, **kw)
+    keep_j, keep_t = np.asarray(want[2]), got[2].numpy()
+    assert keep_t.sum() == keep_j.sum() > 0
+    for w, g in zip(want[:2], got[:2]):
+        np.testing.assert_array_equal(g.numpy()[keep_t], np.asarray(w)[keep_j])
 
 
 @pytest.mark.parametrize("shape", [(32, 64), (64, 128), (256, 64)])
@@ -131,7 +189,7 @@ def test_tile_dots_match_xla_2d_dot(shape):
     want = _DOT2D(x[:rc], x[rc:])
     ai = np.arange(rc, dtype=np.int32)[None]
     bi = np.arange(rc, rc + nb, dtype=np.int32)[None]
-    assert st.dot_order(rc, nb) == (1, False, 512)
+    assert st.dot_order(rc, nb, 1536) == (1, False, 512)
     got = st.tile_dots_plain(torch.from_numpy(x), torch.from_numpy(ai), torch.from_numpy(bi))[0]
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
@@ -186,43 +244,3 @@ def test_the_torch_products_stay_up_to_256():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         st.tile_dots(torch.zeros((2, 4), device="meta"), torch.zeros((1, 1), dtype=torch.int32),
                      torch.zeros((1, 1), dtype=torch.int32))
-
-
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    if cuda_emulate.compiler() is None:
-        pytest.skip("no g++ to build the emulated kernel")
-    lib = ctypes.CDLL(str(cuda_emulate.build("sbcn_tile", tmp_path_factory.mktemp("cuda_emulate"))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_sbcn_tile_dots.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p]
-    lib.repro_sbcn_tile_dots.restype = i
-    return lib
-
-
-@pytest.mark.parametrize("d", [9, 323, 1100])
-def test_cuda_source_equals_the_plain_version(emulated, d):
-    """Every template instance (8, 4, 2 and 1 lanes, halved and pairwise,
-    with and without slices, ragged tails in the last slice), tiles packed
-    several to a block and tiles split into 16 x 16 blocks, padded ids:
-    bit-equal."""
-    rng = np.random.default_rng(d)
-    n = 50
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    for a_w, b_w, order in ((1, 2, None), (1, 8, None), (2, 2, None), (4, 8, None), (4, 4, (4, True, 0)),
-                            (20, 40, None), (3, 17, (1, False, 32)), (2, 32, None), (2, 3, (2, False, 32)),
-                            (1, 5, (8, False, 64))):
-        order = order or st.dot_order(a_w, b_w)
-        P = 5
-        a = rng.integers(-1, n, (P, a_w)).astype(np.int32)
-        b = rng.integers(-1, n, (P, b_w)).astype(np.int32)
-        out = np.full((P, a_w, b_w), np.nan, np.float32)
-        status = emulated.repro_sbcn_tile_dots(x.ctypes.data, d, a.ctypes.data, b.ctypes.data, P, a_w, b_w,
-                                               order[0], int(order[1]), order[2], out.ctypes.data, None)
-        assert status == 0
-        want = st.tile_dots_plain(torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b), order)
-        np.testing.assert_array_equal(_bits(out), _bits(want), err_msg=f"{(a_w, b_w)} {order}")
-    out = np.zeros(1, np.float32)
-    for lanes, panel in ((3, 0), (2, 48)):  # no such instance; a slice that is not a multiple of 32
-        bad = emulated.repro_sbcn_tile_dots(x.ctypes.data, d, x.ctypes.data, x.ctypes.data, 1, 1, 1, lanes, 0, panel,
-                                            out.ctypes.data, None)
-        assert bad != 0

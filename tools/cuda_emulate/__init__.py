@@ -1,11 +1,12 @@
 """Build the port's chain kernels (``csrc/prim_mst.cu``,
-``csrc/single_linkage.cu``) and the SBCN tile products
-(``csrc/sbcn_tile.cu``) for the CPU with g++ and the emulation headers in
-``include/``: every CUDA thread runs as a ``std::thread``, so the kernels'
-barriers, warp reductions and pushes between the blocks of a thread-block
-cluster run as they would on the card.  The C entry points keep their signatures, so a
-test calls them with ``ctypes`` on host buffers and holds their outputs to
-the plain PyTorch versions.
+``csrc/single_linkage.cu``), the SBCN tile products (``csrc/sbcn_tile.cu``)
+and the windows-of-32 norms (``csrc/norms_win32.cuh``) for the CPU with
+g++ and the emulation headers in ``include/``: every CUDA thread runs as a
+``std::thread``, so the kernels' barriers, warp reductions, atomics,
+mbarrier rings and pushes between the blocks of a thread-block cluster run
+as they would on the card.  The C entry points keep their signatures, so
+a test calls them with ``ctypes`` on host buffers and holds their outputs
+to the plain PyTorch versions.
 
     from tools import cuda_emulate
     lib = ctypes.CDLL(str(cuda_emulate.build("prim_mst", out_dir)))
@@ -13,7 +14,9 @@ the plain PyTorch versions.
 It checks the kernels' logic (indices, plans, the cluster protocol, the
 union-find), not their speed, nor what only the card's compiler and memory
 model decide.  ``build`` rewrites the few constructs that have no C++
-counterpart (shared-memory declarations, ``<<<...>>>`` launches) and raises
+counterpart (shared-memory declarations, ``<<<...>>>`` launches; the
+emulated ``cp_async.cuh``, ``stage_ring.cuh`` and ``dsmem.cuh`` in
+``include/`` stand in for csrc's) and raises
 if a source no longer holds one it expects.
 """
 
@@ -28,6 +31,10 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 INCLUDE = Path(__file__).resolve().parent / "include"
 
+# kernel<<<grid, block, smem, stream>>>(...) -> stub_launch(kernel, grid, block, smem, stream, ...)
+_LAUNCH = r"(\w+(?:<[\w, ]*>)?)<<<(.+?)>>>\("
+_STUB_LAUNCH = r"stub_launch(\1, \2, "
+
 # (pattern, replacement) pairs each source must match at least once
 REWRITES = {
     "prim_mst": [
@@ -37,12 +44,27 @@ REWRITES = {
     ],
     "single_linkage": [
         (r"extern __shared__ __align__\(16\) int smem\[\];", "int* smem = (int*)stub_dyn_smem();"),
-        (r"(single_linkage_kernel<\w+>)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(", r"stub_run(\1, \2, \3, \4, 1, "),
+        (_LAUNCH, _STUB_LAUNCH),
     ],
     "sbcn_tile": [
-        (r"extern __shared__ float smem\[\];", "float* smem = (float*)stub_dyn_smem();"),
-        (r"(sbcn_dot_kernel<L, HALVE>)<<<([^,]+), ([^,]+), ([^,]+), s>>>\(", r"stub_run(\1, \2, \3, \4, 1, "),
+        (r"extern __shared__ __align__\(16\) unsigned long long ring_smem\[\];",
+         "unsigned long long* ring_smem = (unsigned long long*)stub_dyn_smem();"),
+        (r"__shared__ __align__\(16\) float (s[ab])\[KC \* DROW\];", r"STUB_SHARED(float, \1, KC * DROW);"),
+        (r"__shared__ int s_cells\[1024\], s_items\[1024\];",
+         "STUB_SHARED(int, s_cells, 1024); STUB_SHARED(int, s_items, 1024);"),
+        (r"__shared__ int s_sub\[T\];", "STUB_SHARED(int, s_sub, T);"),
+        (r"__shared__ int hist\[HIST_MAX\];", "STUB_SHARED(int, hist, HIST_MAX);"),
+        (_LAUNCH, _STUB_LAUNCH),
     ],
+    "norms_win32": [
+        (r"extern __shared__ __align__\(16\) float nsm\[\];", "float* nsm = (float*)stub_dyn_smem();"),
+        (_LAUNCH, _STUB_LAUNCH),
+    ],
+}
+# a header without an entry point of its own gets one (extern "C")
+ENTRIES = {
+    "norms_win32": 'extern "C" int repro_norms_win32(const float* x, int n, int d, float* out) '
+                   "{ return launch_norms(x, n, d, out, nullptr); }\n",
 }
 
 
@@ -52,9 +74,12 @@ def compiler() -> str | None:
 
 
 def build(name: str, out_dir: Path) -> Path:
-    """Rewrite ``csrc/<name>.cu`` for the emulation, compile it into
+    """Rewrite ``csrc/<name>.cu`` (or the header ``csrc/<name>.cuh`` with
+    its ``ENTRIES`` entry point) for the emulation, compile it into
     ``out_dir/lib<name>.so`` and return that path."""
-    text = (CSRC / f"{name}.cu").read_text()
+    src_file = CSRC / f"{name}.cu"
+    text = src_file.read_text() if src_file.exists() else "#include <cuda_runtime.h>\n" + (
+        CSRC / f"{name}.cuh").read_text() + ENTRIES[name]
     for pattern, repl in REWRITES[name]:
         text, hits = re.subn(pattern, repl, text)
         if not hits:

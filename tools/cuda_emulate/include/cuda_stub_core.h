@@ -1,5 +1,6 @@
 // cuda_stub_core.h — a CPU emulation of the CUDA features that the port's
-// chain kernels (prim_mst.cu, single_linkage.cu) use, for g++: every CUDA
+// chain kernels (prim_mst.cu, single_linkage.cu), sbcn_tile.cu and the norms
+// pre-pass (norms_win32.cuh) use, for g++: every CUDA
 // thread of a launch is a std::thread, so barriers, warp reductions and
 // pushes between the blocks of a cluster run as they would on the card,
 // one ordering of them at a time.  Shared memory is a byte buffer a block
@@ -7,9 +8,13 @@
 // other's dynamic shared memory by offset.  See tools/cuda_emulate/__init__.py.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <condition_variable>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <map>
 #include <memory>
@@ -59,7 +64,8 @@ struct StubGrid {
   int cluster = 1;
 };
 inline thread_local StubGrid* stub_grid = nullptr;
-inline StubBlock& stub_block() { return *stub_grid->blocks[blockIdx.x]; }
+inline thread_local unsigned stub_block_id = 0;  // the block's linear index in its grid
+inline StubBlock& stub_block() { return *stub_grid->blocks[stub_block_id]; }
 
 inline void __syncthreads() { stub_block().bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { stub_block().warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
@@ -86,6 +92,31 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return m;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+
+// An emulated wait (an mbarrier's phase) that has not ended after
+// STUB_WAIT_LIMIT fails the launch instead of hanging it: the wait and every
+// later one return at once, and the launch and cudaGetLastError report
+// cudaErrorLaunchTimeout, so that a kernel waiting on a phase that never
+// comes fails its test.
+inline std::atomic<bool> stub_wait_timed_out{false};
+inline constexpr std::chrono::seconds STUB_WAIT_LIMIT{120};
+template <typename Lock, typename Pred>
+void stub_wait(std::condition_variable& cv, Lock& lock, Pred done, const char* what) {
+  const auto give_up = std::chrono::steady_clock::now() + STUB_WAIT_LIMIT;
+  while (!done()) {
+    if (stub_wait_timed_out) return;
+    if (std::chrono::steady_clock::now() > give_up) {
+      std::fprintf(stderr, "cuda_emulate: %s waited %llds for a phase that never came\n", what,
+                   (long long)STUB_WAIT_LIMIT.count());
+      stub_wait_timed_out = true;
+      return;
+    }
+    cv.wait_for(lock, std::chrono::milliseconds(200));
+  }
+}
+// cudaErrorLaunchTimeout once after a timed-out wait, else cudaSuccess
+inline int stub_take_timeout() { return stub_wait_timed_out.exchange(false) ? 6 : 0; }
 
 inline void* stub_dyn_smem() { return stub_block().dyn.data(); }
 inline void* stub_static_smem(const char* name, size_t bytes) {
@@ -114,9 +145,11 @@ inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 
 // Run `kernel` on `grid` blocks of `block` threads (block a multiple of 32),
-// `smem` bytes of dynamic shared memory each, in clusters of `cluster`.
+// `smem` bytes of dynamic shared memory each, in clusters of `cluster` (a
+// cluster's blocks along x).
 template <typename K, typename... A>
-void stub_run(K kernel, unsigned grid, unsigned block, size_t smem, int cluster, A... args) {
+void stub_run(K kernel, dim3 grid_dim, unsigned block, size_t smem, int cluster, A... args) {
+  const unsigned grid = grid_dim.x * grid_dim.y * grid_dim.z;
   StubGrid g;
   g.cluster = cluster;
   for (unsigned b = 0; b < grid; ++b) {
@@ -136,11 +169,18 @@ void stub_run(K kernel, unsigned grid, unsigned block, size_t smem, int cluster,
     for (unsigned t = 0; t < block; ++t)
       ts.emplace_back([&, b, t] {
         stub_grid = &g;
-        blockIdx = dim3(b);
+        stub_block_id = b;
+        blockIdx = dim3(b % grid_dim.x, b / grid_dim.x % grid_dim.y, b / (grid_dim.x * grid_dim.y));
         threadIdx = dim3(t);
         blockDim = dim3(block);
-        gridDim = dim3(grid);
+        gridDim = grid_dim;
         kernel(args...);
       });
   for (auto& t : ts) t.join();
+}
+
+// kernel<<<grid, block, smem, stream>>>(args...) without clusters
+template <typename K, typename S, typename... A>
+void stub_launch(K kernel, dim3 grid, unsigned block, size_t smem, S, A... args) {
+  stub_run(kernel, grid, block, smem, 1, args...);
 }

@@ -40,7 +40,7 @@ inline void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
 inline void mbar_wait(unsigned long long* bar, unsigned parity) {
   StubMbar* m = stub_mbar(bar);
   std::unique_lock<std::mutex> g(m->mu);
-  m->cv.wait(g, [&] { return (unsigned)m->phase != parity; });
+  stub_wait(m->cv, g, [&] { return (unsigned)m->phase != parity; }, "mbar_wait");
 }
 template <typename T>
 inline void stub_push(T* dst, T v, unsigned long long* bar, unsigned rank) {
