@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3 and the kernel times
+    python3 chip_smoke.py --families-only  # phases 1 and 17
 
 Phases (any failure exits non-zero):
 
@@ -171,7 +172,25 @@ Phases (any failure exits non-zero):
      ``hierarchy_linkage`` with the kernel beside the plain version
      on the host, the count of implicit syncs in one warm fit, the device's
      busy share of a fit, of 8 LM decode steps and of one full-depth train
-     step (with the LM runs' device time by kernel), and a host profile.
+     step (with the LM runs' device time by kernel), and a host profile;
+  17. the SSM and recurrent LMs (after 11, once its LM closures are freed),
+     mamba2-780m and recurrentgemma-2b at their published width and depth
+     (7.8e8 and 2.894e9 parameters, float32 masters, no cut) with random
+     weights from the port's seeded init, each: (a) its parameter count
+     and bytes; (b) float32 at 2 layers (mamba2) or 5 (griffin: one period
+     and the (R, R) remainder), forward logits and prefill + 5 decode
+     steps card vs CPU (max abs 1e-3); (c) decode vs forward on the card at
+     that depth in float32 (1e-3), over a 300-token prompt (past the
+     256-token SSD chunk) or a 2060-token one (past the 2048-slot ring) and
+     8 decode steps; (d) ``serve.lm.Engine`` in bfloat16 at full depth on 8
+     requests (tokens/s, prefill s, s a decode step and its device time
+     from a CUDA graph of the step, peak memory); (e) one AdamW step at
+     that depth card vs CPU, phase 15's form; (f) 4 steps at full width
+     and depth as published (bfloat16 compute, float32 masters and AdamW
+     states, remat) on 4 x 1024 tokens: warm s a step, tokens/s, peak
+     memory, (6 N + attention) FLOPs as a share of the dense bf16 peak;
+     (g) no clustering kernel launches on these paths (counters set to 0
+     before, read after).
 
 Each phase's seconds are printed at the end.  The second-to-last line is
 ``{"kernels": [...]}``, the last
@@ -237,6 +256,20 @@ SBCN_PANELS = ((32, 64, "batched"), (256, 512, "batched"), (2, 32, "batched"), (
 SBCN_DENSE_SHAPE = ((32, 64), (32, 128))  # a row-path block of the fused path (32 pairs of 64 x 128 cells)
 SBCN_TIMED_CELLS = 1 << 19        # cells of a fit call timed, its first pairs (the plain version gathers cells x d floats twice)
 MOE_ARCH, VLM_ARCH = "deepseek_v2_lite_16b", "llava_next_34b"
+FAMILY_ARCHS = ("mamba2_780m", "recurrentgemma_2b")
+FAMILY_PUBLISHED = {
+    "mamba2_780m": (("n_layers", "d_model", "d_state", "expand", "ssm_head", "ssd_chunk", "d_conv", "vocab"),
+                    (48, 1536, 128, 2, 64, 256, 4, 50280)),
+    "recurrentgemma_2b": (("n_layers", "d_model", "n_heads", "n_kv", "d_head", "d_ff", "window", "block_pattern",
+                           "vocab"), (26, 2560, 10, 1, 256, 7680, 2048, ("R", "R", "A"), 256000)),
+}
+FAMILY_DEPTH = {"mamba2_780m": 2, "recurrentgemma_2b": 5}  # griffin: one (R, R, A) period and the (R, R) remainder
+FAMILY_LONG = {"mamba2_780m": (300, 8), "recurrentgemma_2b": (2060, 8)}  # (c)'s prompt and decode steps
+FAMILY_LONG_NOTE = {"mamba2_780m": "the prompt crosses the 256-token SSD chunk and pads the second",
+                    "recurrentgemma_2b": "the prompt fills the 2048-slot ring and wraps it"}
+FAMILY_DECODE_REPS = 8
+FAMILY_TRAIN_STEPS = 4
+FAMILY_TRAIN_BATCH = 4            # griffin's 60 GB peak leaves room: B = 4 for both
 MOE_PARITY_LAYERS, MOE_PROMPTS, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 2, 8, 12, 5
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 8, 256  # microbatch 4 as published
 MOE_TRAIN_STATES = "bfloat16"     # AdamW states: float32 ones (22 GB at 4 layers) left too little beside phase 11's
@@ -314,6 +347,25 @@ def device_ms(fn, reps: int) -> float:
     check(not start.query(), "the host enqueued every call before the card reached the first")
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` replayed from a CUDA graph captured
+    after one warm call on a side stream: the device time of a call of
+    thousands of small launches, which ``device_ms`` cannot take (the
+    launch queue fills while the card sleeps), without the host's
+    dispatch."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -1689,18 +1741,20 @@ def where_the_time_goes(fit, record: dict, lm_decode=None, lm_train_step=None) -
 
 def truncated(params, cfg, n_layers: int, device, copy: bool = False):
     """The first ``n_layers`` of ``params`` as a model of its own on
-    ``device``: the same tensors where ``device`` is theirs, unless
-    ``copy`` (a model to train in place, while phase 12's masters, whose
-    norms its serving engine shares, must not move)."""
+    ``device``: the tensors of its family's skeleton at that depth (the
+    transformer's and mamba2's first layers; griffin's first whole periods
+    and its remainder, so ``n_layers`` less the remainder is whole
+    periods); the same tensors where ``device`` is theirs, unless ``copy``
+    (a model to train in place, while phase 12's masters, whose norms its
+    serving engine shares, must not move)."""
     import dataclasses
 
-    from repro_torch.models import transformer as tf
+    from repro_torch.models import get_model
 
     cfg_t = dataclasses.replace(cfg, n_layers=n_layers)
-    state = {k: v.to(device, copy=copy) for k, v in params.state_dict().items()
-             if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
-    p = tf.skeleton(cfg_t)
-    p.load_state_dict(state, assign=True)
+    p = get_model(cfg).skeleton(cfg_t)
+    full = params.state_dict()
+    p.load_state_dict({k: full[k].to(device, copy=copy) for k in p.state_dict()}, assign=True)
     return p, cfg_t
 
 
@@ -2266,6 +2320,7 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
     half = TRAIN_PARITY_BATCH // 2
     out = {}
     for where in (CARD, "cpu"):
+        t0 = time.monotonic()
         p2, cfg2 = truncated(params, cfg_a, layers, torch.device(where), copy=True)
         p2 = p2.float()  # float32 masters (bfloat16 ones cast, exactly)
         cfg2 = dataclasses.replace(cfg2, param_dtype="float32")
@@ -2282,6 +2337,7 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
         init, _ = optim.make_optimizer(ocfg, cfg2)
         _, _, m = step_lib.make_train_step(cfg2, ocfg)(p2, init(p2), b)
         out[where] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names, "aux": aux,
+                      "s": time.monotonic() - t0,
                       "grads": grads, "delta": [t.detach().cpu() - b0 for t, b0 in zip(tensors, before)]}
         del p2, tensors, before
         if where == CARD:
@@ -2294,9 +2350,12 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
               f"train parity: MoE aux card {card['aux']} vs CPU {cpu['aux']}")
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     norm_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
-    grad_rel = max(rel_fro(g, w) for g, w in zip(card["grads"], cpu["grads"]))
-    delta_rel, excluded, total = 0.0, 0, 0
-    for name, d_g, d_c, g_g, g in zip(cpu["names"], card["delta"], cpu["delta"], card["grads"], cpu["grads"]):
+    # compared on the card a tensor at a time: the float64 distances over
+    # griffin's 1.1e9 elements took about half a minute on the host
+    grad_rel, delta_rel, excluded, total = 0.0, 0.0, 0, 0
+    for name, *pair in zip(cpu["names"], card["delta"], cpu["delta"], card["grads"], cpu["grads"]):
+        d_g, d_c, g_g, g = (t.to(CARD) for t in pair)
+        grad_rel = max(grad_rel, rel_fro(g_g, g))
         check(bool(torch.isfinite(d_g).all()), f"train parity: {name} finite after the card's step")
         # Adam's first update g / (|g| + eps) is about sign(g): where a gradient
         # element is a cancellation, the two summation orders' rounding can flip
@@ -2308,7 +2367,8 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
         delta_rel = max(delta_rel, rel_fro(d_g[well], d_c[well]))
     rec["parity"] = {"layers": layers, "loss_card": card["loss"], "loss_cpu": cpu["loss"],
                      "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_rel_fro_max": grad_rel,
-                     "delta_rel_fro_max": delta_rel, "delta_excluded": excluded, "elements": total}
+                     "delta_rel_fro_max": delta_rel, "delta_excluded": excluded, "elements": total,
+                     "card_s": card["s"], "cpu_s": cpu["s"]}
     check(loss_rel <= TRAIN_LOSS_RTOL, f"train parity: loss card {card['loss']} vs CPU {cpu['loss']}")
     check(norm_rel <= TRAIN_NORM_RTOL, f"train parity: grad_norm relative {norm_rel} > {TRAIN_NORM_RTOL}")
     check(grad_rel <= TRAIN_GRAD_RTOL, f"train parity: gradients relative Frobenius {grad_rel} > {TRAIN_GRAD_RTOL}")
@@ -2319,7 +2379,8 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
           f"of S={TRAIN_PARITY_SEQ}: card == CPU, loss to {loss_rel:.3g} relative (<= {TRAIN_LOSS_RTOL}), {aux_note}grad_norm "
           f"{norm_rel:.3g} (<= {TRAIN_NORM_RTOL}), gradients {grad_rel:.3g} relative Frobenius (<= {TRAIN_GRAD_RTOL}), "
           f"updates {delta_rel:.3g} (<= {TRAIN_DELTA_RTOL}; {excluded} of {total} elements, whose gradients differ by "
-          f"more than 1e-3 of themselves, held by the gradients' distance alone)", flush=True)
+          f"more than 1e-3 of themselves, held by the gradients' distance alone); card side {card['s']:.1f} s, CPU "
+          f"side {cpu['s']:.1f} s", flush=True)
 
 
 def state_bytes(state: dict) -> int:
@@ -2698,10 +2759,223 @@ def moe_phase(smi: str, record: dict) -> None:
     record["moe"] = rec
 
 
+def family_train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """(6 N + attention) FLOPs of one train step: 12 x attention blocks x
+    heads x d_head x S a token (phase 15's count; griffin's 2048 window
+    covers S = 1024 whole), none for mamba2, whose SSD chunks are not
+    counted."""
+    from repro_torch.models import get_model
+
+    n_attn = sum(kind == "A" for kind, _, _ in get_model(cfg).skeleton(cfg).blocks()) if cfg.arch == "griffin" else 0
+    tokens = batch * seq
+    return 6 * n_params * tokens + 12 * n_attn * cfg.n_heads * cfg.d_head * seq * tokens
+
+
+def family_phase(arch: str, smi: str) -> dict:
+    """Phase 17 for one family at its published width and depth, random
+    weights from the port's seeded init on the card: (a) the parameter
+    count and bytes; (b) float32 at ``FAMILY_DEPTH`` layers, the card's
+    forward logits and prefill + 5 decode steps against the port's CPU
+    run (max abs 1e-3); (c) decode against forward on the card at that
+    depth in float32 over ``FAMILY_LONG``'s prompt (mamba2: across the
+    256-token chunk, padded; griffin: past the 2048-slot ring, which
+    wraps); (d) ``serve.lm.Engine`` at full depth in bfloat16 on 8
+    requests; (e) ``train_parity`` at that depth; (f) 4 train steps at full
+    width and depth as published (bfloat16 compute, float32 masters and
+    AdamW states, remat), B x 1024 tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_init, get_model, init_params
+    from repro_torch.serve.lm import Engine, GenRequest
+    from repro_torch.train import data as data_lib, optim, step as step_lib
+
+    dev = torch.device(CARD)
+    cfg = get_config(arch)
+    fields, want = FAMILY_PUBLISHED[arch]
+    check(tuple(getattr(cfg, f) for f in fields) == want, f"{cfg.name} as published")
+    check((cfg.dtype, cfg.param_dtype, cfg.remat, cfg.xent_chunk, cfg.microbatch, cfg.optimizer_state_dtype)
+          == ("bfloat16", "float32", True, 512, 1, "float32"), f"{cfg.name} trains as published")
+    model = get_model(cfg)
+    n_ref = sum(t.numel() for t in abstract_init(cfg).parameters())
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 23), device=dev)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "init_s": time.monotonic() - t0, "n_params": sum(t.numel() for t in params.parameters()),
+           "param_bytes": sum(t.numel() * t.element_size() for t in params.parameters())}
+    check(rec["n_params"] == n_ref, f"{cfg.name} has the reference's {n_ref} parameters: {rec['n_params']}")
+    print(f"phase 17: {cfg.name} at its published width and depth ({cfg.n_layers} layers, d={cfg.d_model}; "
+          f"{rec['n_params']} parameters, {rec['param_bytes'] / 1e9:.2f} GB of float32 masters) initialised on the "
+          f"card in {rec['init_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 50)
+    depth = FAMILY_DEPTH[arch]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    part_s, clock = {}, [time.monotonic()]
+
+    def part(name: str) -> None:
+        now = time.monotonic()
+        part_s[name], clock[0] = now - clock[0], now
+
+    # (b) the card against the CPU at the truncated depth, float32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    prompts = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 12)).astype(np.int32))
+    follow = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 5)).astype(np.int32))
+    outs = {}
+    with torch.inference_mode():
+        for where in (CARD, "cpu"):
+            t0 = time.monotonic()
+            p2, c2 = truncated(params, cfg32, depth, torch.device(where))
+            h, _ = model.forward(p2, c2, toks.to(where))
+            logits = model.logits_fn(p2, c2, h).float().cpu()
+            last, cache = model.prefill(p2, c2, prompts.to(where), max_len=12 + 5, cache_dtype=torch.float32)
+            steps = [last.float().cpu()]
+            for t in range(5):
+                lg, cache = model.decode_step(p2, c2, cache, follow[:, t : t + 1].to(where))
+                steps.append(lg.float().cpu())
+            outs[where] = {"logits": logits, "steps": torch.stack(steps, dim=1), "s": time.monotonic() - t0}
+            del p2, h, cache
+    card, cpu = outs[CARD], outs["cpu"]
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    err_dec = float((card["steps"] - cpu["steps"]).abs().max())
+    rec["parity"] = {"layers": depth, "logits_max_abs": err, "decode_max_abs": err_dec, "cpu_s": cpu["s"]}
+    check(bool(torch.isfinite(card["logits"]).all()) and card["logits"].shape == (2, 24, cfg.padded_vocab),
+          f"{depth}-layer logits finite, (B, S, padded_vocab)")
+    check(err <= LM_PARITY_TOL, f"{depth}-layer float32 logits: card vs CPU max abs {err} > {LM_PARITY_TOL}")
+    check(bool(torch.isfinite(card["steps"]).all()) and err_dec <= LM_PARITY_TOL,
+          f"{depth}-layer prefill + decode, float32: card vs CPU max abs {err_dec} > {LM_PARITY_TOL}")
+    print(f"  (b) full width, {depth} layers, float32: card == the port's CPU run to {err:.3g} max abs (forward "
+          f"logits) and {err_dec:.3g} (prefill of 2 x 12 tokens + 5 decode steps), <= {LM_PARITY_TOL}; CPU side "
+          f"{cpu['s']:.1f} s", flush=True)
+    part("b")
+
+    # (c) decode against forward on the card, float32, past the chunk or the ring
+    s_len, n_dec = FAMILY_LONG[arch]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s_len + n_dec)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        p2, c2 = truncated(params, cfg32, depth, dev)
+        h, _ = model.forward(p2, c2, toks)
+        ref = model.logits_fn(p2, c2, h[:, s_len - 1 :])
+        last, cache = model.prefill(p2, c2, toks[:, :s_len], max_len=s_len + n_dec, cache_dtype=torch.float32)
+        steps = [last]
+        for t in range(n_dec):
+            lg, cache = model.decode_step(p2, c2, cache, toks[:, s_len + t : s_len + t + 1])
+            steps.append(lg)
+        serve = torch.stack(steps, dim=1)
+        del p2, h, cache
+    err = float((serve - ref).abs().max())
+    rec["decode_vs_forward"] = {"prompt": s_len, "decoded": n_dec, "max_abs": err, "max_logit": float(ref.abs().max())}
+    check(bool(torch.isfinite(serve).all()), "decode logits finite")
+    check(err <= LM_PARITY_TOL, f"decode vs forward, {depth} layers, float32: max abs {err} > {LM_PARITY_TOL}")
+    print(f"  (c) {depth} layers, float32 on the card: prefill of {s_len} tokens + {n_dec} decode steps == the "
+          f"forward over the sequence to {err:.3g} max abs (<= {LM_PARITY_TOL}; {FAMILY_LONG_NOTE[arch]})", flush=True)
+    part("c")
+
+    # (d) serving at full depth in bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_len=LM_MAX_LEN, device=CARD)
+    reqs = [GenRequest(prompt=rng.integers(2, cfg.vocab, size=int(rng.integers(3, 13))).astype(np.int32),
+                       max_new_tokens=LM_NEW_TOKENS, temperature=0.0 if i % 2 == 0 else 0.8)
+            for i in range(LM_REQUESTS)]
+    eng.generate(reqs, seed=0)  # warm
+    torch.cuda.synchronize()
+    answers = eng.generate(reqs, seed=1)
+    stats = dict(eng.last_stats)
+    stats["s_per_decode_step"] = (stats["wall_s"] - stats["prefill_s"]) / max(1, stats["batch_steps"] - 1)
+    again = eng.generate(reqs, seed=2)
+    stats["device_s_per_decode_step"] = graph_ms(lm_decode_steps(eng, reqs, 1), FAMILY_DECODE_REPS) / 1e3
+    stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    check(len(answers) == LM_REQUESTS and all(1 <= len(o) <= LM_NEW_TOKENS for o in answers), "one answer a request")
+    check(all(((o >= 0) & (o < cfg.padded_vocab)).all() for o in answers), "tokens in the vocabulary")
+    check(stats["tokens"] == sum(len(o) for o in answers), "the stats count the answers' tokens")
+    check(all(np.array_equal(a, b) for a, b, r in zip(answers, again, reqs) if r.temperature == 0.0),
+          "greedy rows equal under another seed")
+    rec["serving"] = {**stats, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS}
+    print(f"  (d) serving at full depth in bfloat16 on {smi}: {LM_REQUESTS} requests (prompts 3-12 tokens, "
+          f"{LM_NEW_TOKENS} new, half greedy, half at temperature 0.8): {stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['tokens']} tokens in {stats['wall_s']:.3f} s, prefill {stats['prefill_s']:.4f} s, "
+          f"{stats['s_per_decode_step']:.4f} s a decode step ({stats['device_s_per_decode_step']:.5f} s of device "
+          f"time, a step replayed from a CUDA graph), max_memory_allocated "
+          f"{stats['max_memory_allocated'] / 1e9:.2f} GB; greedy rows equal under another seed", flush=True)
+    del eng
+    part("d")
+
+    # (e) one step at the truncated depth, card against CPU
+    train_rec: dict = {}
+    train_parity(cfg, params, train_rec, layers=depth, label="(e)")
+    rec["train_parity"] = train_rec
+    torch.cuda.empty_cache()
+    part("e")
+
+    # (f) full width and depth as published
+    batch = FAMILY_TRAIN_BATCH
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=FAMILY_TRAIN_STEPS)
+    init, _ = optim.make_optimizer(ocfg, cfg)
+    state = init(params)
+    n_state = state_bytes(state)
+    check(n_state == reckoned_state_bytes(cfg, "float32"), f"float32 AdamW states: {n_state} bytes")
+    train_step = step_lib.make_train_step(cfg, ocfg)
+    dcfg = data_lib.DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch)
+    batches = [{k: v.to(dev) for k, v in data_lib.train_batch(dcfg, i).items()} for i in range(FAMILY_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.monotonic()
+        _, _, m = train_step(params, state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    flops = family_train_flops(cfg, rec["n_params"], batch, TRAIN_SEQ)
+    warm_s = sum(step_s[1:]) / (len(step_s) - 1)
+    finite = all(bool(torch.isfinite(t).all()) for t in params.parameters())
+    rec["train"] = {"steps": FAMILY_TRAIN_STEPS, "batch": batch, "seq_len": TRAIN_SEQ, "losses": losses,
+                    "step_s": step_s, "warm_s_per_step": warm_s, "tokens_per_s": batch * TRAIN_SEQ / warm_s,
+                    "max_memory_allocated": peak, "flops_per_step": flops,
+                    "bf16_peak_share": flops / warm_s / PEAK_BF16_FLOPS, "state_bytes_float32": n_state}
+    check(finite and all(np.isfinite(losses)), f"{cfg.name} training: finite losses and masters: {losses}")
+    print(f"  (f) full width and depth as published ({rec['n_params']} parameters; bfloat16 compute, float32 "
+          f"masters and AdamW states, remat), {FAMILY_TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ} tokens at lr "
+          f"{TRAIN_LR} on {smi}: losses {[round(v, 4) for v in losses]}; warm {warm_s:.4f} s a step (steps "
+          f"2-{FAMILY_TRAIN_STEPS}; first {step_s[0]:.3f} s), {batch * TRAIN_SEQ / warm_s:.0f} tokens/s, "
+          f"max_memory_allocated {peak / 1e9:.2f} GB, (6 N + attention) FLOPs {flops:.4g} a step = "
+          f"{rec['train']['bf16_peak_share']:.4f} of the dense bf16 peak; float32 states {n_state / 1e9:.2f} GB",
+          flush=True)
+    del params, state, batches, train_step
+    torch.cuda.empty_cache()
+    part("f")
+    rec["part_s"] = part_s
+    print(f"  {cfg.name}: seconds by part {json.dumps({k: round(v, 1) for k, v in part_s.items()})}", flush=True)
+    return rec
+
+
+def families_phase(smi: str, record: dict) -> None:
+    """Phase 17: mamba2-780m and recurrentgemma-2b (``family_phase``), with
+    the launch counters set to 0 just before and read just after: (g) no
+    clustering kernel launches on these paths."""
+    names = ("pairwise_topk", "fused_cascade", "lune_filter", "prim_mst", "single_linkage", "sbcn_tile")
+    pt, fc, lf, pm, sl, st = (kernel_module(k) for k in names)
+    counters = {"pairwise_topk": pt.pairwise_topk, "edge_cascade": fc.edge_cascade, "lune_filter": lf.lune_filter,
+                "prim_mst": pm.prim_mst, "single_linkage": sl.single_linkage, "sbcn_tile": st.tile_dots,
+                "sbcn_norms": st.point_norms}
+    for fn in counters.values():
+        fn.launches = 0
+    rec = {arch: family_phase(arch, smi) for arch in FAMILY_ARCHS}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec["launches"] = launches
+    check(not any(launches.values()), f"the SSM and recurrent paths launched no clustering kernel: {launches}")
+    print(f"  (g) launches of the hand-written kernels on these paths: {launches}", flush=True)
+    record["families"] = rec
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     kernels_only = "--kernels-only" in argv
+    families_only = "--families-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2737,6 +3011,12 @@ def main(argv: list[str]) -> int:
     print(smi, flush=True)
     record["card"] = smi
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+    if families_only:
+        phase("17. SSM and recurrent LMs")
+        families_phase(smi, record)
+        phase("end")
+        print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
+        return 0
 
     phase("2. build")
     # -- 2. build ------------------------------------------------------------
@@ -3036,7 +3316,7 @@ def main(argv: list[str]) -> int:
     record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
     print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
     where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record, lm_decode, lm_train_step)
-    del lm_train_step
+    del lm_train_step, lm_decode
     torch.cuda.empty_cache()
 
     kernels = []
@@ -3093,6 +3373,10 @@ def main(argv: list[str]) -> int:
     kernels += wide_rows
     kernels += sbcn_tile_rows(torch.from_numpy(x_emb).to(CARD), sbcn_fit_calls, launches_emb, smi, record)
     record["kernels"] = kernels
+
+    phase("17. SSM and recurrent LMs")
+    # -- 17. SSM and recurrent LMs (after 11, with the LM closures freed) -----
+    families_phase(smi, record)
 
     phase("end")
     record["phase_s"] = phase_s

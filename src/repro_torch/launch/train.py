@@ -1,7 +1,9 @@
 """Training launcher, the port of ``repro/launch/train.py``: real steps on
 one device, the full fault-tolerance loop.
 
-  * --arch <id> reduced or full configs, synthetic deterministic data
+  * --arch <id> reduced or full configs of any decoder family (the
+    transformers, mamba2_780m, recurrentgemma_2b), synthetic
+    deterministic data
   * checkpoint/auto-resume (atomic commit, async save)
   * --preempt-after N: a hard exit (code 42) after N steps; a relaunch
     resumes bit-exact from the last checkpoint (the data pipeline is

@@ -1,6 +1,6 @@
 """Model registry, the port of ``repro.models``: cfg.arch -> module.
 
-The transformer module exposes the reference's surface:
+Each family module exposes the reference's surface:
   init(cfg, generator, device) -> params (an ``nn.Module``)
   forward(p, cfg, tokens) -> (hidden, aux_loss)
   logits_fn(p, cfg, hidden) -> logits
@@ -10,14 +10,15 @@ The transformer module exposes the reference's surface:
 
 The parameters are masters in ``cfg.param_dtype`` (float32 but for
 kimi-k2's bfloat16) that require gradients: ``forward`` runs under
-autograd, and ``train.step`` trains them.  Only ``"transformer"`` is
-registered: the dense, MoE, MLA and patch-frontend configurations.  The
-SSM (mamba2), recurrent (griffin) and encoder-decoder families come with
-a later item of ``ROADMAP.md`` §1 (the LM stack).  ``abstract_init``
+autograd, and ``train.step`` trains them.  Registered: ``"transformer"``
+(the dense, MoE, MLA and patch-frontend configurations), ``"mamba2"``
+(``ssm``) and ``"griffin"``; the encoder-decoder family comes with a later
+item of ``ROADMAP.md`` §1 (the LM stack).  ``abstract_init``
 gives the parameters' shapes and master dtypes on the meta device, with
 no memory behind them, at any size (kimi-k2's 1.045e12 parameters).
 
-``reference_leaves`` maps each port tensor to the reference's leaf, and
+``reference_leaves`` maps each port tensor to the reference's leaf (each
+family module's ``ref_location`` says where its tensors live), and
 ``params_from_jax`` carries a reference parameter pytree (numpy arrays)
 across with it, so both packages compute the same function in the tests.
 """
@@ -30,14 +31,10 @@ import numpy as np
 import torch
 
 from ..engine.plan import resolve_device
-from . import layers, transformer
+from . import griffin, layers, ssm, transformer
 
-_REGISTRY = {"transformer": transformer}
-_LATER = {
-    "mamba2": "the SSM family (mamba2)",
-    "griffin": "the recurrent family (griffin)",
-    "encdec": "the encoder-decoder family",
-}
+_REGISTRY = {"transformer": transformer, "mamba2": ssm, "griffin": griffin}
+_LATER = {"encdec": "the encoder-decoder family"}
 
 
 def get_model(cfg):
@@ -69,7 +66,8 @@ def abstract_init(cfg):
 class RefLeaf:
     """Where a port tensor lives in the reference's parameter pytree.
 
-    The reference stacks the layers on a leading axis and keeps dense
+    The reference stacks the layers (griffin: the periods) on a leading
+    axis and keeps dense
     weights as (in, out) for ``x @ W``; ``nn.Linear`` keeps (out, in).
     ``shape`` is the reference leaf's whole (stacked) shape, ``layer`` the
     port tensor's index on its leading axis (None for an unstacked leaf),
@@ -83,33 +81,23 @@ class RefLeaf:
     shape: tuple[int, ...]
 
 
-def _ref_path(local: str) -> tuple[str, ...]:
-    """A layer tensor's path in the reference: ``attn.wq.weight`` ->
-    (attn, wq), ``attn.wq.bias`` -> (attn, bq), ``ln1`` -> (ln1,)."""
-    parts = local.split(".")
-    if parts[-1] == "weight":
-        return tuple(parts[:-1])
-    if parts[-1] == "bias":
-        return (*parts[:-2], "b" + parts[-2][1:])
-    return tuple(parts)
-
-
 def reference_leaves(cfg) -> dict[str, RefLeaf]:
     """The reference leaf of every parameter of ``get_model(cfg)``, in the
     port's ``named_parameters`` order (read off the meta skeleton).  A
-    tensor that is no ``nn.Linear`` weight (the MoE's (E, d, 2f) and
-    (E, f, d) experts, embeddings, norms) keeps the reference's layout."""
+    stacked leaf's port tensors are named ``<stack>.<i>.<rest>`` (the
+    transformer's and mamba2's ``layers``, griffin's ``period``); the
+    module's ``ref_location`` gives the path, the index and the stacked
+    count.  A tensor that is no ``nn.Linear`` weight (the MoE's experts,
+    the convs, embeddings, norms) keeps the reference's layout."""
+    model = get_model(cfg)
     out = {}
-    for name, t in get_model(cfg).skeleton(cfg).named_parameters():
+    for name, t in model.skeleton(cfg).named_parameters():
         shape = tuple(t.shape)
         transposed = name.endswith(".weight")
         if transposed:
             shape = shape[::-1]
-        if name.startswith("layers."):
-            _, i, local = name.split(".", 2)
-            out[name] = RefLeaf(("layers", *_ref_path(local)), int(i), transposed, (cfg.n_layers, *shape))
-        else:
-            out[name] = RefLeaf(_ref_path(name), None, transposed, shape)
+        path, layer, count = model.ref_location(cfg, name)
+        out[name] = RefLeaf(path, layer, transposed, shape if layer is None else (count, *shape))
     return out
 
 
@@ -145,4 +133,4 @@ def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
     return p
 
 
-__all__ = ["layers", "transformer", "get_model", "abstract_init", "init_params"]
+__all__ = ["griffin", "layers", "ssm", "transformer", "get_model", "abstract_init", "init_params"]

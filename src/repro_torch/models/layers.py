@@ -82,6 +82,39 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (x * (1.0 + w.float())).to(dt)
 
 
+def stacked_ref_location(name: str, stack: str, count: int):
+    """(reference path, index or None, stacked count or None) of a tensor
+    of a family whose dense weights are bias-free ``nn.Linear``s (mamba2,
+    griffin): ``<stack>.<i>.<rest>`` is slice i of the reference's stacked
+    leaf (stack, *rest), any other name an unstacked leaf; ``.weight``
+    drops from the path."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts = parts[:-1]
+    if parts[0] == stack:
+        return (stack, *parts[2:]), int(parts[1]), count
+    return tuple(parts), None, None
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
+    """Depthwise causal conv over the sequence, in x's dtype, as the
+    reference sums it (tap by tap, then the bias).  x: (B, S, C), w: (K, C),
+    state: (B, K - 1, C) or None (zeros).  Returns (out, the last K - 1
+    inputs as the next state)."""
+    k = w.shape[0]
+    dt = x.dtype
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=dt, device=x.device)
+    else:
+        pad = state.to(dt)
+    xp = torch.cat([pad, x], dim=1)
+    s_len = x.shape[1]
+    out = xp[:, :s_len] * w[0].to(dt)
+    for i in range(1, k):
+        out = out + xp[:, i:i + s_len] * w[i].to(dt)
+    return out + b.to(dt), xp[:, s_len:]
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Decoder-only transformer, the port of ``repro/models/transformer.py``:
 the dense configurations (qwen2-1.5b, qwen2.5-14b, gemma3-4b,
 starcoder2-3b), MLA and MoE (deepseek-v2-lite; kimi-k2 with GQA and
-MoE) and the patch frontend (llava-next-34b).  The SSM, recurrent and
-encoder-decoder families are other modules, still to come.
+MoE) and the patch frontend (llava-next-34b).  The SSM and recurrent
+families are ``ssm`` and ``griffin``; the encoder-decoder family is still
+to come.
 
 The reference scans one layer body over stacked parameters; here the
 layers are an ``nn.ModuleList`` walked in a Python loop, with the same
@@ -140,6 +141,26 @@ def skeleton(cfg) -> Transformer:
     with no memory behind it: to load a state into
     (``load_state_dict(state, assign=True)``) or to reckon sizes."""
     return Transformer(cfg, None, torch.device("meta"), _dtype(cfg.param_dtype))
+
+
+def _ref_path(local: str) -> tuple[str, ...]:
+    """A tensor's path in the reference: ``attn.wq.weight`` -> (attn, wq),
+    ``attn.wq.bias`` -> (attn, bq), ``ln1`` -> (ln1,)."""
+    parts = local.split(".")
+    if parts[-1] == "weight":
+        return tuple(parts[:-1])
+    if parts[-1] == "bias":
+        return (*parts[:-2], "b" + parts[-2][1:])
+    return tuple(parts)
+
+
+def ref_location(cfg, name: str):
+    """(reference path, layer index or None, stacked count or None) of a
+    port tensor: ``layers.3.attn.wq.bias`` -> (layers, attn, bq), 3, L."""
+    if name.startswith("layers."):
+        _, i, local = name.split(".", 2)
+        return ("layers", *_ref_path(local)), int(i), cfg.n_layers
+    return _ref_path(name), None, None
 
 
 # tensors the reference uses in float32 whatever the compute dtype

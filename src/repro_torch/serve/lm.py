@@ -36,9 +36,11 @@ class Engine:
     which raises without one unless ``device="cpu"``); the engine keeps a
     copy with the weights cast once to ``cfg.dtype``, which gives the bits
     of casting them at each step (bfloat16 masters under bfloat16 compute
-    are shared, not copied).  Every transformer configuration serves: the
-    dense ones, MLA through its latent cache, MoE.  As in the reference,
-    ``generate`` takes token prompts only (no patch embeddings)."""
+    are shared, not copied).  Every decoder family serves through its
+    own cache: the transformers (KV, MLA's latent cache, MoE), mamba2's
+    (conv, SSM) states and griffin's recurrent states with its ring of
+    window slots.  As in the reference, ``generate`` takes token prompts
+    only (no patch embeddings)."""
 
     def __init__(self, cfg, params, max_len: int = 512, cache_dtype=torch.float32,
                  device: str | torch.device = "cuda"):

@@ -10,16 +10,20 @@ port tensor is updated as the slice of its reference leaf
 (``models.reference_leaves``, built once from the model's config):
 
   (a) weight decay applies where the *stacked* leaf has ndim >= 2: every
-      layer tensor (the per-layer norms and QKV biases included) and the
-      embeddings, but not ``final_norm``;
+      layer tensor (the per-layer norms, QKV biases and mamba2's per-head
+      ``a_log``, ``d_skip``, ``dt_bias`` included) and the embeddings, but
+      not ``final_norm`` nor griffin's unstacked remainder norms and
+      ``lam``;
   (b) int8 states quantize in blocks of 32 along the reference's last
       axis (an ``nn.Linear`` weight's dim 0) and are kept in the layout of
       the reference's slice; ``v`` is stored in the sqrt domain, and a
       leaf whose last axis is not a multiple of 32 keeps bfloat16 states;
   (c) Adafactor factors the stacked leaf: an (L, in, out) weight layer by
       layer (``vr`` the mean over out, ``vc`` over in), but the (L, D)
-      norms and biases as one matrix each, whose ``vc`` and normaliser are
-      means across the L layers, so those layers' updates are coupled;
+      norms, biases and head vectors as one matrix each, whose ``vc`` and
+      normaliser are means across the L layers (griffin: the periods), so
+      those layers' updates are coupled; an unstacked (D,) leaf is not
+      factored;
   (d) the schedule and the bias corrections are float32 tensors.
 
 Float states keep the port tensor's own layout.  Parameters and states
@@ -179,12 +183,17 @@ def adamw_update(params, grads: dict, state: dict, cfg: OptConfig, leaves: dict[
 
 def _adafactor_units(leaves: dict[str, RefLeaf]) -> dict[str, list[str]]:
     """State key -> the port tensors updated together.  A stacked leaf of
-    ndim 2 (a per-layer norm or bias, (L, D)) is one matrix across its
-    layers, keyed ``layers.*.<name>``; every other tensor is its own unit,
-    keyed by its name."""
+    ndim 2 (a per-layer norm, bias or SSM head vector, (L, D); griffin's
+    per-period ones) is one matrix across its layers, keyed by its tensors'
+    common name with the index starred (``layers.*.ln1``,
+    ``period.*.mix0.lam``); every other tensor is its own unit, keyed by
+    its name."""
     units: dict[str, list[str]] = {}
     for name, leaf in leaves.items():
-        key = "layers.*." + name.split(".", 2)[2] if _coupled(leaf) else name
+        key = name
+        if _coupled(leaf):
+            stack, _, rest = name.split(".", 2)
+            key = f"{stack}.*.{rest}"
         units.setdefault(key, []).append(name)
     return units
 

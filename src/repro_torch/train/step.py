@@ -59,8 +59,9 @@ def xent_chunked(logits_fn: Callable, p, cfg, hidden, labels, mask) -> torch.Ten
 
 
 def make_loss_fn(cfg):
-    """loss_fn(params, batch) -> (loss + aux, {"xent", "aux"}) for the
-    decoder: batch holds ``tokens``, ``labels``, optionally ``mask`` and,
+    """loss_fn(params, batch) -> (loss + aux, {"xent", "aux"}) for a
+    decoder of any registered family (transformer, mamba2, griffin): batch
+    holds ``tokens``, ``labels``, optionally ``mask`` and,
     for a patch frontend, ``patch_embeds``.  ``aux`` is the MoE layers'
     summed load-balance loss (0 without experts)."""
     if cfg.arch == "encdec":

@@ -259,12 +259,18 @@ def test_init_is_seeded_and_shaped():
 
 
 def test_later_families_raise_and_name_their_item():
-    """The SSM, recurrent and encoder-decoder families still raise; the
-    MoE, MLA and frontend transformers now build (their parity with the
-    reference is ``test_torch_moe``)."""
-    for arch in ("mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(get_config(arch).reduced())
+    """The encoder-decoder family still raises; the SSM and recurrent
+    families build and report their modules (their parity with the
+    reference is ``test_torch_ssm`` and ``test_torch_griffin``), and so do
+    the MoE, MLA and frontend transformers (``test_torch_moe``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(get_config("seamless_m4t_large_v2").reduced())
+    from repro_torch.models import griffin as t_griffin, ssm as t_ssm
+
+    for arch, module, stack in (("mamba2_780m", t_ssm, "layers"), ("recurrentgemma_2b", t_griffin, "period")):
+        cfg = get_config(arch).reduced()
+        p = init_params(cfg, torch.Generator(), device="cpu")
+        assert get_model(cfg) is module and cfg.family in ("ssm", "hybrid") and hasattr(p, stack)
     for arch in ("deepseek_v2_lite_16b", "kimi_k2_1t_a32b", "llava_next_34b"):
         cfg = get_config(arch).reduced()
         p = init_params(cfg, torch.Generator(), device="cpu")
