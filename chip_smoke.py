@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3 and the kernel times
     python3 chip_smoke.py --families-only  # phases 1 and 17
+    python3 chip_smoke.py --encdec-mesh-only  # phases 1, 2, 18 and 19
 
 Phases (any failure exits non-zero):
 
@@ -190,7 +191,33 @@ Phases (any failure exits non-zero):
      states, remat) on 4 x 1024 tokens: warm s a step, tokens/s, peak
      memory, (6 N + attention) FLOPs as a share of the dense bf16 peak;
      (g) no clustering kernel launches on these paths (counters set to 0
-     before, read after).
+     before, read after);
+  18. the encoder-decoder LM, seamless-m4t-large-v2 at its published width
+     and depth (24 + 24 layers, 1633724416 parameters, float32 masters, no
+     cut) with random weights from the port's seeded init: (a) its
+     parameter count and bytes; (b) float32 at 2 + 2 layers, forward
+     logits and prefill + 5 decode steps card vs CPU (max abs 1e-3); (c)
+     decode against the teacher-forced forward on the card at that depth
+     over 24 steps inside ``dec_len`` (1e-3); (d) serving at full depth
+     in bfloat16: 8 requests of 1024 random frames, ``max_len`` 1024
+     (``dec_len`` 256), BOS and 24 greedy steps (prefill s, s a decode
+     step and its device time from a CUDA graph, tokens/s, peak memory);
+     (e) one AdamW step at 2 + 2 layers card vs CPU (phase 15's form);
+     (f) 4 steps at full size as published (bfloat16 compute, float32
+     masters and AdamW states, remat) on 4 rows of 1024 frames and 256
+     decoder tokens: warm s a step, decoder tokens/s and frames/s, peak
+     memory, (6 N + attention) FLOPs as a share of the dense bf16 peak;
+     (g) no clustering kernel launches (counters set to 0 before, read
+     after);
+  19. the mesh path at world size 1: an NCCL process group of one rank
+     (no fallback to gloo or to the CPU), ``launch.mesh.make_host_mesh``
+     and the mesh Plan (``dataclasses.replace(resolve_plan(), mesh=...)``:
+     ``sharded``, one shard), RNG* and exact fits of phase 4's points with
+     the counters set to 0 just before each: the ring kNN (no
+     ``pairwise_topk``), ``edge_cascade``, ``lune_filter`` in the exact
+     fit and ``single_linkage`` launch; kNN, edges, MST ids, ``mst_w`` and
+     labels bit-equal to the single-device fits on the card; each stage's
+     seconds beside the single-device fit's.
 
 Each phase's seconds are printed at the end.  The second-to-last line is
 ``{"kernels": [...]}``, the last
@@ -270,6 +297,16 @@ FAMILY_LONG_NOTE = {"mamba2_780m": "the prompt crosses the 256-token SSD chunk a
 FAMILY_DECODE_REPS = 8
 FAMILY_TRAIN_STEPS = 4
 FAMILY_TRAIN_BATCH = 4            # griffin's 60 GB peak leaves room: B = 4 for both
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+ENCDEC_PUBLISHED = (("n_enc_layers", "n_dec_layers", "d_model", "n_heads", "n_kv", "d_head", "d_ff", "vocab",
+                     "frontend_dim", "dec_seq_frac", "act", "mlp_bias", "tie_embeddings"),
+                    (24, 24, 1024, 16, 16, 64, 8192, 256206, 1024, 0.25, "gelu", True, False))
+ENCDEC_PARAMS = 1633724416        # the reference's abstract_init
+ENCDEC_DEPTH = 2                  # 2 + 2 layers for the card-vs-CPU checks
+ENCDEC_PARITY_FRAMES = 32         # train_parity's frames a row (its decoder rows: TRAIN_PARITY_SEQ tokens)
+ENCDEC_DECODE_STEPS = 24          # (c): decode vs the teacher-forced forward, inside dec_len
+ENCDEC_REQUESTS, ENCDEC_FRAMES, ENCDEC_MAX_LEN, ENCDEC_NEW_TOKENS = 8, 1024, 1024, 24  # dec_len 256
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_DEC, ENCDEC_TRAIN_STEPS = 4, 256, 4  # 1024 frames and 256 decoder tokens a row
 MOE_PARITY_LAYERS, MOE_PROMPTS, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 2, 8, 12, 5
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 8, 256  # microbatch 4 as published
 MOE_TRAIN_STATES = "bfloat16"     # AdamW states: float32 ones (22 GB at 4 layers) left too little beside phase 11's
@@ -1744,14 +1781,18 @@ def truncated(params, cfg, n_layers: int, device, copy: bool = False):
     ``device``: the tensors of its family's skeleton at that depth (the
     transformer's and mamba2's first layers; griffin's first whole periods
     and its remainder, so ``n_layers`` less the remainder is whole
-    periods); the same tensors where ``device`` is theirs, unless ``copy``
-    (a model to train in place, while phase 12's masters, whose norms its
-    serving engine shares, must not move)."""
+    periods; the encoder-decoder's first ``n_layers`` of each stack); the
+    same tensors where ``device`` is theirs, unless ``copy`` (a model to
+    train in place, while phase 12's masters, whose norms its serving
+    engine shares, must not move)."""
     import dataclasses
 
     from repro_torch.models import get_model
 
-    cfg_t = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.arch == "encdec":
+        cfg_t = dataclasses.replace(cfg, n_layers=2 * n_layers, n_enc_layers=n_layers, n_dec_layers=n_layers)
+    else:
+        cfg_t = dataclasses.replace(cfg, n_layers=n_layers)
     p = get_model(cfg).skeleton(cfg_t)
     full = params.state_dict()
     p.load_state_dict({k: full[k].to(device, copy=copy) for k in p.state_dict()}, assign=True)
@@ -2317,6 +2358,10 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)),
              "labels": torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)),
              "mask": torch.from_numpy(mask)}
+    if cfg.arch == "encdec":  # the decoder's tokens over frames of their own
+        batch = {"dec_" + k: v for k, v in batch.items()}
+        frames = rng.normal(size=(TRAIN_PARITY_BATCH, ENCDEC_PARITY_FRAMES, cfg.frontend_dim))
+        batch["frames"] = torch.from_numpy(frames.astype(np.float32))
     half = TRAIN_PARITY_BATCH // 2
     out = {}
     for where in (CARD, "cpu"):
@@ -2375,7 +2420,8 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
     check(delta_rel <= TRAIN_DELTA_RTOL, f"train parity: updates relative Frobenius {delta_rel} > {TRAIN_DELTA_RTOL}")
     check(excluded <= 1e-2 * total, f"train parity: {excluded} of {total} gradient elements apart by > 1e-3")
     aux_note = f"aux to {rec['parity_aux']['rel']:.3g} relative, " if cfg.n_experts else ""
-    print(f"  {label} full width, {layers} layers, float32, microbatch 2, xent chunk {TRAIN_PARITY_CHUNK} "
+    depth = f"{layers} + {layers}" if cfg.arch == "encdec" else f"{layers}"
+    print(f"  {label} full width, {depth} layers, float32, microbatch 2, xent chunk {TRAIN_PARITY_CHUNK} "
           f"of S={TRAIN_PARITY_SEQ}: card == CPU, loss to {loss_rel:.3g} relative (<= {TRAIN_LOSS_RTOL}), {aux_note}grad_norm "
           f"{norm_rel:.3g} (<= {TRAIN_NORM_RTOL}), gradients {grad_rel:.3g} relative Frobenius (<= {TRAIN_GRAD_RTOL}), "
           f"updates {delta_rel:.3g} (<= {TRAIN_DELTA_RTOL}; {excluded} of {total} elements, whose gradients differ by "
@@ -2971,11 +3017,341 @@ def families_phase(smi: str, record: dict) -> None:
     record["families"] = rec
 
 
+def encdec_train_flops(cfg, params, batch: int, s_enc: int, s_dec: int) -> float:
+    """(6 N + attention) FLOPs of one encoder-decoder train step: the
+    encoder's parameters (with ``proj_in``) and the decoder's cross K/V
+    projections over the frames, the rest of the decoder (with the
+    ``unembed`` product; the embedding lookup has none) over the decoder
+    tokens, and 12 x layers x heads x d_head x keys a token for the
+    encoder's self-attention, the decoder's and its cross-attention
+    (phase 15's count)."""
+    n_enc = n_xkv = n_dec = 0
+    for name, t in params.named_parameters():
+        if name.startswith("enc.") or name.startswith("proj_in") or name == "enc_norm":
+            n_enc += t.numel()
+        elif ".cross_attn.wk." in name or ".cross_attn.wv." in name:
+            n_xkv += t.numel()
+        elif name != "embed":
+            n_dec += t.numel()
+    frames, toks = batch * s_enc, batch * s_dec
+    hd = 12 * cfg.n_heads * cfg.d_head
+    attn = hd * (cfg.n_enc_layers * s_enc * frames + cfg.n_dec_layers * (s_dec + s_enc) * toks)
+    return 6 * ((n_enc + n_xkv) * frames + n_dec * toks) + attn
+
+
+def encdec_serve(model, pc, cfg, frames, steps: int):
+    """Greedy serving of ``frames``: prefill, then ``steps`` decode steps
+    on the argmax -> (tokens (B, steps + 1), prefill s, decode s, cache)."""
+    import torch
+
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        logits, cache = model.prefill(pc, cfg, frames, max_len=ENCDEC_MAX_LEN, cache_dtype=torch.bfloat16)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        toks = [cur]
+        for _ in range(steps):
+            logits, cache = model.decode_step(pc, cfg, cache, cur)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            toks.append(cur)
+        out = torch.cat(toks, dim=1)
+        torch.cuda.synchronize()
+    return out, t1 - t0, time.monotonic() - t1, cache
+
+
+def encdec_phase(smi: str, record: dict) -> None:
+    """Phase 18: seamless-m4t-large-v2 at its published width and depth
+    (24 + 24 layers, float32 masters, random weights from the port's
+    seeded init), the clustering kernels' counters set to 0 just before
+    and read just after: (a) the parameter count and bytes; (b) float32
+    at 2 + 2 layers, forward logits and prefill + 5 decode steps card vs
+    CPU (max abs 1e-3); (c) decode against the teacher-forced forward on
+    the card at that depth over 24 steps inside ``dec_len``; (d) serving
+    at full depth in bfloat16: 8 requests of 1024 frames, ``max_len``
+    1024 (``dec_len`` 256), 24 greedy decode steps (prefill s, s a decode
+    step and its device time from a CUDA graph replay, tokens/s, peak
+    memory); (e) ``train_parity`` at 2 + 2 layers; (f) 4 train steps at
+    full size (bfloat16 compute, float32 masters and AdamW states, remat)
+    on 4 rows of 1024 frames and 256 decoder tokens; (g) no clustering
+    kernel launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import abstract_init, get_model, init_params
+    from repro_torch.train import optim, step as step_lib
+
+    names = ("pairwise_topk", "fused_cascade", "lune_filter", "prim_mst", "single_linkage", "sbcn_tile")
+    pt, fc, lf, pm, sl, st = (kernel_module(k) for k in names)
+    counters = {"pairwise_topk": pt.pairwise_topk, "edge_cascade": fc.edge_cascade, "lune_filter": lf.lune_filter,
+                "prim_mst": pm.prim_mst, "single_linkage": sl.single_linkage, "sbcn_tile": st.tile_dots,
+                "sbcn_norms": st.point_norms}
+    for fn in counters.values():
+        fn.launches = 0
+    dev = torch.device(CARD)
+    cfg = get_config(ENCDEC_ARCH)
+    fields, want = ENCDEC_PUBLISHED
+    check(tuple(getattr(cfg, f) for f in fields) == want, f"{cfg.name} as published")
+    check((cfg.dtype, cfg.param_dtype, cfg.remat, cfg.xent_chunk, cfg.microbatch, cfg.optimizer_state_dtype)
+          == ("bfloat16", "float32", True, 512, 1, "float32"), f"{cfg.name} trains as published")
+    model = get_model(cfg)
+    n_ref = sum(t.numel() for t in abstract_init(cfg).parameters())
+    check(n_ref == ENCDEC_PARAMS, f"{cfg.name}: the meta skeleton counts {n_ref} parameters, not {ENCDEC_PARAMS}")
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 24), device=dev)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "init_s": time.monotonic() - t0, "n_params": sum(t.numel() for t in params.parameters()),
+           "param_bytes": sum(t.numel() * t.element_size() for t in params.parameters())}
+    check(rec["n_params"] == ENCDEC_PARAMS, f"{cfg.name} has the reference's {ENCDEC_PARAMS} parameters")
+    print(f"phase 18: (a) {cfg.name} at its published width and depth ({cfg.n_enc_layers} + {cfg.n_dec_layers} "
+          f"layers, d={cfg.d_model}, {cfg.n_heads} heads; {rec['n_params']} parameters, "
+          f"{rec['param_bytes'] / 1e9:.2f} GB of float32 masters) initialised on the card in {rec['init_s']:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(SEED + 51)
+    depth = ENCDEC_DEPTH
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    part_s, clock = {}, [time.monotonic()]
+
+    def part(name: str) -> None:
+        now = time.monotonic()
+        part_s[name], clock[0] = now - clock[0], now
+
+    def frames_of(b: int, s: int) -> torch.Tensor:
+        return torch.from_numpy(rng.normal(size=(b, s, cfg.frontend_dim)).astype(np.float32))
+
+    # (b) the card against the CPU at 2 + 2 layers, float32
+    frames, toks = frames_of(2, 40), torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+    follow = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 5)).astype(np.int32))
+    outs = {}
+    with torch.inference_mode():
+        for where in (CARD, "cpu"):
+            t0 = time.monotonic()
+            p2, c2 = truncated(params, cfg32, depth, torch.device(where))
+            h, _ = model.forward(p2, c2, toks.to(where), frames.to(where))
+            logits = model.logits_fn(p2, c2, h).float().cpu()
+            last, cache = model.prefill(p2, c2, frames.to(where), max_len=64, cache_dtype=torch.float32)
+            steps = [last.float().cpu()]
+            for t in range(5):
+                lg, cache = model.decode_step(p2, c2, cache, follow[:, t : t + 1].to(where))
+                steps.append(lg.float().cpu())
+            outs[where] = {"logits": logits, "steps": torch.stack(steps, dim=1), "s": time.monotonic() - t0}
+            del p2, h, cache
+    card, cpu = outs[CARD], outs["cpu"]
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    err_dec = float((card["steps"] - cpu["steps"]).abs().max())
+    rec["parity"] = {"layers": depth, "logits_max_abs": err, "decode_max_abs": err_dec, "cpu_s": cpu["s"]}
+    check(bool(torch.isfinite(card["logits"]).all()) and card["logits"].shape == (2, 24, cfg.padded_vocab),
+          f"{depth} + {depth}-layer logits finite, (B, S, padded_vocab)")
+    check(err <= LM_PARITY_TOL, f"{depth} + {depth}-layer float32 logits: card vs CPU max abs {err} > {LM_PARITY_TOL}")
+    check(bool(torch.isfinite(card["steps"]).all()) and err_dec <= LM_PARITY_TOL,
+          f"{depth} + {depth}-layer prefill + decode, float32: card vs CPU max abs {err_dec} > {LM_PARITY_TOL}")
+    print(f"  (b) full width, {depth} + {depth} layers, float32: card == the port's CPU run to {err:.3g} max abs "
+          f"(forward logits over 40 frames and 24 tokens) and {err_dec:.3g} (prefill of 2 x 40 frames + 5 decode "
+          f"steps), <= {LM_PARITY_TOL}; CPU side {cpu['s']:.1f} s", flush=True)
+    part("b")
+
+    # (c) decode against the teacher-forced forward on the card, float32
+    n_dec = ENCDEC_DECODE_STEPS
+    frames = frames_of(2, 64).to(dev)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, n_dec)).astype(np.int32)).to(dev)
+    max_len = 128  # dec_len 32: BOS and the 24 steps write slots 0-24
+    with torch.inference_mode():
+        p2, c2 = truncated(params, cfg32, depth, dev)
+        dec_in = torch.cat([torch.zeros((2, 1), dtype=torch.int32, device=dev), toks], dim=1)
+        h, _ = model.forward(p2, c2, dec_in, frames)
+        ref = model.logits_fn(p2, c2, h)
+        last, cache = model.prefill(p2, c2, frames, max_len=max_len, cache_dtype=torch.float32)
+        check(cache["k"].shape[2] == 32 and n_dec < 32, "the decode stays inside dec_len")
+        steps = [last]
+        for t in range(n_dec):
+            lg, cache = model.decode_step(p2, c2, cache, toks[:, t : t + 1])
+            steps.append(lg)
+        serve = torch.stack(steps, dim=1)
+        del p2, h, cache
+    err = float((serve - ref).abs().max())
+    rec["decode_vs_forward"] = {"frames": 64, "decoded": n_dec, "max_abs": err, "max_logit": float(ref.abs().max())}
+    check(bool(torch.isfinite(serve).all()), "decode logits finite")
+    check(err <= LM_PARITY_TOL, f"decode vs forward, {depth} + {depth} layers, float32: max abs {err} > {LM_PARITY_TOL}")
+    print(f"  (c) {depth} + {depth} layers, float32 on the card: prefill over 64 frames (BOS) + {n_dec} decode steps "
+          f"== the teacher-forced forward to {err:.3g} max abs (<= {LM_PARITY_TOL})", flush=True)
+    del serve, ref
+    part("c")
+
+    # (d) serving at full depth in bfloat16
+    b, s_enc = ENCDEC_REQUESTS, ENCDEC_FRAMES
+    pc = model.cast_for_compute(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    frames = torch.randn((b, s_enc, cfg.frontend_dim), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    again, *_ = encdec_serve(model, pc, cfg, frames, ENCDEC_NEW_TOKENS)  # warm
+    out, prefill_s, decode_s, cache = encdec_serve(model, pc, cfg, frames, ENCDEC_NEW_TOKENS)
+    cur = out[:, -1:]
+
+    def one_step():
+        with torch.inference_mode():
+            model.decode_step(pc, cfg, cache, cur)
+
+    graph_step = graph_ms(one_step, FAMILY_DECODE_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = b * (ENCDEC_NEW_TOKENS + 1)
+    serving = {"requests": b, "frames": s_enc, "max_len": ENCDEC_MAX_LEN, "dec_len": int(cache["k"].shape[2]),
+               "new_tokens": ENCDEC_NEW_TOKENS + 1, "prefill_s": prefill_s, "decode_s": decode_s,
+               "s_per_decode_step": decode_s / ENCDEC_NEW_TOKENS, "device_s_per_decode_step": graph_step / 1e3,
+               "tok_per_s": tokens / (prefill_s + decode_s), "max_memory_allocated": peak}
+    rec["serving"] = serving
+    check(serving["dec_len"] == 256, f"max_len {ENCDEC_MAX_LEN} keeps 256 decoder slots")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()), "tokens in the vocabulary")
+    check(torch.equal(out, again), "greedy serving is deterministic")
+    print(f"  (d) serving at full depth in bfloat16 on {smi}: {b} requests of {s_enc} frames, max_len "
+          f"{ENCDEC_MAX_LEN} (dec_len {serving['dec_len']}), BOS + {ENCDEC_NEW_TOKENS} greedy steps: prefill "
+          f"{prefill_s:.4f} s, {serving['s_per_decode_step']:.4f} s a decode step ({graph_step / 1e3:.5f} s of device "
+          f"time, a step replayed from a CUDA graph), {serving['tok_per_s']:.1f} tokens/s, max_memory_allocated "
+          f"{peak / 1e9:.2f} GB; the warm-up run's tokens equal", flush=True)
+    del pc, frames, cache, out, again
+    torch.cuda.empty_cache()
+    part("d")
+
+    # (e) one step at 2 + 2 layers, card against CPU
+    train_rec: dict = {}
+    train_parity(cfg, params, train_rec, layers=depth, label="(e)")
+    rec["train_parity"] = train_rec
+    torch.cuda.empty_cache()
+    part("e")
+
+    # (f) full size as published
+    bt, s_enc, s_dec = ENCDEC_TRAIN_BATCH, ENCDEC_FRAMES, ENCDEC_TRAIN_DEC
+    ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=ENCDEC_TRAIN_STEPS)
+    state = optim.make_optimizer(ocfg, cfg)[0](params)
+    n_state = state_bytes(state)
+    check(n_state == reckoned_state_bytes(cfg, "float32"), f"float32 AdamW states: {n_state} bytes")
+    train_step = step_lib.make_train_step(cfg, ocfg)
+    batches = [{"frames": torch.randn((bt, s_enc, cfg.frontend_dim), generator=gen, device=dev),
+                "dec_tokens": torch.randint(0, cfg.vocab, (bt, s_dec), generator=gen, device=dev, dtype=torch.int32),
+                "dec_labels": torch.randint(0, cfg.vocab, (bt, s_dec), generator=gen, device=dev, dtype=torch.int32)}
+               for _ in range(ENCDEC_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for bb in batches:
+        t0 = time.monotonic()
+        _, _, m = train_step(params, state, bb)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    flops = encdec_train_flops(cfg, params, bt, s_enc, s_dec)
+    warm_s = sum(step_s[1:]) / (len(step_s) - 1)
+    finite = all(bool(torch.isfinite(t).all()) for t in params.parameters())
+    rec["train"] = {"steps": ENCDEC_TRAIN_STEPS, "batch": bt, "frames": s_enc, "dec_tokens": s_dec,
+                    "losses": losses, "step_s": step_s, "warm_s_per_step": warm_s,
+                    "dec_tokens_per_s": bt * s_dec / warm_s, "frames_per_s": bt * s_enc / warm_s,
+                    "max_memory_allocated": peak, "flops_per_step": flops,
+                    "bf16_peak_share": flops / warm_s / PEAK_BF16_FLOPS, "state_bytes_float32": n_state}
+    check(finite and all(np.isfinite(losses)), f"{cfg.name} training: finite losses and masters: {losses}")
+    print(f"  (f) full size as published ({rec['n_params']} parameters; bfloat16 compute, float32 masters and AdamW "
+          f"states, remat), {ENCDEC_TRAIN_STEPS} steps of {bt} rows x ({s_enc} frames, {s_dec} decoder tokens) at lr "
+          f"{TRAIN_LR} on {smi}: losses {[round(v, 4) for v in losses]}; warm {warm_s:.4f} s a step (steps "
+          f"2-{ENCDEC_TRAIN_STEPS}; first {step_s[0]:.3f} s), {bt * s_dec / warm_s:.0f} decoder tokens/s and "
+          f"{bt * s_enc / warm_s:.0f} frames/s, max_memory_allocated {peak / 1e9:.2f} GB, (6 N + attention) FLOPs "
+          f"{flops:.4g} a step = {rec['train']['bf16_peak_share']:.4f} of the dense bf16 peak; float32 states "
+          f"{n_state / 1e9:.2f} GB", flush=True)
+    del params, state, batches, train_step
+    torch.cuda.empty_cache()
+    part("f")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec["launches"] = launches
+    check(not any(launches.values()), f"the encoder-decoder paths launched no clustering kernel: {launches}")
+    print(f"  (g) launches of the hand-written kernels on these paths: {launches}", flush=True)
+    rec["part_s"] = part_s
+    print(f"  {cfg.name}: seconds by part {json.dumps({k: round(v, 1) for k, v in part_s.items()})}", flush=True)
+    record["encdec"] = rec
+
+
+def mesh_phase(x_np, fits: dict, smi: str, record: dict) -> None:
+    """Phase 19: the mesh path at world size 1 on the card.  An NCCL group
+    of one rank (a ``file://`` store in a temporary directory; no
+    fallback: if NCCL cannot start, the phase fails), ``make_host_mesh``,
+    and the mesh Plan built directly (``resolve_plan`` rightly turns a
+    one-rank mesh into ``"single"``): RNG* and exact fits of phase 4's
+    points, their kNN, edges, MST ids, ``mst_w`` and labels bit-equal to
+    the single-device fits in ``fits`` (variant -> estimator), with the
+    launches of each fit (counters set to 0 just before it, read just
+    after) and each stage's seconds beside the single-device fit's."""
+    import dataclasses
+    import datetime
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import engine
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.launch.mesh import make_host_mesh
+
+    names = ("pairwise_topk", "fused_cascade", "lune_filter", "single_linkage")
+    pt, fc, lf, sl = (kernel_module(k) for k in names)
+    counters = {"pairwise_topk": pt.pairwise_topk, "edge_cascade": fc.edge_cascade, "lune_filter": lf.lune_filter,
+                "single_linkage": sl.single_linkage}
+    rec: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            check(dist.get_backend() == "nccl", f"the process group's backend is {dist.get_backend()}, not nccl")
+            mesh = make_host_mesh()
+            check(mesh.device_type == "cuda" and not engine.resolve_plan(mesh=mesh).sharded,
+                  "'auto' turns a one-rank card mesh into the single-device plan")
+            plan = dataclasses.replace(engine.resolve_plan(), mesh=mesh)
+            check(plan.sharded and plan.n_shards == 1, f"the mesh plan: {plan.describe()}")
+            print(f"phase 19: NCCL group of 1 rank, {plan.describe()}", flush=True)
+            for variant, ref in fits.items():
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.monotonic()
+                est = MultiHDBSCAN(kmax=KMAX, variant=variant, plan=plan).fit(x_np)
+                views = est.select_all()
+                torch.cuda.synchronize()
+                total = time.monotonic() - t0
+                launches = {k: fn.launches for k, fn in counters.items()}
+                m, mr = est.model_.msts, ref.model_.msts
+                check(est.plan_.sharded, f"{variant}: the fit ran on the mesh plan")
+                check(np.array_equal(m.knn_idx, mr.knn_idx) and np.array_equal(m.knn_d2.view(np.int32),
+                                                                                mr.knn_d2.view(np.int32)),
+                      f"{variant}: the ring kNN (refined) equals the single-device kNN bit for bit")
+                check(np.array_equal(est.graph_.edges, ref.graph_.edges), f"{variant}: graph edges equal")
+                check(np.array_equal(m.mst_ea, mr.mst_ea) and np.array_equal(m.mst_eb, mr.mst_eb),
+                      f"{variant}: MST edge ids equal for every mpts")
+                check(np.array_equal(m.mst_w.view(np.int32), mr.mst_w.view(np.int32)), f"{variant}: mst_w bit-equal")
+                for v, vr in zip(views, ref.select_all()):
+                    check(np.array_equal(v.labels, vr.labels), f"{variant}: labels equal at mpts={v.mpts}")
+                check(launches["pairwise_topk"] == 0, f"{variant}: the mesh kNN is the ring, not pairwise_topk")
+                check(launches["edge_cascade"] >= 2, f"{variant}: edge_cascade launched for both stages")
+                check(launches["single_linkage"] == 1, f"{variant}: select_all launched single_linkage once")
+                if variant == "rng":
+                    check(launches["lune_filter"] >= 1, "the exact mesh fit launched lune_filter")
+                stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+                single = {k: ref.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+                rec[variant] = {"launches": launches, "stages_s": stages, "single_stages_s": single,
+                                "fit_and_select_all_s": total, "graph": est.graph_.stats}
+                print(f"  {variant}: mesh fit + select_all {total:.2f} s, launches {launches}; kNN, edges, MST ids, "
+                      f"mst_w and labels == the single-device fit's; stages (s) on {smi}, mesh "
+                      f"{json.dumps(stages)} against single {json.dumps(single)}", flush=True)
+        finally:
+            dist.destroy_process_group()
+    record["mesh"] = rec
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     kernels_only = "--kernels-only" in argv
     families_only = "--families-only" in argv
+    encdec_mesh_only = "--encdec-mesh-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3014,6 +3390,19 @@ def main(argv: list[str]) -> int:
     if families_only:
         phase("17. SSM and recurrent LMs")
         families_phase(smi, record)
+        phase("end")
+        print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
+        return 0
+    if encdec_mesh_only:
+        phase("2. build")
+        print(f"build: per source {_build.build_all()}", flush=True)
+        phase("18. the encoder-decoder LM")
+        encdec_phase(smi, record)
+        phase("19. the mesh path")
+        x_np = make_points(N, D, SEED)
+        fits = {v: MultiHDBSCAN(kmax=KMAX, variant=v).fit(x_np) for v in ("rng_star", "rng")}  # warm-up
+        fits = {v: MultiHDBSCAN(kmax=KMAX, variant=v).fit(x_np) for v in ("rng_star", "rng")}
+        mesh_phase(x_np, fits, smi, record)
         phase("end")
         print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
         return 0
@@ -3377,6 +3766,14 @@ def main(argv: list[str]) -> int:
     phase("17. SSM and recurrent LMs")
     # -- 17. SSM and recurrent LMs (after 11, with the LM closures freed) -----
     families_phase(smi, record)
+
+    phase("18. the encoder-decoder LM")
+    # -- 18. the encoder-decoder LM ----------------------------------------------
+    encdec_phase(smi, record)
+
+    phase("19. the mesh path")
+    # -- 19. the mesh path at world size 1, against phases 11's and 5's warm fits -
+    mesh_phase(x_np, {"rng_star": est_w, "rng": est_xw}, smi, record)
 
     phase("end")
     record["phase_s"] = phase_s

@@ -68,8 +68,18 @@ class MultiHDBSCAN:
         Where the fit runs.  Default ``"cuda"``: the hand-written kernels,
         and a ``RuntimeError`` on a machine without a card.  ``"cpu"`` runs
         their plain PyTorch versions.
-    plan : "auto" | "single" | engine.Plan
-        Pass a pre-built ``engine.Plan`` to pin every chunk/tile size.
+    mesh : torch.distributed.device_mesh.DeviceMesh, optional
+        A mesh of the fit's device type (``launch.mesh``), the same on
+        every rank of its process group, each rank calling ``fit`` on the
+        same X.  When its ``data`` axis has more than one rank, the
+        row-parallel stages (kNN, exact lune scan, the per-mpts Borůvka
+        range) shard over it; a one-rank mesh (or ``None``) runs the
+        single-device path.
+    plan : "auto" | "single" | "mesh" | engine.Plan
+        Placement request, resolved once at ``fit`` against ``mesh``:
+        "auto" shards iff the mesh is usable, "single" forces the local
+        path, "mesh" raises rather than silently degrading.  Pass a
+        pre-built ``engine.Plan`` to pin every chunk/tile size.
     max_cached_hierarchies : int, optional
         Bound on the per-(mpts, policy) extraction cache (LRU eviction);
         settable after ``fit`` too (the ``max_cached_hierarchies``
@@ -88,6 +98,7 @@ class MultiHDBSCAN:
         allow_single_cluster: bool = False,
         variant: str = "rng_star",
         device=None,
+        mesh=None,
         plan="auto",
         max_cached_hierarchies: int | None = None,
     ):
@@ -114,6 +125,7 @@ class MultiHDBSCAN:
         self.allow_single_cluster = allow_single_cluster
         self.variant = variant
         self.device = device
+        self.mesh = mesh
         self.plan = plan
         self._max_cached_hierarchies = max_cached_hierarchies
         self._model: FittedModel | None = None
@@ -145,6 +157,7 @@ class MultiHDBSCAN:
             policy=self._selection_policy(),
             variant=self.variant,
             device=self.device,
+            mesh=self.mesh,
             plan=self.plan,
             max_cached_hierarchies=self._max_cached_hierarchies,
         )

@@ -205,6 +205,7 @@ class FittedModel:
         policy: SelectionPolicy | None = None,
         variant: str = "rng_star",
         device=None,
+        mesh=None,
         plan: "engine.Plan | str" = "auto",
         max_cached_hierarchies: int | None = None,
     ) -> "FittedModel":
@@ -212,6 +213,8 @@ class FittedModel:
 
         ``device`` defaults to ``"cuda"`` and raises without a card; pass
         ``device="cpu"`` for the plain PyTorch versions of the kernels.
+        ``mesh`` and ``plan`` place the fit (``engine.resolve_plan``): with
+        a mesh, every rank of its process group calls ``fit`` on the same X.
         """
         X = np.asarray(X)
         if X.ndim != 2:
@@ -231,7 +234,7 @@ class FittedModel:
                 f"{int(rows[0])}; clean or impute before fit()"
             )
         policy = policy if policy is not None else SelectionPolicy()
-        resolved = engine.resolve_plan(plan, device=device)
+        resolved = engine.resolve_plan(plan, device=device, mesh=mesh)
         msts = multi.fit_msts(
             X, kmax, kmin=kmin, variant=variant, mpts_values=mpts_values, plan=resolved,
         )
@@ -456,6 +459,7 @@ class FittedModel:
         path: str,
         *,
         device=None,
+        mesh=None,
         plan: "engine.Plan | str" = "auto",
         policy: SelectionPolicy | None = None,
         max_cached_hierarchies: int | None = None,
@@ -463,8 +467,8 @@ class FittedModel:
     ) -> "FittedModel":
         """Boot a FittedModel from a saved artifact (either package's).
 
-        Placement is resolved fresh on this host with the same ``device``
-        policy as :meth:`fit`.  Any problem with the file is an
+        Placement is resolved fresh on this host with the same ``device``,
+        ``mesh`` and ``plan`` policy as :meth:`fit`.  Any problem with the file is an
         :class:`ArtifactError` naming it.
         """
         try:
@@ -499,7 +503,7 @@ class FittedModel:
             X=X,
             msts=msts,
             policy=pol,
-            plan=engine.resolve_plan(plan, device=device),
+            plan=engine.resolve_plan(plan, device=device, mesh=mesh),
             config=config,
             provenance=header.get("provenance", {}),
             max_cached_hierarchies=max_cached_hierarchies,

@@ -1,0 +1,217 @@
+"""Cluster-parallel collectives, the port of
+``repro/dist/cluster_parallel.py``: the clustering pipeline over
+row-sharded points on ``torch.distributed``.
+
+The reference is one controller over a jax ``Mesh``; the port is SPMD:
+one process a GPU, every rank calling the same ``fit`` on the same X, and
+a ``torch.distributed.device_mesh.DeviceMesh`` whose ``axis`` (``"data"``)
+names the ranks the rows are sharded over (NCCL on the card; gloo on the
+CPU, where the caller asks for ``device="cpu"``).  Rank r of P holds rows
+[r nl, (r + 1) nl) of the points padded to P nl rows (``pad_rows``,
+``shard_rows``); ``n_valid`` keeps the padding out.
+
+``ring_knn`` keeps the reference's systolic structure: each rank keeps its
+rows resident, a block of candidate points moves one hop a step around
+the ring (``batch_isend_irecv``: to r + 1, from r - 1), and every rank
+folds the visiting block into its running top-k in lexicographic
+(distance, index) order.  ``ring_lune_count`` answers the exact lune
+queries (``kernels.lune_filter``'s semantics) against the sharded point
+set: the endpoints' rows are gathered exactly, each rank tests its own
+points through the ``lune_filter`` kernel (its plain version on the CPU),
+and the partial verdicts are OR-ed across ranks.  ``sharded_mst_range``
+runs the batched Borůvka with the R mpts rows split over the ranks (the
+rows are independent reweightings of one edge list) and gathers the
+(R, m) result on every rank.
+
+Every rank returns the same replicated results, so the host stages after
+them (WSPD, SBCN tiers, extraction) take the same decisions everywhere.
+These collectives are the ``backend="mesh"`` of ``kernels.ops`` and are
+normally reached through an ``engine.Plan`` built with a mesh.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# the reference's empty slot of a running top-k: (inf, int32 max)
+_INF_BITS = 0x7F800000
+_EMPTY_KEY = (_INF_BITS << 32) | 0x7FFFFFFF
+_KNN_ROWS = 4096  # rows of a ring step's (rows x nl) distance tile
+
+
+def axis_size(mesh, axis: str = "data") -> int:
+    """The number of ranks along ``axis`` (``DeviceMesh.size`` takes a
+    dimension index, not a name)."""
+    return mesh[axis].size()
+
+
+def _axis(mesh, axis: str):
+    """(group, this rank's index along ``axis``, the axis' size)."""
+    return mesh.get_group(axis), mesh.get_local_rank(axis), axis_size(mesh, axis)
+
+
+def pad_rows(x: torch.Tensor, n_shards: int, fill=0) -> torch.Tensor:
+    """Pad the leading axis to a multiple of ``n_shards`` with ``fill``."""
+    n = x.shape[0]
+    n_pad = -(-n // n_shards) * n_shards
+    if n_pad == n:
+        return x
+    return torch.cat([x, x.new_full((n_pad - n, *x.shape[1:]), fill)])
+
+
+def shard_rows(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """This rank's block of the leading axis (a multiple of the axis size)."""
+    _, me, p = _axis(mesh, axis)
+    if x.shape[0] % p:
+        raise ValueError(f"{x.shape[0]} rows do not split over {p} ranks; pad them with pad_rows")
+    nl = x.shape[0] // p
+    return x[me * nl:(me + 1) * nl]
+
+
+def replicate(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A copy of ``x`` equal on every rank of ``mesh``: the first rank's,
+    broadcast along each mesh dimension in turn."""
+    out = x.detach().clone().contiguous()
+    for name in mesh.mesh_dim_names:
+        group = mesh.get_group(name)
+        dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+    return out
+
+
+def _keys(d2: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(distance, index) as one int64 that orders lexicographically: the
+    float32 bits of d2 >= 0 (-0 made +0 by adding 0) above the index."""
+    bits = (d2 + 0.0).view(torch.int32).to(torch.int64)
+    return (bits << 32) | cols.to(torch.int64)
+
+
+def _exchange(blk: torch.Tensor, group, me: int, p: int):
+    """Start sending ``blk`` to the next rank and receiving the previous
+    rank's block: (the receive buffer, the requests)."""
+    nxt = torch.empty_like(blk)
+    ops = [dist.P2POp(dist.isend, blk, dist.get_global_rank(group, (me + 1) % p), group),
+           dist.P2POp(dist.irecv, nxt, dist.get_global_rank(group, (me - 1) % p), group)]
+    return nxt, dist.batch_isend_irecv(ops)
+
+
+def ring_knn(x_loc: torch.Tensor, k: int, mesh, axis: str = "data", n_valid: int | None = None):
+    """The k nearest neighbours of each of this rank's rows, itself excluded.
+
+    Args:
+      x_loc: (nl, d) this rank's rows (``shard_rows`` of the points padded
+        with ``pad_rows``); every rank holds the same nl.
+      k: neighbours a row.
+      mesh: the ``DeviceMesh`` holding ``axis``.
+      n_valid: the number of real rows; rows >= n_valid are padding and
+        never reported as neighbours (their own outputs are garbage).
+    Returns:
+      (d2, idx): (nl, k) float32 ascending squared distances in matmul
+      form (clamped at 0) and int32 global indices, in (distance, index)
+      order; a slot with no candidate is (inf, int32 max).  The matmul is
+      ``torch.mm`` (the reference computes it outside any Pallas kernel);
+      ``kernels.ops.knn(backend="mesh")`` refines the candidates exactly.
+    """
+    group, me, p = _axis(mesh, axis)
+    nl = x_loc.shape[0]
+    n_valid = nl * p if n_valid is None else n_valid
+    dev = x_loc.device
+    xf = x_loc.float().contiguous()
+    xn = (xf * xf).sum(-1)
+    rows = me * nl + torch.arange(nl, device=dev)
+    top = torch.full((nl, k), _EMPTY_KEY, dtype=torch.int64, device=dev)
+    blk = xf
+    for t in range(p):
+        nxt, reqs = _exchange(blk, group, me, p) if t + 1 < p else (None, [])
+        src = (me - t) % p
+        cols = src * nl + torch.arange(nl, device=dev)
+        bn = (blk * blk).sum(-1)
+        for r0 in range(0, nl, _KNN_ROWS):
+            sl = slice(r0, r0 + _KNN_ROWS)
+            d2 = torch.clamp_min(xn[sl, None] + bn[None, :] - 2.0 * (xf[sl] @ blk.T), 0.0)
+            bad = (rows[sl, None] == cols[None, :]) | (cols[None, :] >= n_valid)
+            d2 = torch.where(bad, torch.inf, d2)
+            cand = torch.cat([top[sl], _keys(d2, cols[None, :])], dim=1)
+            top[sl] = torch.topk(cand, k, dim=1, largest=False, sorted=True).values
+        for req in reqs:
+            req.wait()
+        blk = nxt if nxt is not None else blk
+    d2 = (top >> 32).to(torch.int32).view(torch.float32)
+    idx = (top & 0xFFFFFFFF).to(torch.int32)
+    return d2, idx
+
+
+def ring_lune_count(x_loc: torch.Tensor, cd2_loc: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor,
+                    w2: torch.Tensor, mesh, axis: str = "data", n_valid: int | None = None, *,
+                    block_e: int = 8, block_c: int = 512) -> torch.Tensor:
+    """For each edge: is some point strictly inside its mrd lune?
+
+    Args:
+      x_loc: (nl, d) this rank's rows; cd2_loc: (nl,) their squared core
+        distances; ea, eb, w2: (m,) edge endpoints (global indices) and
+        squared mrd weights, the same on every rank.
+      n_valid: the number of real rows; padded rows are never occupants.
+      block_e, block_c: the ``lune_filter`` kernel's tiles.
+    Returns:
+      (m,) bool, the same on every rank: ``kernels.ref.lune_filter_ref``'s
+      verdicts over the whole point set.
+
+    The endpoints' rows and core distances come from an all_reduce(SUM)
+    of the rows each rank owns and zeros elsewhere (the reference's
+    one-hot psum: exact).  Each rank's verdicts over its own points run
+    through ``kernels.lune_filter`` with the endpoints' indices less the
+    rank's first row, so the kernel's endpoint test skips an endpoint
+    where this rank holds it; the partial verdicts are OR-ed (MAX).
+    """
+    from ..kernels.lune_filter import lune_filter
+
+    group, me, p = _axis(mesh, axis)
+    m = ea.shape[0]
+    nl, d = x_loc.shape
+    n_valid = nl * p if n_valid is None else n_valid
+    dev = x_loc.device
+    if m == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=dev)
+    r0 = me * nl
+    idx = torch.cat([ea, eb]).long()
+    own = (idx >= r0) & (idx < r0 + nl)
+    loc = (idx - r0).clamp(0, nl - 1)
+    rows = torch.cat([x_loc.float()[loc], cd2_loc.float()[loc, None]], dim=1)
+    rows = torch.where(own[:, None], rows, 0.0)
+    dist.all_reduce(rows, group=group)
+    a_xyz, b_xyz = rows[:m, :d], rows[m:, :d]
+    a_cd2, b_cd2 = rows[:m, d], rows[m:, d]
+    nv = max(0, min(nl, n_valid - r0))
+    if nv:
+        part = lune_filter(a_xyz, b_xyz, a_cd2, b_cd2, ea.long() - r0, eb.long() - r0, w2.float(),
+                           x_loc[:nv], cd2_loc[:nv], block_e=block_e, block_c=block_c)
+    else:
+        part = torch.zeros((m,), dtype=torch.bool, device=dev)
+    flags = part.to(torch.uint8)
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
+    return flags.bool()
+
+
+def sharded_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor, *, n: int, mesh,
+                      axis: str = "data") -> torch.Tensor:
+    """Batched Borůvka with the R mpts rows split over ``axis``.
+
+    Each row of ``w_range`` (R, m) is one reweighting of the same edge
+    list, so every rank solves its rows with no collective a round.  R is
+    padded to a multiple of the axis size with copies of the last row
+    (the same weights converge to the same MST; the copies are dropped).
+    Returns in_mst (R, m) bool on every rank, as ``boruvka_mst_range``.
+    """
+    from ..core import boruvka
+
+    group, me, p = _axis(mesh, axis)
+    r = w_range.shape[0]
+    r_pad = -(-r // p) * p
+    if r_pad != r:
+        w_range = torch.cat([w_range, w_range[-1:].expand(r_pad - r, -1)])
+    rl = r_pad // p
+    local = boruvka.boruvka_mst_range(ea, eb, w_range[me * rl:(me + 1) * rl].contiguous(), n=n)
+    local = local.to(torch.uint8).contiguous()
+    parts = [torch.empty_like(local) for _ in range(p)]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts)[:r].bool()

@@ -9,18 +9,25 @@ Backends:
   * ``"torch"`` — the kernels' plain PyTorch versions (tensors on the CPU).
   * ``"ref"``   — the oracles and the slot-array candidate path, on either.
 
+Placement: with a ``torch.distributed`` ``DeviceMesh`` (``launch.mesh``)
+the row-parallel stages (the kNN, the exact lune scan, the per-mpts
+Borůvka rows) shard over the mesh's ``axis`` (``dist.cluster_parallel``),
+every rank running the same fit; the request (``"auto"`` / ``"single"``
+/ ``"mesh"``) is filtered against the mesh that exists, as in the
+reference, so a one-rank mesh runs the single-device path.
+
 The reference's XLA program cache (``cached_program`` / ``declare_family``)
 has no counterpart: PyTorch runs eagerly and compiles nothing per shape.
-Single device only; the mesh placement is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
-PLAN_REQUESTS = ("auto", "single")
+PLAN_REQUESTS = ("auto", "single", "mesh")
 BACKENDS = ("cuda", "torch", "ref")
 
 
@@ -29,8 +36,10 @@ class Plan:
     """Resolved execution plan for the clustering pipeline.
 
     ``device`` is where every tensor of the fit lives; ``backend`` picks
-    the kernels (see the module docstring).  The tile and chunk fields are
-    the reference's; the ones the port reads:
+    the kernels (see the module docstring).  ``mesh`` (a ``DeviceMesh`` of
+    ``device``'s type, or None for one device) and ``axis``, the mesh
+    dimension the rows shard over, place the row-parallel stages.  The
+    tile and chunk fields are the reference's; the ones the port reads:
 
       * ``knn_block_q`` / ``knn_block_k`` — tiles of the plain blocked kNN
         (the CUDA kernel's tiles are compile-time constants of its source).
@@ -48,6 +57,8 @@ class Plan:
 
     backend: str
     device: str = "cuda"
+    mesh: Any = None
+    axis: str = "data"
     knn_block_q: int = 1024
     knn_block_k: int = 2048
     knn_refine_slack: int = 8
@@ -67,6 +78,24 @@ class Plan:
     dualtree_leaf: int = 4
     dualtree_margin: float = 1e-5
 
+    def __post_init__(self):
+        if self.mesh is not None and self.mesh.device_type != torch.device(self.device).type:
+            raise ValueError(
+                f"the mesh's device type {self.mesh.device_type!r} is not the plan's device {self.device!r}"
+            )
+
+    # -- placement ---------------------------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def n_shards(self) -> int:
+        from ..dist import cluster_parallel
+
+        return cluster_parallel.axis_size(self.mesh, self.axis) if self.mesh is not None else 1
+
     def use_dualtree(self, n: int) -> bool:
         """Size-tier dispatch for the candidate stages (kNN + graph build)."""
         if self.candidate_method == "dualtree":
@@ -84,14 +113,15 @@ class Plan:
 
     def knn(self, x: torch.Tensor, k_top: int, *, x_host=None):
         """(d2 ascending, idx) of every row's ``k_top`` nearest other rows:
-        the dual-tree candidate search on the host plus the shared exact
-        refine on the large-n tier, the top-K kernel otherwise.  ``x_host``
-        feeds the host search without a device sync when the caller already
-        holds a host view (``fit_msts`` does)."""
+        the ring kNN over the mesh when sharded, the dual-tree candidate
+        search on the host plus the shared exact refine on the large-n
+        tier, the top-K kernel otherwise.  ``x_host`` feeds the host search
+        without a device sync when the caller already holds a host view
+        (``fit_msts`` does)."""
         from ..kernels import ops
 
         n = int(x.shape[0])
-        if n > 2 and self.use_dualtree(n):
+        if not self.sharded and n > 2 and self.use_dualtree(n):
             from ..core import dualtree
             from . import io
 
@@ -105,7 +135,9 @@ class Plan:
         return ops.knn(
             x,
             k_top,
-            backend=self.backend,
+            backend="mesh" if self.sharded else self.backend,
+            mesh=self.mesh,
+            mesh_axis=self.axis,
             block_q=self.knn_block_q,
             block_k=self.knn_block_k,
             refine_slack=self.knn_refine_slack,
@@ -124,12 +156,15 @@ class Plan:
         )
 
     def lune_nonempty(self, ea, eb, w2, points, cd2):
-        """Exact lune-emptiness verdicts for an edge list (``lune_filter``)."""
+        """Exact lune-emptiness verdicts for an edge list (``lune_filter``),
+        each rank scanning its rows of the points when sharded."""
         from ..kernels import ops
 
         return ops.lune_nonempty(
             ea, eb, w2, points, cd2,
-            backend=self.backend,
+            backend="mesh" if self.sharded else self.backend,
+            mesh=self.mesh,
+            mesh_axis=self.axis,
             block_e=self.lune_block_e,
             block_c=self.lune_block_c,
         )
@@ -148,13 +183,26 @@ class Plan:
         )
 
     def mst_range(self, ea, eb, w_range, *, n: int):
-        """All R MSTs as an (R, m) bool mask."""
+        """All R MSTs as an (R, m) bool mask; the rows (independent mpts
+        values) shard over the mesh."""
+        if self.sharded:
+            from ..dist import cluster_parallel
+
+            return cluster_parallel.sharded_mst_range(ea, eb, w_range, n=n, mesh=self.mesh, axis=self.axis)
         from ..core import boruvka
 
         return boruvka.boruvka_mst_range(ea, eb, w_range, n=n)
 
     def describe(self) -> str:
-        return f"Plan(backend={self.backend!r}, device={self.device!r})"
+        place = f"mesh[{self.axis}={self.n_shards}]" if self.sharded else "single"
+        return f"Plan(backend={self.backend!r}, device={self.device!r}, placement={place})"
+
+
+def _mesh_usable(mesh, axis: str) -> bool:
+    """A mesh is worth sharding over iff the row axis exists and is > 1."""
+    from ..dist import cluster_parallel
+
+    return mesh is not None and axis in (mesh.mesh_dim_names or ()) and cluster_parallel.axis_size(mesh, axis) > 1
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -175,24 +223,37 @@ def resolve_plan(
     plan: Plan | str | None = "auto",
     *,
     backend: str | None = None,
+    mesh=None,
+    axis: str = "data",
     device: str | torch.device | None = None,
     **sizes,
 ) -> Plan:
     """Resolve a plan request against the hardware, once.
 
+    ``plan`` is a resolved ``Plan`` (returned as it is; passing a
+    different ``mesh`` beside it raises) or one of the requests:
+
+      * ``"auto"`` (default): shard iff ``mesh`` has an ``axis`` of more
+        than one rank, else one device;
+      * ``"single"``: one device, the mesh ignored;
+      * ``"mesh"``: shard, and raise where ``mesh`` cannot be sharded over
+        instead of degrading.
+
     ``device`` defaults to ``"cuda"``.  Without a card that raises: a fit
-    runs on the CPU only when the caller asks for ``device="cpu"``.
+    runs on the CPU only when the caller asks for ``device="cpu"``, and a
+    mesh must be of the device's type (NCCL on the card, gloo on the CPU).
     ``backend=None`` picks ``"cuda"`` on the card and ``"torch"`` on the
     CPU.  Extra keyword args override individual chunk/tile sizes.
     """
     if isinstance(plan, Plan):
+        if mesh is not None and plan.mesh is not mesh:
+            raise ValueError(
+                "got both a pre-built Plan and a different mesh=; build the Plan against that mesh "
+                "(resolve_plan(..., mesh=mesh) or dataclasses.replace(plan, mesh=mesh)) instead of passing both"
+            )
         return plan
     if plan is None:
         plan = "auto"
-    if plan == "mesh":
-        raise NotImplementedError(
-            "plan='mesh' (multi-GPU) belongs to a later slice of the port"
-        )
     if plan not in PLAN_REQUESTS:
         raise ValueError(f"plan must be one of {PLAN_REQUESTS} or a Plan; got {plan!r}")
     dev = resolve_device(device)
@@ -204,4 +265,8 @@ def resolve_plan(
             f"backend {backend!r} does not run on device {dev}: 'cuda' needs "
             "the card, 'torch' runs on the CPU, 'ref' on either"
         )
-    return Plan(backend=backend, device=str(dev), **sizes)
+    usable = _mesh_usable(mesh, axis)
+    if plan == "mesh" and not usable:
+        raise ValueError(f"plan='mesh' requires a mesh with a non-trivial {axis!r} axis; got mesh={mesh!r}")
+    use_mesh = usable and plan in ("auto", "mesh")
+    return Plan(backend=backend, device=str(dev), mesh=mesh if use_mesh else None, axis=axis, **sizes)

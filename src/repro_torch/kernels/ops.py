@@ -182,21 +182,47 @@ def _refine_knn(xq: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, *, k_top: 
     return torch.cat(d2_out), torch.cat(i_out)
 
 
+def _mesh_knn_candidates(x: torch.Tensor, k_eff: int, mesh, axis: str) -> torch.Tensor:
+    """The ring kNN's candidates of every row, gathered on every rank."""
+    import torch.distributed as dist
+
+    from ..dist import cluster_parallel as cp
+
+    n = x.shape[0]
+    p = cp.axis_size(mesh, axis)
+    _, idx = cp.ring_knn(cp.shard_rows(cp.pad_rows(x, p), mesh, axis), k_eff, mesh, axis, n_valid=n)
+    parts = [torch.empty_like(idx) for _ in range(p)]
+    dist.all_gather(parts, idx.contiguous(), group=mesh.get_group(axis))
+    return torch.cat(parts)[:n]
+
+
 def knn(
     x: torch.Tensor,
     k_top: int,
     *,
     backend: str = "cuda",
+    mesh=None,
+    mesh_axis: str = "data",
     block_q: int = 1024,
     block_k: int = 2048,
     refine_slack: int = 8,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """k nearest neighbours of each point: (d2 ascending, int32 idx)."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    """k nearest neighbours of each point: (d2 ascending, int32 idx).
+
+    ``backend="mesh"`` runs ``dist.cluster_parallel.ring_knn`` over the
+    ranks of ``mesh``'s ``mesh_axis`` (every rank passes the same ``x``),
+    gathers the candidates and refines them on every rank, so the result
+    equals the single-device path's.
+    """
+    if backend not in BACKENDS + ("mesh",):
+        raise ValueError(f"backend must be one of {BACKENDS + ('mesh',)}; got {backend!r}")
     n = x.shape[0]
     k_eff = min(n - 1, k_top + refine_slack)
-    if backend == "ref":
+    if backend == "mesh":
+        if mesh is None:
+            raise ValueError("backend='mesh' requires mesh=")
+        idx = _mesh_knn_candidates(x, k_eff, mesh, mesh_axis)
+    elif backend == "ref":
         _, idx = ref.knn_ref(x, k_eff)
     else:
         _, idx = pairwise_topk(x, k_eff, block_q=block_q, block_k=block_k)
@@ -304,6 +330,8 @@ def lune_nonempty(
     cd2: torch.Tensor,
     *,
     backend: str = "cuda",
+    mesh=None,
+    mesh_axis: str = "data",
     block_e: int = 8,
     block_c: int = 512,
 ) -> torch.Tensor:
@@ -311,13 +339,25 @@ def lune_nonempty(
 
     Gathers the endpoints' coordinates and squared core distances from
     ``points`` (n, d) and ``cd2`` (n,) itself.  The reference pads the edge
-    count to a power of two for XLA's program cache; the port compiles
-    nothing per shape and passes the edges as they are.
+    count to a power of two for XLA's program cache (but for
+    ``backend="mesh"``); the port compiles nothing per shape and passes
+    the edges as they are.  ``backend="mesh"`` scans each rank's rows of
+    the points (``dist.cluster_parallel.ring_lune_count``) and ORs the
+    verdicts over ``mesh``'s ``mesh_axis``.
     """
     from .lune_filter import lune_filter  # lune_filter imports this module
 
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    if backend not in BACKENDS + ("mesh",):
+        raise ValueError(f"backend must be one of {BACKENDS + ('mesh',)}; got {backend!r}")
+    if backend == "mesh":
+        if mesh is None:
+            raise ValueError("backend='mesh' requires mesh=")
+        from ..dist import cluster_parallel as cp
+
+        p = cp.axis_size(mesh, mesh_axis)
+        x_loc, cd2_loc = (cp.shard_rows(cp.pad_rows(t, p), mesh, mesh_axis) for t in (points, cd2))
+        return cp.ring_lune_count(x_loc, cd2_loc, ea, eb, w2, mesh, mesh_axis, n_valid=points.shape[0],
+                                  block_e=block_e, block_c=block_c)
     ea_l, eb_l = ea.long(), eb.long()
     args = (points[ea_l], points[eb_l], cd2[ea_l], cd2[eb_l], ea, eb, w2, points, cd2)
     if backend == "ref":

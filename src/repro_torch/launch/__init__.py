@@ -1,3 +1,4 @@
-"""Launchers of the port, as in ``repro.launch``: so far the training loop
-(``python -m repro_torch.launch.train``).  The cluster launcher, the
-dry-run and the mesh helpers come with later items of ``ROADMAP.md`` §1."""
+"""Launchers of the port, as in ``repro.launch``: the training loop
+(``python -m repro_torch.launch.train``) and the device meshes
+(``launch.mesh``).  The cluster launcher and the dry-run come with a later
+item of ``ROADMAP.md`` §1."""

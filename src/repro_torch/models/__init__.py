@@ -12,8 +12,9 @@ The parameters are masters in ``cfg.param_dtype`` (float32 but for
 kimi-k2's bfloat16) that require gradients: ``forward`` runs under
 autograd, and ``train.step`` trains them.  Registered: ``"transformer"``
 (the dense, MoE, MLA and patch-frontend configurations), ``"mamba2"``
-(``ssm``) and ``"griffin"``; the encoder-decoder family comes with a later
-item of ``ROADMAP.md`` §1 (the LM stack).  ``abstract_init``
+(``ssm``), ``"griffin"`` and ``"encdec"`` (whose ``forward`` takes
+``(dec_tokens, frames)`` and whose ``prefill`` takes the frames).
+``abstract_init``
 gives the parameters' shapes and master dtypes on the meta device, with
 no memory behind them, at any size (kimi-k2's 1.045e12 parameters).
 
@@ -31,16 +32,14 @@ import numpy as np
 import torch
 
 from ..engine.plan import resolve_device
-from . import griffin, layers, ssm, transformer
+from . import encdec, griffin, layers, ssm, transformer
 
-_REGISTRY = {"transformer": transformer, "mamba2": ssm, "griffin": griffin}
-_LATER = {"encdec": "the encoder-decoder family"}
+_REGISTRY = {"transformer": transformer, "mamba2": ssm, "griffin": griffin, "encdec": encdec}
 
 
 def get_model(cfg):
     if cfg.arch not in _REGISTRY:
-        what = _LATER.get(cfg.arch, f"arch {cfg.arch!r}")
-        raise NotImplementedError(f"{cfg.name}: {what} comes with a later item of ROADMAP.md §1 (the LM stack)")
+        raise ValueError(f"{cfg.name}: unknown arch {cfg.arch!r}; choose from {sorted(_REGISTRY)}")
     return _REGISTRY[cfg.arch]
 
 
@@ -85,7 +84,8 @@ def reference_leaves(cfg) -> dict[str, RefLeaf]:
     """The reference leaf of every parameter of ``get_model(cfg)``, in the
     port's ``named_parameters`` order (read off the meta skeleton).  A
     stacked leaf's port tensors are named ``<stack>.<i>.<rest>`` (the
-    transformer's and mamba2's ``layers``, griffin's ``period``); the
+    transformer's and mamba2's ``layers``, griffin's ``period``, the
+    encoder-decoder's ``enc`` and ``dec``); the
     module's ``ref_location`` gives the path, the index and the stacked
     count.  A tensor that is no ``nn.Linear`` weight (the MoE's experts,
     the convs, embeddings, norms) keeps the reference's layout."""
@@ -133,4 +133,4 @@ def params_from_jax(cfg, tree, device: str | torch.device = "cuda"):
     return p
 
 
-__all__ = ["griffin", "layers", "ssm", "transformer", "get_model", "abstract_init", "init_params"]
+__all__ = ["encdec", "griffin", "layers", "ssm", "transformer", "get_model", "abstract_init", "init_params"]

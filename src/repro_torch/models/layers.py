@@ -16,8 +16,9 @@ them; the reference keeps (in, out) and computes ``x @ W``, so
 ``models.params_from_jax`` transposes them.  The MoE's expert tensors,
 (E, d, 2f) and (E, f, d), are no ``nn.Linear`` and keep the reference's
 layout.  The reference's logical-axis specs and ``dist.sharding.constrain``
-(the identity outside a mesh) have no counterpart here: multi-GPU
-placement is a later item (``ROADMAP.md`` §1).
+(the identity outside a mesh) have no counterpart here: the models run
+on one card (``dist.cluster_parallel`` shards the clustering path, not
+the LMs).
 """
 
 from __future__ import annotations
@@ -80,6 +81,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def ref_path(local: str) -> tuple[str, ...]:
+    """A tensor's path in the reference: ``attn.wq.weight`` -> (attn, wq),
+    ``attn.wq.bias`` -> (attn, bq), ``ln1`` -> (ln1,)."""
+    parts = local.split(".")
+    if parts[-1] == "weight":
+        return tuple(parts[:-1])
+    if parts[-1] == "bias":
+        return (*parts[:-2], "b" + parts[-2][1:])
+    return tuple(parts)
 
 
 def stacked_ref_location(name: str, stack: str, count: int):

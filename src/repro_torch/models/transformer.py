@@ -143,24 +143,13 @@ def skeleton(cfg) -> Transformer:
     return Transformer(cfg, None, torch.device("meta"), _dtype(cfg.param_dtype))
 
 
-def _ref_path(local: str) -> tuple[str, ...]:
-    """A tensor's path in the reference: ``attn.wq.weight`` -> (attn, wq),
-    ``attn.wq.bias`` -> (attn, bq), ``ln1`` -> (ln1,)."""
-    parts = local.split(".")
-    if parts[-1] == "weight":
-        return tuple(parts[:-1])
-    if parts[-1] == "bias":
-        return (*parts[:-2], "b" + parts[-2][1:])
-    return tuple(parts)
-
-
 def ref_location(cfg, name: str):
     """(reference path, layer index or None, stacked count or None) of a
     port tensor: ``layers.3.attn.wq.bias`` -> (layers, attn, bq), 3, L."""
     if name.startswith("layers."):
         _, i, local = name.split(".", 2)
-        return ("layers", *_ref_path(local)), int(i), cfg.n_layers
-    return _ref_path(name), None, None
+        return ("layers", *L.ref_path(local)), int(i), cfg.n_layers
+    return L.ref_path(name), None, None
 
 
 # tensors the reference uses in float32 whatever the compute dtype

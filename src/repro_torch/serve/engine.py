@@ -157,8 +157,8 @@ class ClusterServeEngine:
         """Boot a serve worker from a saved FittedModel artifact — no refit.
 
         ``device`` (default ``"cuda"``, which raises without a card unless
-        ``device="cpu"`` is asked for) and ``load_options`` (``plan``,
-        ``policy``, ``expect_config_hash``) forward to
+        ``device="cpu"`` is asked for) and ``load_options`` (``mesh``,
+        ``plan``, ``policy``, ``expect_config_hash``) forward to
         :meth:`FittedModel.load`; ``serve_options`` to the engine
         constructor (``max_batch``, ``max_delay_ms``,
         ``hierarchy_cache_size``).

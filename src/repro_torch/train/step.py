@@ -26,9 +26,6 @@ from torch.utils.checkpoint import checkpoint
 from ..models import get_model
 from . import optim as optim_mod
 
-_LATER = "a later item of ROADMAP.md §1 (the LM stack)"
-
-
 def _chunk_nll(logits_fn: Callable, p, cfg, h, y, m) -> torch.Tensor:
     """Summed masked negative log-likelihood of one sequence chunk."""
     logits = logits_fn(p, cfg, h).float()
@@ -59,24 +56,27 @@ def xent_chunked(logits_fn: Callable, p, cfg, hidden, labels, mask) -> torch.Ten
 
 
 def make_loss_fn(cfg):
-    """loss_fn(params, batch) -> (loss + aux, {"xent", "aux"}) for a
-    decoder of any registered family (transformer, mamba2, griffin): batch
-    holds ``tokens``, ``labels``, optionally ``mask`` and,
-    for a patch frontend, ``patch_embeds``.  ``aux`` is the MoE layers'
-    summed load-balance loss (0 without experts)."""
-    if cfg.arch == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder loss comes with {_LATER}")
+    """loss_fn(params, batch) -> (loss + aux, {"xent", "aux"}) for a model
+    of any registered family.  A decoder's batch (transformer, mamba2,
+    griffin) holds ``tokens``, ``labels``, optionally ``mask`` and, for a
+    patch frontend, ``patch_embeds``; the encoder-decoder's holds
+    ``frames``, ``dec_tokens``, ``dec_labels`` and optionally
+    ``dec_mask``.  ``aux`` is the MoE layers' summed load-balance loss (0
+    without experts)."""
     model = get_model(cfg)
 
     def loss_fn(params, batch):
-        hidden, aux = model.forward(params, cfg, batch["tokens"], batch.get("patch_embeds"))
-        labels = batch["labels"]
-        mask = batch.get("mask")
+        if cfg.arch == "encdec":
+            hidden, aux = model.forward(params, cfg, batch["dec_tokens"], batch["frames"])
+            labels, mask = batch["dec_labels"], batch.get("dec_mask")
+        else:
+            hidden, aux = model.forward(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+            labels, mask = batch["labels"], batch.get("mask")
+            if cfg.frontend == "patches":
+                # hidden covers [patches | text]; the loss runs over the text only
+                hidden = hidden[:, -labels.shape[1]:]
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-        if cfg.frontend == "patches":
-            # hidden covers [patches | text]; the loss runs over the text only
-            hidden = hidden[:, -labels.shape[1]:]
         loss = xent_chunked(model.logits_fn, params, cfg, hidden, labels, mask)
         return loss + aux, {"xent": loss, "aux": aux}
 
@@ -97,7 +97,7 @@ def make_train_step(cfg, opt_cfg: optim_mod.OptConfig):
 
     def train_step(params, opt_state, batch):
         micro = max(cfg.microbatch, 1)
-        rows = batch["tokens"].shape[0]
+        rows = batch["dec_tokens" if cfg.arch == "encdec" else "tokens"].shape[0]
         if rows % micro:
             raise ValueError(f"a batch of {rows} rows does not split into {micro} microbatches")
         per = rows // micro

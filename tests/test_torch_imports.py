@@ -76,9 +76,12 @@ def test_plan_backends_and_later_slices():
     assert t_engine.resolve_plan(device="cpu", backend="ref").backend == "ref"
     with pytest.raises(ValueError, match="does not run on"):
         t_engine.resolve_plan(device="cpu", backend="cuda")
-    with pytest.raises(NotImplementedError, match="slice"):
+    # the reference's rules without a mesh: "mesh" raises, "auto" and
+    # "single" run on one device (the rules over meshes: test_torch_dist)
+    with pytest.raises(ValueError, match="non-trivial 'data' axis"):
         t_engine.resolve_plan("mesh", device="cpu")
     plan = t_engine.resolve_plan(device="cpu")
+    assert not plan.sharded and plan.n_shards == 1 and t_engine.resolve_plan("single", device="cpu") == plan
     # n >= dualtree_min_n selects the dual-tree tier, whose kNN is the host
     # candidate search through the shared refine
     assert plan.use_dualtree(plan.dualtree_min_n) and not plan.use_dualtree(plan.dualtree_min_n - 1)
@@ -97,8 +100,10 @@ def test_plan_backends_and_later_slices():
     dup = torch.cat([pts, pts[:40]])
     for got, want in zip(forced.knn(dup, 5), plan.knn(dup, 5)):
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="slice"):
-        t_engine.resolve_plan("mesh", device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        t_engine.resolve_plan("mesh", device="cpu", axis="model")
+    with pytest.raises(ValueError, match="backend='mesh' requires mesh="):
+        t_ops.knn(pts, 3, backend="mesh")
 
 
 def test_the_exact_and_prediction_modules_are_covered():
@@ -115,12 +120,13 @@ def test_the_lm_serving_modules_are_covered():
             "repro_torch.models.transformer", "repro_torch.train", "repro_torch.train.data"} <= set(MODULES)
     ref_configs = {p.stem for p in (REPO / "src" / "repro" / "configs").glob("*.py")}
     assert {p.stem for p in (PORT / "configs").glob("*.py")} == ref_configs
-    # LM training and its launcher are in, and the SSM and recurrent families;
-    # the encoder-decoder family is still a gap
+    # LM training and its launcher are in, and the SSM, recurrent and
+    # encoder-decoder families
     assert {"repro_torch.train.step", "repro_torch.train.optim", "repro_torch.train.checkpoint",
             "repro_torch.train.metrics", "repro_torch.launch.train"} <= set(MODULES)
     assert {"repro_torch.models.ssm", "repro_torch.models.griffin"} <= set(MODULES)
-    assert "repro_torch.models.encdec" not in set(MODULES)
+    assert "repro_torch.models.encdec" in set(MODULES)
+    assert {"repro_torch.dist", "repro_torch.dist.cluster_parallel", "repro_torch.launch.mesh"} <= set(MODULES)
 
 
 def test_the_baseline_and_linkage_kernel_modules_are_covered():
@@ -145,8 +151,9 @@ def test_baseline_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs):
 
 
 # Names of the reference's public surface that later slices of the port
-# bring, per package; ``engine.cached_program`` (XLA's program cache, which
-# eager PyTorch does not need) stays here for good.
+# bring, per package (``dist.sharding``, the LMs' sharded train step);
+# ``engine.cached_program`` (XLA's program cache, which eager PyTorch does
+# not need) stays here for good.
 KNOWN_GAPS = {
     "": set(),
     "core": set(),
@@ -155,13 +162,14 @@ KNOWN_GAPS = {
     "api": set(),
     "serve": set(),
     "configs": set(),
-    "models": {"encdec"},
+    "models": set(),
     "train": set(),
+    "dist": {"sharding"},
 }
-# the reference's subpackage of the distributed stack
-LATER_SUBPACKAGES = {"dist"}
-# the reference's launchers that later slices bring (``launch.train`` is in)
-LATER_LAUNCHERS = {"cluster", "dryrun", "mesh"}
+# every subpackage of the reference is in
+LATER_SUBPACKAGES = set()
+# the reference's launchers that a later slice brings (``train`` and ``mesh`` are in)
+LATER_LAUNCHERS = {"cluster", "dryrun"}
 
 
 @pytest.mark.parametrize("package", list(KNOWN_GAPS), ids=lambda p: p or "top")

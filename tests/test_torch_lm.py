@@ -259,13 +259,20 @@ def test_init_is_seeded_and_shaped():
 
 
 def test_later_families_raise_and_name_their_item():
-    """The encoder-decoder family still raises; the SSM and recurrent
-    families build and report their modules (their parity with the
-    reference is ``test_torch_ssm`` and ``test_torch_griffin``), and so do
-    the MoE, MLA and frontend transformers (``test_torch_moe``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(get_config("seamless_m4t_large_v2").reduced())
-    from repro_torch.models import griffin as t_griffin, ssm as t_ssm
+    """Every arch builds: the encoder-decoder family, the SSM and recurrent
+    families report their modules (their parity with the reference is
+    ``test_torch_encdec``, ``test_torch_ssm`` and ``test_torch_griffin``),
+    and so do the MoE, MLA and frontend transformers (``test_torch_moe``);
+    an unknown arch raises and names the registered ones."""
+    from repro_torch.models import encdec as t_encdec, griffin as t_griffin, ssm as t_ssm
+
+    cfg = get_config("seamless_m4t_large_v2").reduced()
+    p = init_params(cfg, torch.Generator(), device="cpu")
+    assert get_model(cfg) is t_encdec and len(p.enc) == cfg.n_enc_layers and len(p.dec) == cfg.n_dec_layers
+    assert {get_model(c).__name__.rsplit(".", 1)[1] for c in all_configs().values()} == {
+        "transformer", "ssm", "griffin", "encdec"}
+    with pytest.raises(ValueError, match="encdec"):
+        get_model(dataclasses.replace(cfg, arch="nope"))
 
     for arch, module, stack in (("mamba2_780m", t_ssm, "layers"), ("recurrentgemma_2b", t_griffin, "period")):
         cfg = get_config(arch).reduced()

@@ -436,13 +436,9 @@ def test_optimizer_rules_on_the_expert_tensors():
 def test_abstract_init_matches_the_reference(arch):
     """The meta-device parameters of every config at its published size
     have the reference's leaves, shapes and master dtypes (kimi-k2:
-    1.045e12 parameters in bfloat16; the SSM and recurrent families too);
-    the encoder-decoder family still raises."""
+    1.045e12 parameters in bfloat16; the SSM and recurrent families and
+    the encoder-decoder's two stacks too: seamless's 1633724416)."""
     cfg = get_config(arch)
-    if cfg.arch == "encdec":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            abstract_init(cfg)
-        return
     shapes, _ = j_abstract_init(j_get_config(arch))
     p = abstract_init(cfg)
     leaves = reference_leaves(cfg)
@@ -467,6 +463,8 @@ def test_abstract_init_matches_the_reference(arch):
         assert round(n / 1e10, 3) == 1.621
     if arch == "kimi_k2_1t_a32b":
         assert round(n / 1e12, 3) == 1.045
+    if arch == "seamless_m4t_large_v2":
+        assert n == 1633724416
 
 
 # ---------------------------------------------------------------------------
