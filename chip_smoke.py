@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 and the kernel times
     python3 chip_smoke.py --families-only  # phases 1 and 17
     python3 chip_smoke.py --encdec-mesh-only  # phases 1, 2, 18 and 19
+    python3 chip_smoke.py --sharded-only   # phases 1, 2, 19 and 20
 
 Phases (any failure exits non-zero):
 
@@ -105,7 +106,7 @@ Phases (any failure exits non-zero):
      temperature 0.8) with the reference's serving regressions (a greedy
      row alone and behind a hot one under two seeds, EOS masking, the
      stats); tokens/s, prefill seconds and seconds a decode step;
-  13. embedding curation: the phase-12 model embeds 2500 documents (mean
+  13. embedding curation: the phase-12 model embeds 2000 documents (mean
      of the final hidden states over 48 tokens, d = 1536, 40 injected
      near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
      card with the counters set to 0 just before it (``pairwise_topk``,
@@ -133,7 +134,7 @@ Phases (any failure exits non-zero):
      zero mask entry), card against the port's CPU run (loss to relative
      1e-5, ``grad_norm`` 1e-4, each tensor's gradient 1e-4 and its update
      1e-3 in relative Frobenius distance, the update over the elements
-     whose two gradients agree to 1e-3); (b) 8 steps at full depth as
+     whose two gradients agree to 1e-3); (b) 6 steps at full depth as
      published (bfloat16 compute, float32 masters and AdamW states, remat,
      xent chunks of 512) on ``train_batch`` of 4 x 1024 tokens at lr 3e-4,
      warmup 2: finite losses, the last at least 0.1 below the first; warm
@@ -217,7 +218,18 @@ Phases (any failure exits non-zero):
      ``pairwise_topk``), ``edge_cascade``, ``lune_filter`` in the exact
      fit and ``single_linkage`` launch; kNN, edges, MST ids, ``mst_w`` and
      labels bit-equal to the single-device fits on the card; each stage's
-     seconds beside the single-device fit's.
+     seconds beside the single-device fit's;
+  20. the LMs' sharded train step on phase 19's NCCL group (no fallback):
+     qwen2-1.5b at its published width and depth as published takes 3
+     steps of 4 x 1024 tokens unsharded and then, from the same init,
+     through the sharded step (parameters, AdamW states and batch DTensors
+     placed by ``dist.sharding`` on ``make_host_mesh()``, an
+     ``activation_context``), both under deterministic algorithms: losses
+     and updated masters bit-equal; s a step beside the unsharded one's and
+     phase 15's, peak memory; no clustering kernel launched (counters set
+     to 0 before, read after); and a dry run of ``qwen2_1_5b x train_4k x
+     single`` in a subprocess (``launch.dryrun``, 256 fake ranks, no card),
+     its bytes per device printed.
 
 Each phase's seconds are printed at the end.  The second-to-last line is
 ``{"kernels": [...]}``, the last
@@ -227,6 +239,7 @@ Each phase's seconds are printed at the end.  The second-to-last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -265,14 +278,15 @@ LM_ARCH = "qwen2_1_5b"
 LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_LEN = 8, 24, 48
 LM_PROFILED_STEPS = 8
-N_DOCS, N_DOCS_EXACT = 2500, 1500  # 4000 documents until the run outgrew its limit with phase 16 on a slow host
+N_DOCS, N_DOCS_EXACT = 2000, 1500  # 4000, then 2500, until the run outgrew its limit on slow hosts
 N_DOCS_CPU = 700                  # the CPU comparison fit's rows: its worker must not set phase 13's time
 KMAX_EMBED = 24
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 4, 24
 TRAIN_PARITY_CHUNK = 10           # does not divide TRAIN_PARITY_SEQ: chunks of 10, 10 and 4
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024   # the loss over two xent chunks of 512
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024   # the loss over two xent chunks of 512 (8 steps until the run outgrew its limit)
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
 TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_RTOL, TRAIN_DELTA_RTOL = 1e-5, 1e-4, 1e-4, 1e-3
+SHARDED_STEPS = 3                 # phase 20: a warm-up step, then two timed, each way
 DRILL_ARGS = ("--reduced", "--steps", "10", "--global-batch", "4", "--seq-len", "32", "--ckpt-every", "5")
 MPTS_DENSE = (2, 8, 16, 24)
 SBCN_WIDTHS = (320, 1100, 1536)   # above 256 the SBCN tiles take the reference's order (sbcn_tile); 1100: 8-lane tails
@@ -1701,7 +1715,8 @@ def where_the_time_goes(fit, record: dict, lm_decode=None, lm_train_step=None) -
     session, since a second one in a process may record no kernels), with
     the LM runs' device time by kernel name (the train step's also split
     into GEMMs and the rest); and the host functions with the most
-    cumulative time in another fit (``cProfile``)."""
+    cumulative time in another fit (``cProfile``), whose implicit syncs it
+    counts (torch's sync debug mode)."""
     import cProfile
     import pstats
     from collections import Counter
@@ -1762,11 +1777,22 @@ def where_the_time_goes(fit, record: dict, lm_decode=None, lm_train_step=None) -
             print(f"  device ms of the train step, GEMMs and the rest: {json.dumps(dict(by_kind))}; by kernel: "
                   + json.dumps(record["lm_train_step_device_ms_by_kernel"]), flush=True)
 
-    pr = cProfile.Profile()
-    pr.enable()
-    fit()
+    # the host profile's fit also counts the implicit syncs (a count, which
+    # neither the profiler nor the sync warnings change)
     torch.cuda.synchronize()
-    pr.disable()
+    pr = cProfile.Profile()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pr.enable()
+            fit()
+            torch.cuda.synchronize()
+            pr.disable()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
     rows = sorted(pstats.Stats(pr).stats.items(), key=lambda kv: -kv[1][3])[:30]
     record["host_profile"] = [
         {"fn": f"{Path(f).name}:{line}({name})", "cum_s": cum, "calls": calls}
@@ -2363,8 +2389,8 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
         frames = rng.normal(size=(TRAIN_PARITY_BATCH, ENCDEC_PARITY_FRAMES, cfg.frontend_dim))
         batch["frames"] = torch.from_numpy(frames.astype(np.float32))
     half = TRAIN_PARITY_BATCH // 2
-    out = {}
-    for where in (CARD, "cpu"):
+
+    def side(where: str) -> dict:
         t0 = time.monotonic()
         p2, cfg2 = truncated(params, cfg_a, layers, torch.device(where), copy=True)
         p2 = p2.float()  # float32 masters (bfloat16 ones cast, exactly)
@@ -2381,12 +2407,17 @@ def train_parity(cfg, params, rec: dict, layers: int = TRAIN_PARITY_LAYERS, labe
         before = [t.detach().cpu().clone() for t in tensors]
         init, _ = optim.make_optimizer(ocfg, cfg2)
         _, _, m = step_lib.make_train_step(cfg2, ocfg)(p2, init(p2), b)
-        out[where] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names, "aux": aux,
-                      "s": time.monotonic() - t0,
-                      "grads": grads, "delta": [t.detach().cpu() - b0 for t, b0 in zip(tensors, before)]}
-        del p2, tensors, before
-        if where == CARD:
-            torch.cuda.empty_cache()
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "names": names, "aux": aux,
+                "s": time.monotonic() - t0,
+                "grads": grads, "delta": [t.detach().cpu() - b0 for t, b0 in zip(tensors, before)]}
+
+    # the CPU side in a thread beside the card's (torch's CPU ops release the
+    # interpreter's lock): on a slow host it took up to 66 s of phase 17 alone
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu_side = pool.submit(side, "cpu")
+        out = {CARD: side(CARD)}
+        torch.cuda.empty_cache()
+        out["cpu"] = cpu_side.result()
     card, cpu = out[CARD], out["cpu"]
     if cfg.n_experts:
         aux_rel = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
@@ -2506,7 +2537,7 @@ def resume_drill(rec: dict) -> None:
 def training_phase(cfg, params, smi: str, record: dict):
     """Phase 15: LM training at qwen2-1.5b's published width on a copy of
     phase 12's masters.  (a) one step at 2 layers, card against CPU;
-    (b) 8 steps at full depth as published (bfloat16 compute, float32
+    (b) 6 steps at full depth as published (bfloat16 compute, float32
     masters and AdamW states, remat, xent chunks of 512), timed;
     (c) one step each with bfloat16 and int8 states; (d) the resume
     drill through the launcher.  Returns a function that runs one more
@@ -3271,10 +3302,30 @@ def encdec_phase(smi: str, record: dict) -> None:
     record["encdec"] = rec
 
 
+@contextlib.contextmanager
+def one_rank_nccl():
+    """An NCCL process group of one rank on the card (a ``file://`` store in
+    a temporary directory; no fallback: if NCCL cannot start, the phase
+    fails), for phases 19 and 20."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            check(dist.get_backend() == "nccl", f"the process group's backend is {dist.get_backend()}, not nccl")
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 def mesh_phase(x_np, fits: dict, smi: str, record: dict) -> None:
-    """Phase 19: the mesh path at world size 1 on the card.  An NCCL group
-    of one rank (a ``file://`` store in a temporary directory; no
-    fallback: if NCCL cannot start, the phase fails), ``make_host_mesh``,
+    """Phase 19: the mesh path at world size 1 on the card, on
+    ``one_rank_nccl``'s group, ``make_host_mesh``,
     and the mesh Plan built directly (``resolve_plan`` rightly turns a
     one-rank mesh into ``"single"``): RNG* and exact fits of phase 4's
     points, their kNN, edges, MST ids, ``mst_w`` and labels bit-equal to
@@ -3282,13 +3333,9 @@ def mesh_phase(x_np, fits: dict, smi: str, record: dict) -> None:
     launches of each fit (counters set to 0 just before it, read just
     after) and each stage's seconds beside the single-device fit's."""
     import dataclasses
-    import datetime
-    import os
-    import tempfile
 
     import numpy as np
     import torch
-    import torch.distributed as dist
     from repro_torch import engine
     from repro_torch.api import MultiHDBSCAN
     from repro_torch.launch.mesh import make_host_mesh
@@ -3298,60 +3345,221 @@ def mesh_phase(x_np, fits: dict, smi: str, record: dict) -> None:
     counters = {"pairwise_topk": pt.pairwise_topk, "edge_cascade": fc.edge_cascade, "lune_filter": lf.lune_filter,
                 "single_linkage": sl.single_linkage}
     rec: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=120))
-        try:
-            check(dist.get_backend() == "nccl", f"the process group's backend is {dist.get_backend()}, not nccl")
-            mesh = make_host_mesh()
-            check(mesh.device_type == "cuda" and not engine.resolve_plan(mesh=mesh).sharded,
-                  "'auto' turns a one-rank card mesh into the single-device plan")
-            plan = dataclasses.replace(engine.resolve_plan(), mesh=mesh)
-            check(plan.sharded and plan.n_shards == 1, f"the mesh plan: {plan.describe()}")
-            print(f"phase 19: NCCL group of 1 rank, {plan.describe()}", flush=True)
-            for variant, ref in fits.items():
-                for fn in counters.values():
-                    fn.launches = 0
-                t0 = time.monotonic()
-                est = MultiHDBSCAN(kmax=KMAX, variant=variant, plan=plan).fit(x_np)
-                views = est.select_all()
-                torch.cuda.synchronize()
-                total = time.monotonic() - t0
-                launches = {k: fn.launches for k, fn in counters.items()}
-                m, mr = est.model_.msts, ref.model_.msts
-                check(est.plan_.sharded, f"{variant}: the fit ran on the mesh plan")
-                check(np.array_equal(m.knn_idx, mr.knn_idx) and np.array_equal(m.knn_d2.view(np.int32),
-                                                                                mr.knn_d2.view(np.int32)),
-                      f"{variant}: the ring kNN (refined) equals the single-device kNN bit for bit")
-                check(np.array_equal(est.graph_.edges, ref.graph_.edges), f"{variant}: graph edges equal")
-                check(np.array_equal(m.mst_ea, mr.mst_ea) and np.array_equal(m.mst_eb, mr.mst_eb),
-                      f"{variant}: MST edge ids equal for every mpts")
-                check(np.array_equal(m.mst_w.view(np.int32), mr.mst_w.view(np.int32)), f"{variant}: mst_w bit-equal")
-                for v, vr in zip(views, ref.select_all()):
-                    check(np.array_equal(v.labels, vr.labels), f"{variant}: labels equal at mpts={v.mpts}")
-                check(launches["pairwise_topk"] == 0, f"{variant}: the mesh kNN is the ring, not pairwise_topk")
-                check(launches["edge_cascade"] >= 2, f"{variant}: edge_cascade launched for both stages")
-                check(launches["single_linkage"] == 1, f"{variant}: select_all launched single_linkage once")
-                if variant == "rng":
-                    check(launches["lune_filter"] >= 1, "the exact mesh fit launched lune_filter")
-                stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
-                single = {k: ref.timings_[k] for k in ("knn", "rng_build", "mst_range")}
-                rec[variant] = {"launches": launches, "stages_s": stages, "single_stages_s": single,
-                                "fit_and_select_all_s": total, "graph": est.graph_.stats}
-                print(f"  {variant}: mesh fit + select_all {total:.2f} s, launches {launches}; kNN, edges, MST ids, "
-                      f"mst_w and labels == the single-device fit's; stages (s) on {smi}, mesh "
-                      f"{json.dumps(stages)} against single {json.dumps(single)}", flush=True)
-        finally:
-            dist.destroy_process_group()
+    mesh = make_host_mesh()
+    check(mesh.device_type == "cuda" and not engine.resolve_plan(mesh=mesh).sharded,
+          "'auto' turns a one-rank card mesh into the single-device plan")
+    plan = dataclasses.replace(engine.resolve_plan(), mesh=mesh)
+    check(plan.sharded and plan.n_shards == 1, f"the mesh plan: {plan.describe()}")
+    print(f"phase 19: NCCL group of 1 rank, {plan.describe()}", flush=True)
+    for variant, ref in fits.items():
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        est = MultiHDBSCAN(kmax=KMAX, variant=variant, plan=plan).fit(x_np)
+        views = est.select_all()
+        torch.cuda.synchronize()
+        total = time.monotonic() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        m, mr = est.model_.msts, ref.model_.msts
+        check(est.plan_.sharded, f"{variant}: the fit ran on the mesh plan")
+        check(np.array_equal(m.knn_idx, mr.knn_idx) and np.array_equal(m.knn_d2.view(np.int32),
+                                                                        mr.knn_d2.view(np.int32)),
+              f"{variant}: the ring kNN (refined) equals the single-device kNN bit for bit")
+        check(np.array_equal(est.graph_.edges, ref.graph_.edges), f"{variant}: graph edges equal")
+        check(np.array_equal(m.mst_ea, mr.mst_ea) and np.array_equal(m.mst_eb, mr.mst_eb),
+              f"{variant}: MST edge ids equal for every mpts")
+        check(np.array_equal(m.mst_w.view(np.int32), mr.mst_w.view(np.int32)), f"{variant}: mst_w bit-equal")
+        for v, vr in zip(views, ref.select_all()):
+            check(np.array_equal(v.labels, vr.labels), f"{variant}: labels equal at mpts={v.mpts}")
+        check(launches["pairwise_topk"] == 0, f"{variant}: the mesh kNN is the ring, not pairwise_topk")
+        check(launches["edge_cascade"] >= 2, f"{variant}: edge_cascade launched for both stages")
+        check(launches["single_linkage"] == 1, f"{variant}: select_all launched single_linkage once")
+        if variant == "rng":
+            check(launches["lune_filter"] >= 1, "the exact mesh fit launched lune_filter")
+        stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+        single = {k: ref.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+        rec[variant] = {"launches": launches, "stages_s": stages, "single_stages_s": single,
+                        "fit_and_select_all_s": total, "graph": est.graph_.stats}
+        print(f"  {variant}: mesh fit + select_all {total:.2f} s, launches {launches}; kNN, edges, MST ids, "
+              f"mst_w and labels == the single-device fit's; stages (s) on {smi}, mesh "
+              f"{json.dumps(stages)} against single {json.dumps(single)}", flush=True)
     record["mesh"] = rec
 
 
+# phase 20's dry runs, in a subprocess with no card: the grid's cell
+# (qwen2_1_5b x train_4k x single) and the phase's own step on one rank
+DRYRUN_PHASE20 = """
+import json, sys
+from pathlib import Path
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.dist import sharding as sh
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+arch, out, batch, seq = sys.argv[1], Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+dryrun.run_cell(arch, "train_4k", False, str(out))
+dryrun.start_fake_world(1)
+mesh = make_host_mesh(device="cpu")
+rec = dryrun.reckon(get_config(arch), {"seq_len": seq, "global_batch": batch, "kind": "train"}, mesh,
+                    sh.resolve_rules(mesh))
+rec.pop("ops")
+(out / "phase20_step.json").write_text(json.dumps(rec, indent=1))
+dist.destroy_process_group()
+"""
+
+
+def sharded_phase(smi: str, record: dict) -> None:
+    """Phase 20: the LMs' sharded train step on ``one_rank_nccl``'s group.
+    qwen2-1.5b at its published width and depth, as published (bfloat16
+    compute, float32 masters and AdamW states, remat, xent chunks of 512),
+    takes ``SHARDED_STEPS`` steps of ``train_batch`` (B = 4, S = 1024)
+    unsharded, then from the same init the same steps through the sharded
+    step: parameters and states DTensors placed by ``dist.sharding`` on
+    ``make_host_mesh()``, the batch by ``batch_shardings``, the step in an
+    ``activation_context``.  Both run under deterministic algorithms (the
+    embedding's and the label gather's backward otherwise accumulate with
+    atomics in any order), so the losses and the updated masters must be
+    equal bit for bit: on one rank every placement is a replica and DTensor
+    runs the same kernels on the whole tensors.  The first step of each is
+    its warm-up; the s a step of the others, beside phase 15's, is a
+    reading (DTensor's dispatch on the host), not a gate.  The clustering
+    kernels' counters are set to 0 first and must read 0 after.  Meanwhile
+    a subprocess (no card) dry-runs ``qwen2_1_5b x train_4k x single``
+    (``launch.dryrun``), whose bytes per device are printed, and this
+    phase's own step on one rank, whose reckoned peak is printed beside the
+    measured one."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, param_specs, reference_leaves
+    from repro_torch.train import data as data_lib, optim, step as step_lib
+
+    check(dist.is_initialized() and dist.get_backend() == "nccl", "phase 20 runs on phase 19's NCCL group")
+    names = ("pairwise_topk", "fused_cascade", "lune_filter", "prim_mst", "single_linkage", "sbcn_tile")
+    pt, fc, lf, pm, sl, st = (kernel_module(k) for k in names)
+    counters = {"pairwise_topk": pt.pairwise_topk, "edge_cascade": fc.edge_cascade, "lune_filter": lf.lune_filter,
+                "prim_mst": pm.prim_mst, "single_linkage": sl.single_linkage, "sbcn_tile": st.tile_dots,
+                "sbcn_norms": st.point_norms}
+    for fn in counters.values():
+        fn.launches = 0
+    out_dir = ROOT / "chiprun_out" / "dryrun_phase20"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_PHASE20, LM_ARCH, str(out_dir), str(TRAIN_BATCH),
+                            str(TRAIN_SEQ)], env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    rec: dict = {}
+    try:
+        dev = torch.device(CARD)
+        cfg = get_config(LM_ARCH)
+        check((cfg.dtype, cfg.remat, cfg.xent_chunk, cfg.microbatch, cfg.optimizer_state_dtype)
+              == ("bfloat16", True, 512, 1, "float32"), "qwen2-1.5b trains as published")
+        ocfg = optim.OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+        init, _ = optim.make_optimizer(ocfg, cfg)
+        step = step_lib.make_train_step(cfg, ocfg)
+        dcfg = data_lib.DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        batches = [{k: v.to(dev) for k, v in data_lib.train_batch(dcfg, i).items()} for i in range(SHARDED_STEPS)]
+        mesh = make_host_mesh()
+        rules = sh.resolve_rules(mesh)
+        shard = sh.tree_shardings(param_specs(cfg), mesh, rules)
+        layouts = {n: leaf.transposed for n, leaf in reference_leaves(cfg).items()}
+
+        def run(sharded: bool):
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 40), device=dev)
+            state = init(params)
+            if sharded:
+                sh.distribute_module(params, shard)
+                state = sh.distribute(state, sh.opt_state_shardings(shard, state, mesh, layouts))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, secs = [], []
+            for b in batches:
+                t0 = time.monotonic()
+                if sharded:
+                    with sh.activation_context(mesh, rules):
+                        _, _, m = step(params, state, sh.distribute(b, sh.batch_shardings(b, mesh)))
+                else:
+                    _, _, m = step(params, state, b)
+                torch.cuda.synchronize()
+                secs.append(time.monotonic() - t0)
+                losses.append(m["loss"].item())
+            del state
+            masters = {n: (t.to_local() if sharded else t).detach() for n, t in params.named_parameters()}
+            return losses, secs, torch.cuda.max_memory_allocated(), masters
+
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            plain = run(False)
+            torch.cuda.empty_cache()
+            sharded = run(True)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        equal = plain[0] == sharded[0] and all(torch.equal(sharded[3][n], t) for n, t in plain[3].items())
+        launches = {k: fn.launches for k, fn in counters.items()}
+        warm = {k: sum(r[1][1:]) / (len(r[1]) - 1) for k, r in (("unsharded", plain), ("sharded", sharded))}
+        phase15 = record.get("training", {}).get("full_depth", {}).get("warm_s_per_step")
+        rec.update(losses={"unsharded": plain[0], "sharded": sharded[0]}, step_s={"unsharded": plain[1],
+                   "sharded": sharded[1]}, warm_s_per_step=warm, phase15_warm_s_per_step=phase15,
+                   max_memory_allocated={"unsharded": plain[2], "sharded": sharded[2]}, launches=launches,
+                   bit_equal=equal, mesh=str(mesh))
+        check(all(math.isfinite(x) for x in plain[0]), f"phase 20 losses finite: {plain[0]}")
+        check(equal, f"the sharded steps equal the unsharded ones bit for bit: losses {plain[0]} vs {sharded[0]}")
+        check(not any(launches.values()), f"the sharded LM path launched no clustering kernel: {launches}")
+        print(f"phase 20: {cfg.name} at its published width and depth, {SHARDED_STEPS} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens on {mesh} (NCCL, 1 rank), deterministic algorithms: losses "
+              f"{sharded[0]} == the unsharded steps' bit for bit, and every updated master; warm "
+              f"{warm['sharded']:.4f} s a step sharded against {warm['unsharded']:.4f} unsharded on {smi}"
+              + (f" (phase 15: {phase15:.4f})" if phase15 else "")
+              + f"; max_memory_allocated {sharded[2] / 1e9:.2f} GB sharded, {plain[2] / 1e9:.2f} GB unsharded; "
+              f"clustering kernel launches {launches}", flush=True)
+        del plain, sharded, batches
+        torch.cuda.empty_cache()
+    finally:
+        try:
+            log = dry.communicate(timeout=600)[0]
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+    check(dry.returncode == 0, f"the dry runs of {LM_ARCH}: {log[-2000:]}")
+    cell = json.loads((out_dir / f"{LM_ARCH}__train_4k__single.json").read_text())
+    own = json.loads((out_dir / "phase20_step.json").read_text())
+    mem = cell["memory"]
+    rec["dryrun"] = {"memory": mem, "t_trace_s": cell["t_trace_s"], "roofline": {
+        k: cell["roofline"][k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "dominant")},
+        "phase20_step": own["memory"]}
+    gib = 2**30
+    print(f"  dry run {LM_ARCH} x train_4k x single (256 fake ranks, 16 x 16; in a subprocess, no card): per device "
+          f"parameters {mem['arguments']['params'] / gib:.2f} GiB, AdamW states "
+          f"{mem['arguments']['opt_state'] / gib:.2f} GiB, batch {mem['arguments']['batch'] / gib:.4f} GiB, "
+          f"temp {mem['temp_bytes_per_device'] / gib:.2f} GiB (traced in {cell['t_trace_s']} s)", flush=True)
+    if "max_memory_allocated" in rec:
+        reckoned = own["memory"]["argument_bytes_per_device"] + own["memory"]["temp_bytes_per_device"]
+        rec["dryrun"]["phase20_reckoned_peak"] = reckoned
+        print(f"  the dry run of this phase's own step (1 rank, {TRAIN_BATCH} x {TRAIN_SEQ}): arguments "
+              f"{own['memory']['argument_bytes_per_device'] / 1e9:.2f} GB + temp "
+              f"{own['memory']['temp_bytes_per_device'] / 1e9:.2f} GB = {reckoned / 1e9:.2f} GB reckoned, against "
+              f"{rec['max_memory_allocated']['sharded'] / 1e9:.2f} GB measured sharded, "
+              f"{rec['max_memory_allocated']['unsharded'] / 1e9:.2f} GB unsharded", flush=True)
+    record["sharded"] = rec
+
+
 def main(argv: list[str]) -> int:
+    import os
+
+    # phase 20's deterministic algorithms need cuBLAS's workspace fixed before
+    # cuBLAS starts (32 MiB, as the launcher sets it for its bit-exact resume)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     kernels_only = "--kernels-only" in argv
     families_only = "--families-only" in argv
     encdec_mesh_only = "--encdec-mesh-only" in argv
+    sharded_only = "--sharded-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3393,16 +3601,21 @@ def main(argv: list[str]) -> int:
         phase("end")
         print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
         return 0
-    if encdec_mesh_only:
+    if encdec_mesh_only or sharded_only:
         phase("2. build")
         print(f"build: per source {_build.build_all()}", flush=True)
-        phase("18. the encoder-decoder LM")
-        encdec_phase(smi, record)
+        if encdec_mesh_only:
+            phase("18. the encoder-decoder LM")
+            encdec_phase(smi, record)
         phase("19. the mesh path")
         x_np = make_points(N, D, SEED)
         fits = {v: MultiHDBSCAN(kmax=KMAX, variant=v).fit(x_np) for v in ("rng_star", "rng")}  # warm-up
         fits = {v: MultiHDBSCAN(kmax=KMAX, variant=v).fit(x_np) for v in ("rng_star", "rng")}
-        mesh_phase(x_np, fits, smi, record)
+        with one_rank_nccl():
+            mesh_phase(x_np, fits, smi, record)
+            if sharded_only:
+                phase("20. the sharded LM train step")
+                sharded_phase(smi, record)
         phase("end")
         print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
         return 0
@@ -3457,6 +3670,10 @@ def main(argv: list[str]) -> int:
 
     phase("4. the main path")
     # -- 4. the main path ----------------------------------------------------
+    # the CPU run it is held to fits in a worker beside phases 4-7 (inline it
+    # took 73 s of a 1180 s run on a slow host); it is compared after phase 7
+    main_cpu = contextlib.ExitStack()
+    main_cpu_job = start_cpu_fit(main_cpu.enter_context(cpu_pool()), x_np, KMAX)
     pt.pairwise_topk.launches = 0
     fc.edge_cascade.launches = 0
     sl.single_linkage.launches = 0
@@ -3474,21 +3691,7 @@ def main(argv: list[str]) -> int:
     check(launches["single_linkage"] == 1, "select_all ran its linkage through single_linkage once")
     check(est.plan_.backend == "cuda", "the fit ran on the cuda backend")
 
-    t0 = time.monotonic()
-    est_cpu = MultiHDBSCAN(kmax=KMAX, device="cpu").fit(x_np)
-    views_cpu = est_cpu.select_all()
-    record["cpu_fit_s"] = time.monotonic() - t0
-    check(np.array_equal(est.graph_.edges, est_cpu.graph_.edges), "graph edges equal the CPU run")
-    m_gpu, m_cpu = est.model_.msts, est_cpu.model_.msts
-    check(np.array_equal(m_gpu.mst_ea, m_cpu.mst_ea) and np.array_equal(m_gpu.mst_eb, m_cpu.mst_eb),
-          "MST edge ids equal the CPU run for every mpts")
-    check(np.allclose(m_gpu.mst_w, m_cpu.mst_w, rtol=RTOL, atol=0.0), "MST weights equal the CPU run")
-    for v_g, v_c in zip(views, views_cpu):
-        check(v_g.labels.shape == (N,), "labels shape")
-        check(np.array_equal(v_g.labels, v_c.labels), f"labels equal the CPU run at mpts={v_g.mpts}")
-    n_clusters = {v.mpts: v.n_clusters for v in views}
-    print(f"main path == device='cpu' run (CPU fit {record['cpu_fit_s']:.1f} s); clusters per mpts {n_clusters}",
-          flush=True)
+    m_gpu = est.model_.msts
     check_fit_linkage(m_gpu, f"the kmax={KMAX} fit's MSTs")
 
     x2 = make_points(N_DENSE, D, SEED + 1)
@@ -3648,6 +3851,21 @@ def main(argv: list[str]) -> int:
           f"query kNN {record['predict_query_knn_ms']:.3f} ms a batch), "
           f"{record['predict_qps_cpu']:.0f} queries/s on the host CPU (warm); launches {launches_p}", flush=True)
 
+    # -- 4 (end). the main path against its CPU run, fitted beside phases 4-7 --
+    cpu = main_cpu_job.get(timeout=CPU_FIT_TIMEOUT)
+    main_cpu.close()
+    record["cpu_fit_s"] = cpu["total_s"]
+    check(np.array_equal(est.graph_.edges, cpu["edges"]), "graph edges equal the CPU run")
+    check(np.array_equal(m_gpu.mst_ea, cpu["mst_ea"]) and np.array_equal(m_gpu.mst_eb, cpu["mst_eb"]),
+          "MST edge ids equal the CPU run for every mpts")
+    check(np.allclose(m_gpu.mst_w, cpu["mst_w"], rtol=RTOL, atol=0.0), "MST weights equal the CPU run")
+    for v_g, lab_c in zip(views, cpu["labels"]):
+        check(v_g.labels.shape == (N,), "labels shape")
+        check(np.array_equal(v_g.labels, lab_c), f"labels equal the CPU run at mpts={v_g.mpts}")
+    n_clusters = {v.mpts: v.n_clusters for v in views}
+    print(f"main path == device='cpu' run (CPU fit + select_all {record['cpu_fit_s']:.1f} s in a worker beside "
+          f"phases 4-7); clusters per mpts {n_clusters}", flush=True)
+
     phase("8. the dual-tree tier")
     # -- 8. the dual-tree tier -----------------------------------------------
     msts_dualtree = dualtree_phase(smi, record)
@@ -3694,16 +3912,6 @@ def main(argv: list[str]) -> int:
     record["stages_s"] = stages_s
     print(f"warm stages (s) on {smi}: " + json.dumps(stages_s), flush=True)
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            MultiHDBSCAN(kmax=KMAX).fit(x_np)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    record["implicit_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"implicit syncs in one warm fit (torch sync debug mode): {record['implicit_syncs']}", flush=True)
     where_the_time_goes(lambda: MultiHDBSCAN(kmax=KMAX).fit(x_np), record, lm_decode, lm_train_step)
     del lm_train_step, lm_decode
     torch.cuda.empty_cache()
@@ -3773,7 +3981,14 @@ def main(argv: list[str]) -> int:
 
     phase("19. the mesh path")
     # -- 19. the mesh path at world size 1, against phases 11's and 5's warm fits -
-    mesh_phase(x_np, {"rng_star": est_w, "rng": est_xw}, smi, record)
+    with one_rank_nccl():
+        mesh_phase(x_np, {"rng_star": est_w, "rng": est_xw}, smi, record)
+        del est_w, est_xw
+        torch.cuda.empty_cache()
+
+        phase("20. the sharded LM train step")
+        # -- 20. the LMs' sharded train step on phase 19's group ----------------
+        sharded_phase(smi, record)
 
     phase("end")
     record["phase_s"] = phase_s

@@ -42,12 +42,15 @@ def _rank_keys(w_range: torch.Tensor):
     return order, rank
 
 
-def boruvka_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor, *, n: int):
+def boruvka_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor, *, n: int,
+                      rounds: int | None = None):
     """MSTs for every row at once: w_range (R, m) -> in_mst (R, m) bool.
 
     ``ea``/``eb`` are (m,) endpoints shared by all rows.  A disconnected
     edge list stops when no row makes progress and returns fewer than
-    ``n - 1`` edges in the rows it could not span.
+    ``n - 1`` edges in the rows it could not span.  ``rounds`` runs that
+    many rounds with no stop test (no sync): the dry run traces one round
+    on tensors that hold no values (``launch.cluster``).
     """
     R, m = w_range.shape
     dev = w_range.device
@@ -60,7 +63,7 @@ def boruvka_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor,
 
     comp = iota_n.clone()
     in_mst = torch.zeros((R, m + 1), dtype=torch.bool, device=dev)
-    for _ in range(64):
+    for _ in range(64 if rounds is None else rounds):
         ca = comp[:, ea]                                            # (R, m)
         cb = comp[:, eb]
         rk = torch.where(ca != cb, rank, big)
@@ -80,6 +83,8 @@ def boruvka_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor,
             parent = parent.gather(1, parent)
         in_mst.scatter_(1, torch.where(has, eidx, m), True)
         comp = parent.gather(1, comp)
+        if rounds is not None:
+            continue
         n_comp = (comp == iota_n).sum(dim=1)
         if not bool(((n_comp > 1).any() & has.any()).item()):
             break

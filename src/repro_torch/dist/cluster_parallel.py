@@ -182,7 +182,9 @@ def ring_lune_count(x_loc: torch.Tensor, cd2_loc: torch.Tensor, ea: torch.Tensor
     a_xyz, b_xyz = rows[:m, :d], rows[m:, :d]
     a_cd2, b_cd2 = rows[:m, d], rows[m:, d]
     nv = max(0, min(nl, n_valid - r0))
-    if nv:
+    if x_loc.device.type == "meta":  # the dry run (launch.cluster): shapes only, no kernel
+        part = torch.empty((m,), dtype=torch.bool, device=dev)
+    elif nv:
         part = lune_filter(a_xyz, b_xyz, a_cd2, b_cd2, ea.long() - r0, eb.long() - r0, w2.float(),
                            x_loc[:nv], cd2_loc[:nv], block_e=block_e, block_c=block_c)
     else:
@@ -193,14 +195,15 @@ def ring_lune_count(x_loc: torch.Tensor, cd2_loc: torch.Tensor, ea: torch.Tensor
 
 
 def sharded_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor, *, n: int, mesh,
-                      axis: str = "data") -> torch.Tensor:
+                      axis: str = "data", rounds: int | None = None) -> torch.Tensor:
     """Batched Borůvka with the R mpts rows split over ``axis``.
 
     Each row of ``w_range`` (R, m) is one reweighting of the same edge
     list, so every rank solves its rows with no collective a round.  R is
     padded to a multiple of the axis size with copies of the last row
     (the same weights converge to the same MST; the copies are dropped).
-    Returns in_mst (R, m) bool on every rank, as ``boruvka_mst_range``.
+    Returns in_mst (R, m) bool on every rank, as ``boruvka_mst_range``
+    (``rounds``: its fixed round count, for the dry run).
     """
     from ..core import boruvka
 
@@ -210,7 +213,7 @@ def sharded_mst_range(ea: torch.Tensor, eb: torch.Tensor, w_range: torch.Tensor,
     if r_pad != r:
         w_range = torch.cat([w_range, w_range[-1:].expand(r_pad - r, -1)])
     rl = r_pad // p
-    local = boruvka.boruvka_mst_range(ea, eb, w_range[me * rl:(me + 1) * rl].contiguous(), n=n)
+    local = boruvka.boruvka_mst_range(ea, eb, w_range[me * rl:(me + 1) * rl].contiguous(), n=n, rounds=rounds)
     local = local.to(torch.uint8).contiguous()
     parts = [torch.empty_like(local) for _ in range(p)]
     dist.all_gather(parts, local, group=group)

@@ -207,15 +207,16 @@ def _mesh_usable(mesh, axis: str) -> bool:
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The port's device rule: ``"cuda"`` by default, which raises without
-    a card; the CPU only when the caller asks for ``device="cpu"``."""
+    a card; the CPU only when the caller asks for ``device="cpu"``;
+    ``"meta"`` (shapes, no memory) for the dry runs' caches."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a CUDA device or 'cpu'; got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be a CUDA device, 'cpu' or 'meta'; got {dev}")
     return dev
 
 

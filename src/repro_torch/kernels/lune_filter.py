@@ -149,7 +149,8 @@ def lune_filter(
     blocks claim in point-tile order, and ``block_e`` and ``block_c``
     only have to lie in their ranges.  ``launches`` counts calls, whatever
     passes a call makes on the card.  CPU tensors run the plain version
-    (``chunk`` edges per step).
+    (``chunk`` edges per step).  ``work`` counts a call's operations and
+    bytes.
     """
     m = a_xyz.shape[0]
     if a_xyz.ndim != 2 or b_xyz.shape != a_xyz.shape or points.ndim != 2 or points.shape[1] != a_xyz.shape[1]:
@@ -170,3 +171,18 @@ def lune_filter(
 
 
 lune_filter.launches = 0
+
+
+def work(n: int, d: int, m: int, m_removed: int) -> tuple[float, float]:
+    """Operations and bytes of one ``lune_filter`` call over m edges and n
+    points (the kernel's bound).
+
+    A kept edge has to be checked against every point, a removed one
+    against one point at the least (the first inside).  Per (edge, point)
+    pair: two d-long dot products (4 d) and the norm sums, mrd maxima,
+    margins and compares (16).  Every input is read once: the endpoint
+    coordinates, core distances, indices and weights of the m edges, the
+    n points and their core distances; the m verdicts are written once.
+    """
+    pairs = (m - m_removed) * n + m_removed
+    return pairs * (4 * d + 16), 4 * (m * (2 * d + 5) + n * (d + 1) + m)

@@ -165,3 +165,11 @@ def pairwise_topk(
 
 
 pairwise_topk.launches = 0
+
+
+def work(n: int, d: int, k_eff: int) -> tuple[float, float]:
+    """The least operations and bytes of the top-K of (n, d) at K =
+    ``k_eff`` (the kernel's bound): d2 is symmetric, so n (n - 1) / 2 dot
+    products of 2 d operations and 3 more for d2, plus the n norms (2 d
+    each); x read once, the lists written once."""
+    return n * (n - 1) / 2 * (2 * d + 3) + n * 2 * d, 4 * n * d + 8 * n * k_eff

@@ -101,6 +101,20 @@ def reference_leaves(cfg) -> dict[str, RefLeaf]:
     return out
 
 
+def param_specs(cfg) -> dict[str, tuple]:
+    """The logical axis names of every parameter (``named_parameters``
+    order), in the port tensor's own dimension order: the reference's spec
+    of its leaf (the family module's ``leaf_spec``) without the stacked
+    ``layers`` axis, reversed where the tensor is an ``nn.Linear``
+    weight, (out, in) against the reference's (in, out)."""
+    model = get_model(cfg)
+    out = {}
+    for name, leaf in reference_leaves(cfg).items():
+        spec = model.leaf_spec(cfg, leaf.path)
+        out[name] = spec[::-1] if leaf.transposed else spec
+    return out
+
+
 def _tensor(a: np.ndarray) -> torch.Tensor:
     """A numpy array as a tensor of its own dtype.  A bfloat16 array (the
     ``ml_dtypes`` type JAX hands out, which ``torch.from_numpy`` refuses)

@@ -34,9 +34,11 @@ at ``pos >= dec_len`` lands in the last slot, as the reference's clamped
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, reshape, unflatten
 from ..engine.plan import resolve_device
 from . import layers as L
 
@@ -117,6 +119,23 @@ def ref_location(cfg, name: str):
     return L.ref_path(name), None, None
 
 
+_ATTN_SPECS = {"wq": ("embed", "heads_dim"), "wk": ("embed", "kv_dim"), "wv": ("embed", "kv_dim"),
+               "wo": ("heads_dim", "embed")}
+_TOP_SPECS = {"embed": L.EMBED_SPEC, "unembed": L.EMBED_SPEC, "proj_in": ("frontend", "embed"),
+              "enc_norm": L.NORM_SPEC, "dec_norm": L.NORM_SPEC}
+
+
+def leaf_spec(cfg, path: tuple[str, ...]) -> tuple:
+    """The reference's logical axis names of the leaf at ``path`` (a
+    layer's slice for the ``enc``/``dec`` stacks), in its (in, out) order."""
+    if path[0] not in ("enc", "dec"):
+        return _TOP_SPECS[path[0]]
+    if len(path) == 2:  # ln1, ln_x, ln2
+        return L.NORM_SPEC
+    group, leaf = path[1], path[2]
+    return L.mlp_specs(cfg)[leaf] if group == "mlp" else _ATTN_SPECS[leaf]
+
+
 # tensors the reference uses in float32 whatever the compute dtype: the norms
 _KEPT = ("ln1", "ln2", "ln_x", "enc_norm", "dec_norm")
 
@@ -140,8 +159,7 @@ def cast_for_compute(p: EncDec, cfg) -> EncDec:
 
 def _heads(lin: nn.Linear, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
     """``x @ W`` in x's dtype as (B, S, n, d_head)."""
-    b, s_len, _ = x.shape
-    return (x @ lin.weight.to(x.dtype).T).reshape(b, s_len, n, d_head)
+    return unflatten(x @ lin.weight.to(x.dtype).T, -1, (n, d_head))
 
 
 def _kv(pa: Attention, h: torch.Tensor, cfg, k_pos: torch.Tensor | None):
@@ -165,7 +183,7 @@ def _attend(pa: Attention, hq: torch.Tensor, k, v, cfg, q_pos, k_pos, causal: bo
     if not causal:
         q_pos, k_pos = torch.full_like(q_pos, _BIDI_POS), torch.zeros_like(k_pos)
     o = L.attention(q, k, v, q_pos=q_pos, k_pos=k_pos, window=0, kv_valid=kv_valid)
-    return o.reshape(b, sq, -1) @ pa.wo.weight.to(hq.dtype).T
+    return reshape(o, (b, sq, -1)) @ pa.wo.weight.to(hq.dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +192,7 @@ def _attend(pa: Attention, hq: torch.Tensor, k, v, cfg, q_pos, k_pos, causal: bo
 
 
 def _enc_block(pl: EncLayer, x: torch.Tensor, cfg, pos: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     h = L.rmsnorm(x, pl.ln1)
     k, v = _kv(pl.attn, h, cfg, pos)
     x = x + _attend(pl.attn, h, k, v, cfg, pos, pos, causal=False)
@@ -193,6 +212,7 @@ def encode(p: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
 
 def _dec_block(pl: DecLayer, x: torch.Tensor, enc_out: torch.Tensor, cfg, dpos: torch.Tensor,
                epos: torch.Tensor) -> torch.Tensor:
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     h = L.rmsnorm(x, pl.ln1)
     k, v = _kv(pl.self_attn, h, cfg, dpos)
     x = x + _attend(pl.self_attn, h, k, v, cfg, dpos, dpos, causal=True)
@@ -205,7 +225,7 @@ def _dec_block(pl: DecLayer, x: torch.Tensor, enc_out: torch.Tensor, cfg, dpos: 
 def forward(p: EncDec, cfg, dec_tokens: torch.Tensor, frames: torch.Tensor):
     """Training forward -> (decoder hidden states (B, S_dec, D), aux 0)."""
     enc_out = encode(p, cfg, frames)
-    x = p.embed.to(_dtype(cfg.dtype))[dec_tokens]
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), dec_tokens)
     dev = x.device
     dpos = torch.arange(dec_tokens.shape[1], dtype=torch.int32, device=dev)
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=dev)
@@ -252,13 +272,22 @@ def prefill(p: EncDec, cfg, frames: torch.Tensor, max_len: int, cache_dtype=torc
     """Encode, keep every decoder layer's cross K/V in ``cache_dtype``, then
     one decode step on BOS = 0.  Returns (logits (B, V), cache)."""
     enc_out = encode(p, cfg, frames)
-    b, s_enc, _ = enc_out.shape
-    cache = init_cache(cfg, b, max_len, enc_len=s_enc, dtype=cache_dtype, device=enc_out.device)
-    for li, pl in enumerate(p.dec):
+    ks, vs = [], []
+    for pl in p.dec:
         k, v = _kv(pl.cross_attn, enc_out, cfg, None)
-        cache["xk"][li] = k.to(cache_dtype)
-        cache["xv"][li] = v.to(cache_dtype)
-    bos = torch.zeros((b, 1), dtype=torch.int32, device=enc_out.device)
+        ks.append(k.to(cache_dtype))
+        vs.append(v.to(cache_dtype))
+    # init_cache's layout, made from the stacked cross K/V, placed on a mesh
+    # as a decode step's cache is (the reference's cache_shardings: the batch
+    # over data); the decoder's slots are the encoder's cut to none and
+    # padded with zeros to dec_len
+    rows = (None, "act_batch", None, None, None)
+    xk, xv = constrain(torch.stack(ks), rows), constrain(torch.stack(vs), rows)
+    del ks, vs
+    dec_len = max(1, int(max_len * cfg.dec_seq_frac))
+    cache = {"k": F.pad(xk[:, :, :0], (0, 0, 0, 0, 0, dec_len)), "v": F.pad(xv[:, :, :0], (0, 0, 0, 0, 0, dec_len)),
+             "xk": xk, "xv": xv, "pos": 0}
+    bos = torch.zeros_like(frames[:, :1, 0], dtype=torch.int32)
     return decode_step(p, cfg, cache, bos)
 
 
@@ -272,7 +301,7 @@ def decode_step(p: EncDec, cfg, cache: dict, cur_tokens: torch.Tensor):
     """
     dt = _dtype(cfg.dtype)
     pos = int(cache["pos"])
-    x = p.embed.to(dt)[cur_tokens]
+    x = L.embed_lookup(p.embed.to(dt), cur_tokens)
     dev = x.device
     dec_len, s_enc = cache["k"].shape[2], cache["xk"].shape[2]
     positions = torch.full((1,), pos, dtype=torch.int32, device=dev)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, reshape, rowwise, unflatten
 from ..engine.plan import resolve_device
 from . import layers as L
 from .ssm import softplus
@@ -140,6 +141,29 @@ def ref_location(cfg, name: str):
     return L.stacked_ref_location(name, "period", _pattern(cfg)[1])
 
 
+_RGLRU_SPECS = {
+    "ln": L.NORM_SPEC, "wx": ("embed", "lru"), "wy": ("embed", "lru"), "conv_w": ("conv", "lru"),
+    "conv_b": ("lru",), "wr": ("lru", "lru2"), "wi": ("lru", "lru2"), "lam": ("lru",), "wo": ("lru", "embed"),
+}
+_ATTN_SPECS = {
+    "ln": L.NORM_SPEC, "wq": ("embed", "heads_dim"), "wk": ("embed", "kv_dim"), "wv": ("embed", "kv_dim"),
+    "wo": ("heads_dim", "embed"),
+}
+
+
+def leaf_spec(cfg, path: tuple[str, ...]) -> tuple:
+    """The reference's logical axis names of the leaf at ``path``
+    (``period/...`` a period's slice, ``remainder/...`` unstacked), in its
+    (in, out) order."""
+    if path[0] not in ("period", "remainder"):
+        return {"embed": L.EMBED_SPEC, "final_norm": L.NORM_SPEC}[path[0]]
+    block, leaf = path[1], path[2]
+    if block.startswith("mlp"):
+        return L.NORM_SPEC if leaf == "ln" else L.mlp_specs(cfg)[leaf]
+    kind = _pattern(cfg)[0][int(block[3:])]
+    return (_RGLRU_SPECS if kind == "R" else _ATTN_SPECS)[leaf]
+
+
 def _kept(name: str) -> bool:
     """The reference uses the norms, the RG-LRU's gates ``wr``, ``wi`` and
     ``lam`` in float32 (or their master dtype) whatever the compute dtype."""
@@ -214,7 +238,7 @@ def _rglru(pl: RGLRU, h: torch.Tensor, state=None, single_step: bool = False):
         lru_new = a[:, 0] * state[1] + b[:, 0]
         out = lru_new[:, None]
     else:
-        _, out = _scan(a, b)
+        _, out = rowwise(_scan, (a, b), dims=(0, 2))
         lru_new = out[:, -1]
     out = (out * y_gate.float()).to(dt)
     return out @ pl.wo.weight.to(dt).T, (conv_new, lru_new)
@@ -226,18 +250,17 @@ def _rglru(pl: RGLRU, h: torch.Tensor, state=None, single_step: bool = False):
 
 
 def _qkv(pl: LocalAttention, h: torch.Tensor, cfg, positions: torch.Tensor):
-    b, sq, _ = h.shape
     dt = h.dtype
-    q = (h @ pl.wq.weight.to(dt).T).reshape(b, sq, cfg.n_heads, cfg.d_head)
-    k = (h @ pl.wk.weight.to(dt).T).reshape(b, sq, cfg.n_kv, cfg.d_head)
-    v = (h @ pl.wv.weight.to(dt).T).reshape(b, sq, cfg.n_kv, cfg.d_head)
+    q = unflatten(h @ pl.wq.weight.to(dt).T, -1, (cfg.n_heads, cfg.d_head))
+    k = unflatten(h @ pl.wk.weight.to(dt).T, -1, (cfg.n_kv, cfg.d_head))
+    v = unflatten(h @ pl.wv.weight.to(dt).T, -1, (cfg.n_kv, cfg.d_head))
     return L.rope(q, positions[None, :], cfg.rope_theta), L.rope(k, positions[None, :], cfg.rope_theta), v
 
 
 def _attn_out(pl: LocalAttention, q, k_all, v_all, cfg, positions, k_pos, kv_valid) -> torch.Tensor:
     b, sq = q.shape[:2]
     o = L.attention(q, k_all, v_all, q_pos=positions, k_pos=k_pos, window=cfg.window, kv_valid=kv_valid)
-    return o.reshape(b, sq, -1) @ pl.wo.weight.to(q.dtype).T
+    return reshape(o, (b, sq, -1)) @ pl.wo.weight.to(q.dtype).T
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +276,7 @@ def _block(kind: str, mix, mlp: MLPBlock, x: torch.Tensor, cfg, positions: torch
     """A mixing block and its MLP over a full sequence -> (x, state): the
     (conv tail, final LRU state) of a recurrent block, (k, v) of an
     attention block."""
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     h = L.rmsnorm(x, mix.ln)
     if kind == "R":
         out, state = _rglru(mix, h)
@@ -270,7 +294,7 @@ def _period(blocks: Blocks, x: torch.Tensor, cfg, positions: torch.Tensor) -> to
 
 def forward(p: Griffin, cfg, tokens: torch.Tensor, patch_embeds=None):
     """Full-sequence forward -> (final hidden states (B, S, D), aux 0)."""
-    x = p.embed.to(_dtype(cfg.dtype))[tokens]
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for blocks in p.period:
@@ -323,7 +347,7 @@ def decode_step(p: Griffin, cfg, cache: dict, cur_tokens: torch.Tensor):
     the ring."""
     dt = _dtype(cfg.dtype)
     pos = int(cache["pos"])
-    x = p.embed.to(dt)[cur_tokens]
+    x = L.embed_lookup(p.embed.to(dt), cur_tokens)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     slot = pos % cache["k"].shape[2]
     kpos = cache["kpos"]
@@ -356,8 +380,8 @@ def prefill(p: Griffin, cfg, tokens: torch.Tensor, max_len: int, patch_embeds=No
     recurrent block's conv tail and final LRU state, each attention
     block's last ``window`` keys and values in their ring slots.  Returns
     (last logits (B, V), cache)."""
-    x = p.embed.to(_dtype(cfg.dtype))[tokens]
-    b, s_len = tokens.shape
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), tokens)
+    s_len = tokens.shape[1]
     dev = x.device
     positions = torch.arange(s_len, dtype=torch.int32, device=dev)
     win = min(cfg.window, max_len)
@@ -371,10 +395,8 @@ def prefill(p: Griffin, cfg, tokens: torch.Tensor, max_len: int, patch_embeds=No
             conv.append(state[0].to(cache_dtype))
             lru.append(state[1])
         else:
-            for ring, t in ((ks, state[0]), (vs, state[1])):
-                r = torch.zeros((b, win, cfg.n_kv, cfg.d_head), dtype=cache_dtype, device=dev)
-                r[:, slots] = t[:, p_sel].to(cache_dtype)
-                ring.append(r)
+            ks.append(L.ring(state[0].to(cache_dtype), 1, win))
+            vs.append(L.ring(state[1].to(cache_dtype), 1, win))
     x = L.rmsnorm(x, p.final_norm)
     kpos = torch.full((win,), -(2**30), dtype=torch.int32, device=dev)
     kpos[slots] = p_sel.to(torch.int32)

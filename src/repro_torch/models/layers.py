@@ -15,10 +15,17 @@ Dense weights live in ``nn.Linear`` modules, (out, in) as PyTorch keeps
 them; the reference keeps (in, out) and computes ``x @ W``, so
 ``models.params_from_jax`` transposes them.  The MoE's expert tensors,
 (E, d, 2f) and (E, f, d), are no ``nn.Linear`` and keep the reference's
-layout.  The reference's logical-axis specs and ``dist.sharding.constrain``
-(the identity outside a mesh) have no counterpart here: the models run
-on one card (``dist.cluster_parallel`` shards the clustering path, not
-the LMs).
+layout.
+
+Logical-axis specs: each family module names the axes of every tensor as
+the reference's ``init`` does (``leaf_spec``, from the tables here and in
+the family module), and ``models.param_specs`` turns them into the port
+tensor's own dimension order; ``dist.sharding`` maps them to a mesh.
+``constrain`` sits at the reference's call sites on the activations: the
+identity outside an ``activation_context`` or on a plain tensor, so the
+models on one device run as before, bit for bit; on DTensor parameters
+inside a context it redistributes to the rule's placements, and the
+sharded train step (``train.step``) runs these same functions.
 """
 
 from __future__ import annotations
@@ -28,6 +35,31 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..dist.sharding import constrain, index_add_rows, reshape, unflatten
+
+# ---------------------------------------------------------------------------
+# logical-axis specs of the shared layers (the reference's, in its (in, out)
+# order; ``models.param_specs`` reverses an ``nn.Linear`` weight's)
+# ---------------------------------------------------------------------------
+
+EMBED_SPEC = ("vocab", "embed")
+NORM_SPEC = ("embed",)
+MLA_SPECS = {
+    "wq": ("embed", "heads_dim"), "wdkv": ("embed", "lora"), "wkr": ("embed", "lora"),
+    "wuk": ("lora", "heads_dim"), "wuv": ("lora", "heads_dim"), "wo": ("heads_dim", "embed"),
+}
+MOE_SPECS = {
+    "router": ("embed", "experts"), "wi": ("experts", "embed", "ff2"), "wo": ("experts", "ff", "embed"),
+    "shared_wi": ("embed", "ff2"), "shared_wo": ("ff", "embed"),
+}
+
+
+def mlp_specs(cfg) -> dict:
+    """A gated MLP's ``wi`` holds [u | g] (``ff2``); a gelu MLP's is ``ff``."""
+    gated = cfg.act in ("swiglu", "geglu")
+    return {"wi": ("embed", "ff2" if gated else "ff"), "wo": ("ff", "embed"), "bi": ("ff",), "bo": ("embed",)}
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -65,6 +97,19 @@ def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     if lin.bias is not None:
         out = out + lin.bias.to(dt)
     return out
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Where a mesh shards the table's rows (the
+    vocabulary), ``F.embedding``, which DTensor runs as a masked lookup of
+    each rank's own rows and a sum across them; indexing would gather the
+    table whole on every rank."""
+    if isinstance(table, DTensor) and any(isinstance(p, Shard) and p.dim == 0 for p in table.placements):
+        out = F.embedding(tokens, table)
+        # the masked partial sums reduced at once: a recomputed layer reads
+        # its input again, and a masked partial reduces only once
+        return out.redistribute(out.device_mesh, [Replicate() if p.is_partial() else p for p in out.placements])
+    return table[tokens]
 
 
 def rmsnorm_init(d: int, device: torch.device, dtype: torch.dtype = torch.float32) -> nn.Parameter:
@@ -115,16 +160,25 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state=None):
     inputs as the next state)."""
     k = w.shape[0]
     dt = x.dtype
-    if state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=dt, device=x.device)
-    else:
-        pad = state.to(dt)
-    xp = torch.cat([pad, x], dim=1)
+    # zeros ahead of x by a pad, not a cat with a tensor of zeros: a pad keeps
+    # a DTensor's placements, and the values are the same
+    xp = F.pad(x, (0, 0, k - 1, 0)) if state is None else torch.cat([state.to(dt), x], dim=1)
     s_len = x.shape[1]
     out = xp[:, :s_len] * w[0].to(dt)
     for i in range(1, k):
         out = out + xp[:, i:i + s_len] * w[i].to(dt)
     return out + b.to(dt), xp[:, s_len:]
+
+
+def ring(t: torch.Tensor, dim: int, win: int) -> torch.Tensor:
+    """A ring buffer of ``win`` slots along ``dim`` holding t's last
+    ``min(win, S)`` positions p at slot p % win, zeros elsewhere: a gather
+    of t in slot order, or t padded (placed like t on a mesh)."""
+    s_len = t.shape[dim]
+    if s_len < win:  # positions 0..S-1 at their own slots
+        return F.pad(t, [0, 0] * (t.ndim - 1 - dim) + [0, win - s_len])
+    p_sel = torch.arange(s_len - win, s_len, device=t.device)
+    return t.index_select(dim, p_sel[torch.argsort(p_sel % win)])
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +216,37 @@ def _attn_inner(q, k, v, q_pos, k_pos, window: int, softcap: float, kv_valid):
     Query head h reads kv head h // g (heads grouped (hkv, g))."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
-    g = hq // hkv
-    qf = q.float().reshape(b, sq, hkv, g, dh)
+    qf = reshape(q.float(), (b, sq, hkv, hq // hkv, dh))
+    if isinstance(qf, DTensor):
+        return _attn_tile_local(qf, k, v, q_pos, k_pos, window, softcap, kv_valid)
+    return _attn_tile(qf, k, v, q_pos, k_pos, window, softcap, kv_valid)
+
+
+def _attn_tile_local(qf: DTensor, k, v, q_pos, k_pos, window: int, softcap: float, kv_valid):
+    """``_attn_tile`` on a mesh: every (batch, kv head) is its own problem,
+    so each rank runs the plain tile on its own rows and kv heads (q's
+    shards of dims 0 and 2 kept, k and v placed alike, anything else
+    gathered) and the outputs are those shards.  DTensor's own einsum
+    merges the batch with a sharded head dimension, which older DTensor
+    releases refuse, and a rank's values are the unsharded tile's."""
+    mesh = qf.device_mesh
+    placed = [p if type(p) is Shard and p.dim in (0, 2) else Replicate() for p in qf.placements]
+    local = [t.redistribute(mesh, placed).to_local() if isinstance(t, DTensor) else t for t in (qf, k, v)]
+    aux = [t.full_tensor() if isinstance(t, DTensor) else t for t in (q_pos, k_pos, kv_valid)]
+    outs = _attn_tile(*local, aux[0], aux[1], window, softcap, aux[2])
+    # (b, hkv, g, q, d) and (b, hkv, g, q): the kv heads are dim 1 there
+    out_placed = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p for p in placed]
+    b, sq, hkv, g, dh = qf.shape
+    shapes = ((b, hkv, g, sq, dh), *[(b, hkv, g, sq)] * 3)
+    return tuple(DTensor.from_local(t.contiguous(), mesh, out_placed, shape=torch.Size(shape),
+                                    stride=torch.empty(shape, device="meta").stride())
+                 for t, shape in zip(outs, shapes))
+
+
+def _attn_tile(qf, k, v, q_pos, k_pos, window: int, softcap: float, kv_valid):
+    """The tile's arithmetic: qf (B, Sq, Hkv, g, D) float32 against k, v
+    (B, Sk, Hkv, D)."""
+    dh = qf.shape[-1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     s = s / math.sqrt(dh)
     if softcap:
@@ -210,15 +293,19 @@ def attention(
     g = hq // hkv
     window = int(window or 0)
     window = 2**30 if window <= 0 else window
+    q = constrain(q, ("act_batch", "act_seq", "act_heads", None))
+    k = constrain(k, ("act_batch", "act_seq", None, None))
+    v = constrain(v, ("act_batch", "act_seq", None, None))
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, sk)
     nq = -(-sq // q_chunk)
     nk = -(-sk // kv_chunk)
     pad_q, pad_k = nq * q_chunk - sq, nk * kv_chunk - sk
-    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    # no pad where the chunks divide the sequences (the same values; and
+    # older DTensor releases place a pad wrongly on a mesh of 2 dimensions)
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q)) if pad_q else q
     qpp = F.pad(q_pos, (0, pad_q))
-    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, pad_k)) if pad_k else t for t in (k, v))
     kpp = F.pad(k_pos, (0, pad_k), value=2**30)
     valid = kv_valid if kv_valid is not None else torch.ones((sk,), dtype=torch.bool, device=q.device)
     validp = F.pad(valid, (0, pad_k), value=False)
@@ -227,12 +314,15 @@ def attention(
     for qi in range(nq):
         qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
         qc, qpos_c = qp[:, qs], qpp[qs]
-        acc = torch.zeros((b, hkv, g, q_chunk, dh), dtype=torch.float32, device=q.device)
-        m_run = torch.full((b, hkv, g, q_chunk), -torch.inf, dtype=torch.float32, device=q.device)
-        l_run = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32, device=q.device)
+        acc = m_run = l_run = None
         for kj in range(nk):
             ks = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
             o, m, l, any_valid = _attn_inner(qc, kp[:, ks], vp[:, ks], qpos_c, kpp[ks], window, softcap, validp[ks])
+            if acc is None:
+                # (b, hkv, g, qc, d) float32 zeros and (b, hkv, g, qc) -inf and
+                # zeros, made like the tile's own outputs (placed like them on
+                # a mesh)
+                acc, m_run, l_run = torch.zeros_like(o), torch.full_like(m, -torch.inf), torch.zeros_like(l)
             m_new = torch.maximum(m_run, m)
             alpha = torch.exp(m_run - m_new)
             beta = torch.where(any_valid, torch.exp(m - m_new), 0.0)
@@ -241,7 +331,8 @@ def attention(
             m_run = m_new
         out = acc / torch.clamp_min(l_run, 1e-30)[..., None]
         # (b, hkv, g, qc, d) -> (b, qc, hq, d)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, hq, dh))
+        out = reshape(out.permute(0, 3, 1, 2, 4), (b, q_chunk, hq, dh))
+        outs.append(constrain(out, ("act_batch", "act_seq", "act_heads", None)))
     return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
@@ -271,12 +362,13 @@ def init_mlp(cfg, d_ff: int, generator: torch.Generator, device: torch.device,
 
 def mlp(p: MLP, x: torch.Tensor, cfg, d_ff: int) -> torch.Tensor:
     dt = x.dtype
+    h = constrain(x @ p.wi.weight.to(dt).T, ("act_batch", "act_seq", "act_ff"))
     if cfg.act in ("swiglu", "geglu"):
-        h = x @ p.wi.weight.to(dt).T
         u, g = torch.chunk(h, 2, dim=-1)
         act = F.silu(g) if cfg.act == "swiglu" else F.gelu(g, approximate="tanh")
         return (act * u) @ p.wo.weight.to(dt).T
-    h = dense(p.wi, x)
+    if p.wi.bias is not None:
+        h = h + p.wi.bias.to(dt)
     h = F.gelu(h, approximate="tanh")
     return dense(p.wo, h)
 
@@ -354,17 +446,18 @@ def moe(p: MoE, x: torch.Tensor, cfg):
     """
     b, s_len, d = x.shape
     dt = x.dtype
-    xf = x.reshape(b * s_len, d)
+    xf = reshape(x, (b * s_len, d))
     gsel, idx, aux = moe_route(p, xf, cfg)
-    xe = xf[idx]                                                 # (E, C, D)
-    u, g = torch.chunk(torch.bmm(xe, p.wi.to(dt)), 2, dim=-1)
-    y = torch.bmm(F.silu(g) * u, p.wo.to(dt))
+    xe = constrain(xf[idx], ("act_experts", None, "act_embed"))  # (E, C, D)
+    h = constrain(torch.bmm(xe, p.wi.to(dt)), ("act_experts", None, None))
+    u, g = torch.chunk(h, 2, dim=-1)
+    y = constrain(torch.bmm(F.silu(g) * u, p.wo.to(dt)), ("act_experts", None, "act_embed"))
     y = y * gsel[..., None].to(dt)
-    out = torch.zeros_like(xf).index_add_(0, idx.reshape(-1), y.reshape(-1, d))
+    out = constrain(index_add_rows(xf.shape[0], idx, y), ("act_batch", "act_embed"))
     if cfg.n_shared:
         us, gs = torch.chunk(xf @ p.shared_wi.weight.to(dt).T, 2, dim=-1)
         out = out + (F.silu(gs) * us) @ p.shared_wo.weight.to(dt).T
-    return out.reshape(b, s_len, d), aux
+    return reshape(out, (b, s_len, d)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +500,8 @@ def mla_expand_kv(p: MLA, ckv: torch.Tensor, k_rope: torch.Tensor, cfg, dt: torc
     h = cfg.n_heads
     ct = torch.promote_types(ckv.dtype, dt)
     c = ckv.to(ct)
-    k_nope = (c @ p.wuk.weight.to(dt).to(ct).T).reshape(b, s_len, h, cfg.qk_nope)
-    v = (c @ p.wuv.weight.to(dt).to(ct).T).reshape(b, s_len, h, cfg.v_head)
+    k_nope = unflatten(c @ p.wuk.weight.to(dt).to(ct).T, -1, (h, cfg.qk_nope))
+    v = unflatten(c @ p.wuv.weight.to(dt).to(ct).T, -1, (h, cfg.v_head))
     kr = k_rope[:, :, None, :].to(dt).expand(b, s_len, h, cfg.qk_rope)
     kt = torch.promote_types(k_nope.dtype, dt)
     return torch.cat([k_nope.to(kt), kr.to(kt)], dim=-1), v
@@ -418,9 +511,8 @@ def mla_qkv(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg):
     """x: (B, S, d) -> (q (B, S, H, qk_nope + qk_rope) with rope on its
     last qk_rope dims, ckv (B, S, kv_lora), k_rope (B, S, qk_rope) with
     rope): the latent parts are what the cache keeps."""
-    b, s_len, _ = x.shape
     dt = x.dtype
-    q = (x @ p.wq.weight.to(dt).T).reshape(b, s_len, cfg.n_heads, cfg.qk_nope + cfg.qk_rope)
+    q = unflatten(x @ p.wq.weight.to(dt).T, -1, (cfg.n_heads, cfg.qk_nope + cfg.qk_rope))
     q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope :]
     q = torch.cat([q_nope, rope(q_rope, positions[None, :], cfg.rope_theta)], dim=-1)
     ckv = x @ p.wdkv.weight.to(dt).T

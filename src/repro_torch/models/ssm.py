@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, reshape, rowwise, unflatten
 from ..engine.plan import resolve_device
 from . import layers as L
 
@@ -86,6 +87,21 @@ def ref_location(cfg, name: str):
     """(reference path, layer index or None, stacked count or None) of a
     port tensor: ``layers.3.in_proj.weight`` -> (layers, in_proj), 3, L."""
     return L.stacked_ref_location(name, "layers", cfg.n_layers)
+
+
+_LAYER_SPECS = {
+    "ln": L.NORM_SPEC, "in_proj": ("embed", "inner_all"), "conv_w": ("conv", "inner"), "conv_b": ("inner",),
+    "a_log": ("ssm_heads",), "d_skip": ("ssm_heads",), "dt_bias": ("ssm_heads",), "norm": ("inner",),
+    "out_proj": ("inner", "embed"),
+}
+
+
+def leaf_spec(cfg, path: tuple[str, ...]) -> tuple:
+    """The reference's logical axis names of the leaf at ``path`` (a
+    layer's slice for a stacked leaf), in its (in, out) order."""
+    if path[0] == "layers":
+        return _LAYER_SPECS[path[1]]
+    return {"embed": L.EMBED_SPEC, "final_norm": L.NORM_SPEC}[path[0]]
 
 
 # tensors the reference uses in float32 (or their master dtype) whatever the
@@ -161,7 +177,7 @@ def ssd_chunked(x, b_in, c_in, dt, a_log, chunk: int) -> torch.Tensor:
 
     # inter-chunk recurrence over nc steps: the state entering each chunk
     chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B, C, H)
-    s_prev = torch.zeros((bsz, h, n, p_dim), dtype=torch.float32, device=x.device)
+    s_prev = torch.zeros_like(states[:, 0])  # (B, H, N, P) float32
     entering = []
     for c in range(nc):
         entering.append(s_prev)
@@ -191,13 +207,13 @@ def _mixer(pl: Layer, h_in: torch.Tensor, cfg, conv_state=None, ssm_state=None, 
     the final SSM state where ``final_state`` asks for it (else None)."""
     dt_model = h_in.dtype
     di, n, nh, pdim = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head
-    proj = h_in @ pl.in_proj.weight.to(dt_model).T
+    proj = constrain(h_in @ pl.in_proj.weight.to(dt_model).T, ("act_batch", "act_seq", "act_ff"))
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc, new_conv = _causal_conv(xbc, pl.conv_w, pl.conv_b, conv_state)
     x, b_in, c_in = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     dt = softplus(dt_raw.float() + pl.dt_bias)
     bsz, s_len, _ = x.shape
-    xh = x.reshape(bsz, s_len, nh, pdim)
+    xh = unflatten(x, -1, (nh, pdim))
 
     if single_step:
         a = -torch.exp(pl.a_log.float())
@@ -206,14 +222,15 @@ def _mixer(pl: Layer, h_in: torch.Tensor, cfg, conv_state=None, ssm_state=None, 
         new_ssm = ssm_state * dec[..., None, None] + torch.einsum("bn,bhp->bhnp", b_in[:, 0].float(), xdt)
         y = torch.einsum("bn,bhnp->bhp", c_in[:, 0].float(), new_ssm)
         y = y + pl.d_skip[:, None] * xh[:, 0].float()
-        y = y.reshape(bsz, 1, di)
+        y = reshape(y, (bsz, 1, di))
     else:
         pad = (-s_len) % cfg.ssd_chunk
-        y = ssd_chunked(F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(b_in, (0, 0, 0, pad)), F.pad(c_in, (0, 0, 0, pad)),
-                        F.pad(dt, (0, 0, 0, pad)), pl.a_log, cfg.ssd_chunk)
+        y = rowwise(lambda *a: ssd_chunked(*a, cfg.ssd_chunk),
+                    (F.pad(xh, (0, 0, 0, 0, 0, pad)), F.pad(b_in, (0, 0, 0, pad)), F.pad(c_in, (0, 0, 0, pad)),
+                     F.pad(dt, (0, 0, 0, pad))), (pl.a_log,))
         y = y[:, :s_len] + pl.d_skip[:, None] * xh.float()
-        y = y.reshape(bsz, s_len, di)
-        new_ssm = _final_state(xh, b_in, dt, pl.a_log) if final_state else None
+        y = reshape(y, (bsz, s_len, di))
+        new_ssm = rowwise(_final_state, (xh, b_in, dt), (pl.a_log,)) if final_state else None
 
     y = L.rmsnorm(y.to(dt_model) * F.silu(z), pl.norm)
     return y @ pl.out_proj.weight.to(dt_model).T, new_conv, new_ssm
@@ -225,6 +242,7 @@ def _mixer(pl: Layer, h_in: torch.Tensor, cfg, conv_state=None, ssm_state=None, 
 
 
 def _block(pl: Layer, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     y, _, _ = _mixer(pl, L.rmsnorm(x, pl.ln), cfg)
     return x + y
 
@@ -234,7 +252,7 @@ def forward(p: Mamba2, cfg, tokens: torch.Tensor, patch_embeds=None):
     Under ``cfg.remat``, while autograd records, each layer is
     checkpointed (recomputed in the backward), as the reference's
     ``jax.checkpoint(body)``."""
-    x = p.embed.to(_dtype(cfg.dtype))[tokens]
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     for pl in p.layers:
         x = checkpoint(_block, pl, x, cfg, use_reentrant=False) if remat else _block(pl, x, cfg)
@@ -268,7 +286,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda
 def decode_step(p: Mamba2, cfg, cache: dict, cur_tokens: torch.Tensor):
     """One decode step.  cur_tokens: (B, 1).  Returns (logits (B, V),
     cache), the cache's (conv, ssm) states updated in place."""
-    x = p.embed.to(_dtype(cfg.dtype))[cur_tokens]
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), cur_tokens)
     for li, pl in enumerate(p.layers):
         conv, ssm = cache["conv"][li], cache["ssm"][li]
         y, conv_new, ssm_new = _mixer(pl, L.rmsnorm(x, pl.ln), cfg, conv_state=conv, ssm_state=ssm,
@@ -285,7 +303,7 @@ def prefill(p: Mamba2, cfg, tokens: torch.Tensor, max_len: int, patch_embeds=Non
     """The chunked forward over the prompt, each layer also returning its
     conv tail and final SSM state.  Returns (last logits (B, V), cache)."""
     del max_len
-    x = p.embed.to(_dtype(cfg.dtype))[tokens]
+    x = L.embed_lookup(p.embed.to(_dtype(cfg.dtype)), tokens)
     convs, ssms = [], []
     for pl in p.layers:
         y, conv, ssm = _mixer(pl, L.rmsnorm(x, pl.ln), cfg, final_state=True)

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, reshape, unflatten
 from ..engine.plan import resolve_device
 from . import layers as L
 
@@ -152,6 +153,28 @@ def ref_location(cfg, name: str):
     return L.ref_path(name), None, None
 
 
+_ATTN_SPECS = {
+    "wq": ("embed", "heads_dim"), "wk": ("embed", "kv_dim"), "wv": ("embed", "kv_dim"), "wo": ("heads_dim", "embed"),
+    "bq": ("heads_dim",), "bk": ("kv_dim",), "bv": ("kv_dim",),
+}
+_TOP_SPECS = {"embed": L.EMBED_SPEC, "unembed": L.EMBED_SPEC, "final_norm": L.NORM_SPEC,
+              "proj_in": ("frontend", "embed"), "proj_mid": ("embed", "embed2")}
+
+
+def leaf_spec(cfg, path: tuple[str, ...]) -> tuple:
+    """The reference's logical axis names of the leaf at ``path``, a layer's
+    slice for a stacked leaf (no ``layers`` axis), in the reference's
+    (in, out) order."""
+    if path[0] != "layers":
+        return _TOP_SPECS[path[0]]
+    if len(path) == 2:  # ln1, ln2
+        return L.NORM_SPEC
+    group, leaf = path[1], path[2]
+    if group == "attn":
+        return (L.MLA_SPECS if cfg.kv_lora > 0 else _ATTN_SPECS)[leaf]
+    return (L.MOE_SPECS if group == "moe" else L.mlp_specs(cfg))[leaf]
+
+
 # tensors the reference uses in float32 whatever the compute dtype
 _KEPT = ("ln1", "ln2", "final_norm", "router.weight")
 
@@ -177,11 +200,10 @@ def cast_for_compute(p: Transformer, cfg) -> Transformer:
 
 def _qkv(pl: Block, h: torch.Tensor, cfg, positions: torch.Tensor, theta: float):
     """q (B, S, Hq, D) and k, v (B, S, Hkv, D) in h's dtype, rope applied."""
-    b, sq, _ = h.shape
     ap = pl.attn
-    q = L.dense(ap.wq, h).reshape(b, sq, cfg.n_heads, cfg.d_head)
-    k = L.dense(ap.wk, h).reshape(b, sq, cfg.n_kv, cfg.d_head)
-    v = L.dense(ap.wv, h).reshape(b, sq, cfg.n_kv, cfg.d_head)
+    q = unflatten(L.dense(ap.wq, h), -1, (cfg.n_heads, cfg.d_head))
+    k = unflatten(L.dense(ap.wk, h), -1, (cfg.n_kv, cfg.d_head))
+    v = unflatten(L.dense(ap.wv, h), -1, (cfg.n_kv, cfg.d_head))
     q = L.rope(q, positions[None, :], theta)
     k = L.rope(k, positions[None, :], theta)
     return q, k, v
@@ -190,7 +212,7 @@ def _qkv(pl: Block, h: torch.Tensor, cfg, positions: torch.Tensor, theta: float)
 def _attn_out(pl: Block, q, k_all, v_all, cfg, positions, window, k_pos, kv_valid) -> torch.Tensor:
     b, sq = q.shape[:2]
     o = L.attention(q, k_all, v_all, q_pos=positions, k_pos=k_pos, window=window, softcap=0.0, kv_valid=kv_valid)
-    return o.reshape(b, sq, cfg.n_heads * cfg.d_head) @ pl.attn.wo.weight.to(q.dtype).T
+    return reshape(o, (b, sq, cfg.n_heads * cfg.d_head)) @ pl.attn.wo.weight.to(q.dtype).T
 
 
 def _mla_out(pl: Block, q, ckv_all, kr_all, cfg, positions, k_pos, kv_valid) -> torch.Tensor:
@@ -202,7 +224,7 @@ def _mla_out(pl: Block, q, ckv_all, kr_all, cfg, positions, k_pos, kv_valid) -> 
     k, v = L.mla_expand_kv(pl.attn, ckv_all, kr_all, cfg, dt)
     v = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
     o = L.attention(q, k, v, q_pos=positions, k_pos=k_pos, window=0, kv_valid=kv_valid)[..., : cfg.v_head]
-    return o.reshape(b, sq, cfg.n_heads * cfg.v_head) @ pl.attn.wo.weight.to(dt).T
+    return reshape(o, (b, sq, cfg.n_heads * cfg.v_head)) @ pl.attn.wo.weight.to(dt).T
 
 
 def embed_inputs(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
@@ -210,7 +232,7 @@ def embed_inputs(p: Transformer, cfg, tokens: torch.Tensor, patch_embeds=None) -
     ``patch_embeds`` (B, P, frontend_dim), the projected patches come
     first: ``gelu_tanh(pe @ proj_in) @ proj_mid``."""
     dt = _dtype(cfg.dtype)
-    x = p.embed.to(dt)[tokens]
+    x = L.embed_lookup(p.embed.to(dt), tokens)
     if cfg.frontend and patch_embeds is not None:
         pe = patch_embeds.to(dt) @ p.proj_in.weight.to(dt).T
         pe = F.gelu(pe, approximate="tanh") @ p.proj_mid.weight.to(dt).T
@@ -231,6 +253,7 @@ def _ffn(pl: Block, x: torch.Tensor, cfg):
 def _block(pl: Block, x: torch.Tensor, cfg, positions: torch.Tensor, window: int, theta: float):
     """One layer over a full sequence -> (x, its cache entries, aux): the
     cache entries are (k, v), or (ckv, k_rope) for MLA."""
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     h = L.rmsnorm(x, pl.ln1)
     if cfg.kv_lora > 0:
         q, ckv, kr = L.mla_qkv(pl.attn, h, positions, cfg)
@@ -355,7 +378,7 @@ def decode_step(p: Transformer, cfg, cache: dict, cur_tokens: torch.Tensor):
     """
     dt = _dtype(cfg.dtype)
     pos = int(cache["pos"])
-    x = p.embed.to(dt)[cur_tokens]  # (B, 1, D)
+    x = L.embed_lookup(p.embed.to(dt), cur_tokens)  # (B, 1, D)
     dev = x.device
     # a fill, not a copy from host memory: a step makes no host sync of its own
     positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
@@ -406,28 +429,26 @@ def prefill(p: Transformer, cfg, tokens: torch.Tensor, max_len: int, patch_embed
     logits = logits_fn(p, cfg, x[:, -1:])
     dev = x.device
     cache: dict = {"pos": s_len}
+    # the caches are the stacked entries padded to max_len (or put in their
+    # ring slots), which keeps them placed like the entries on a mesh
     if cfg.kv_lora > 0:
-        for key, j, width in (("ckv", 0, cfg.kv_lora), ("kr", 1, cfg.qk_rope)):
-            c = torch.zeros((cfg.n_layers, b, max_len, width), dtype=cache_dtype, device=dev)
-            c[:, :, :s_len] = torch.stack([kv[j] for kv in kvs]).to(cache_dtype)
-            cache[key] = c
+        for key, j in (("ckv", 0), ("kr", 1)):
+            c = torch.stack([kv[j] for kv in kvs]).to(cache_dtype)
+            cache[key] = F.pad(c, (0, 0, 0, max_len - s_len))
         return logits[:, 0], cache
     is_local, _, _, nl, ng, win = _cache_layout(cfg, max_len)
     if ng:
         glob = [i for i, ll in enumerate(is_local) if not ll]
         for key, j in (("k", 0), ("v", 1)):
-            c = torch.zeros((ng, b, max_len, cfg.n_kv, cfg.d_head), dtype=cache_dtype, device=dev)
-            c[:, :, :s_len] = torch.stack([kvs[i][j] for i in glob]).to(cache_dtype)
-            cache[key] = c
+            c = torch.stack([kvs[i][j] for i in glob]).to(cache_dtype)
+            cache[key] = F.pad(c, (0, 0, 0, 0, 0, max_len - s_len))
     if nl:
         loc = [i for i, ll in enumerate(is_local) if ll]
         keep = min(win, s_len)
         p_sel = torch.arange(s_len - keep, s_len, device=dev)
         slots = p_sel % win
         for key, j in (("k_loc", 0), ("v_loc", 1)):
-            c = torch.zeros((nl, b, win, cfg.n_kv, cfg.d_head), dtype=cache_dtype, device=dev)
-            c[:, :, slots] = torch.stack([kvs[i][j] for i in loc]).to(cache_dtype)[:, :, p_sel]
-            cache[key] = c
+            cache[key] = L.ring(torch.stack([kvs[i][j] for i in loc]).to(cache_dtype), 2, win)
         kpos = torch.full((win,), -(2**30), dtype=torch.int32, device=dev)
         kpos[slots] = p_sel.to(torch.int32)
         cache["kpos_loc"] = kpos

@@ -16,6 +16,11 @@ Layout:  <dir>/step_<N>/  arrays.npz  manifest.json   (+ .tmp staging)
     the parameters and states in place;
   * numpy has no bfloat16, so a bfloat16 tensor is stored as its int16
     bits and named in the manifest's ``bfloat16_keys``;
+  * mesh-agnostic, as the reference: a sharded state (DTensors) is saved
+    at its GLOBAL shape in the same layout, every rank taking part in the
+    gathers and the process group's rank 0 alone writing, and
+    ``restore(..., shardings=...)`` re-distributes each tensor onto
+    whatever mesh the restart runs with;
   * the data pipeline needs no state beyond ``step`` (see train/data.py).
 """
 
@@ -28,6 +33,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree, prefix=""):
@@ -55,7 +62,10 @@ def _unflatten(flat):
 
 
 def _to_host(v) -> np.ndarray:
-    """A host copy that nothing else holds (a CPU tensor is copied too)."""
+    """A host copy that nothing else holds (a CPU tensor is copied too); a
+    DTensor's whole tensor (a collective: every rank calls it)."""
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         h = v.detach().to("cpu", copy=True)
         return (h.view(torch.int16) if h.dtype == torch.bfloat16 else h).numpy()
@@ -65,11 +75,21 @@ def _to_host(v) -> np.ndarray:
 _pending: list[threading.Thread] = []
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the process group, or the
+    only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, state: dict, *, blocking: bool = True, meta: dict | None = None):
-    """state: nested dicts of tensors (params, opt_state, ...)."""
+    """state: nested dicts of tensors (params, opt_state, ...), plain or
+    DTensors.  With DTensors every rank calls ``save`` (their whole
+    tensors are gathered) and rank 0 writes."""
     flat = _flatten(state)
     host = {k: _to_host(v) for k, v in flat.items()}
     bf16 = sorted(k for k, v in flat.items() if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16)
+    if not _writer():
+        return
 
     def write():
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
@@ -113,8 +133,11 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int | None = None, device: str | torch.device = "cpu") -> tuple[dict, int]:
-    """Load a checkpoint as nested dicts of tensors on ``device``."""
+def restore(ckpt_dir: str, step: int | None = None, shardings=None,
+            device: str | torch.device = "cpu") -> tuple[dict, int]:
+    """Load a checkpoint as nested dicts of tensors on ``device``; with
+    ``shardings`` (nested dicts of ``dist.sharding.NamedSharding``, keyed as
+    the state), each tensor that has one becomes a DTensor on its mesh."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -126,4 +149,7 @@ def restore(ckpt_dir: str, step: int | None = None, device: str | torch.device =
         for k in z.files:
             t = torch.from_numpy(z[k])
             flat[k] = (t.view(torch.bfloat16) if k in bf16 else t).to(device)
+    if shardings is not None:
+        placed = _flatten(shardings)
+        flat = {k: placed[k].place(v) if k in placed else v for k, v in flat.items()}
     return _unflatten(flat), step

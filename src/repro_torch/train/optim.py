@@ -29,6 +29,17 @@ port tensor is updated as the slice of its reference leaf
 Float states keep the port tensor's own layout.  Parameters and states
 are updated in place, as the reference donates them: ``update(params,
 grads, state)`` returns the same objects, and clips ``grads`` in place.
+
+On a mesh (``dist.sharding``) the parameters, gradients and states are
+DTensors and the same code runs on them: the global norm's per-tensor
+sums of squares are ``Partial`` and reduce across the ranks; an int8
+state's ``q`` lies like its parameter and its ``scale`` whole on every
+rank, so a block of 32 that a shard boundary splits takes its absmax as a
+``Partial(max)`` over the ranks holding it, and where the shards do not
+split the blocks evenly (kimi-k2's 384 experts, 12 blocks over 16
+ranks) ``dist.sharding.reshape`` gathers that state's rows for the
+encoding; Adafactor's means over a sharded dimension reduce the same way,
+into replicated factored states.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import math
 
 import torch
 
+from ..dist.sharding import reshape
 from ..models import RefLeaf, reference_leaves
 
 _BLOCK = 32  # the reference's block: sharded last dims stay block-divisible
@@ -97,16 +109,16 @@ def _q8_zeros(shape, device) -> dict:
 
 def _q8_encode(x: torch.Tensor) -> dict:
     shape = x.shape
-    blocks = x.reshape(*shape[:-1], shape[-1] // _BLOCK, _BLOCK).float()
+    blocks = reshape(x, (*shape[:-1], shape[-1] // _BLOCK, _BLOCK)).float()
     scale = torch.amax(torch.abs(blocks), dim=-1) / 127.0
     q = torch.round(blocks / torch.clamp_min(scale[..., None], 1e-20)).to(torch.int8)
-    return {"q": q.reshape(shape), "scale": scale}
+    return {"q": reshape(q, shape), "scale": scale}
 
 
 def _q8_decode(qt: dict) -> torch.Tensor:
     shape = qt["q"].shape
-    q = qt["q"].reshape(*shape[:-1], shape[-1] // _BLOCK, _BLOCK)
-    return (q.float() * qt["scale"][..., None]).reshape(shape)
+    q = reshape(qt["q"], (*shape[:-1], shape[-1] // _BLOCK, _BLOCK))
+    return reshape(q.float() * qt["scale"][..., None], shape)
 
 
 def _is_q8(x) -> bool:

@@ -127,6 +127,8 @@ def test_the_lm_serving_modules_are_covered():
     assert {"repro_torch.models.ssm", "repro_torch.models.griffin"} <= set(MODULES)
     assert "repro_torch.models.encdec" in set(MODULES)
     assert {"repro_torch.dist", "repro_torch.dist.cluster_parallel", "repro_torch.launch.mesh"} <= set(MODULES)
+    # the last slice: the sharded train step and the dry runs
+    assert {"repro_torch.dist.sharding", "repro_torch.launch.dryrun", "repro_torch.launch.cluster"} <= set(MODULES)
 
 
 def test_the_baseline_and_linkage_kernel_modules_are_covered():
@@ -150,10 +152,9 @@ def test_baseline_needs_a_card_unless_cpu_is_asked_for(monkeypatch, blobs):
     assert [h.mpts for h in res] == [3, 5] and set(timings) == {"knn", "mst", "hierarchy", "total"}
 
 
-# Names of the reference's public surface that later slices of the port
-# bring, per package (``dist.sharding``, the LMs' sharded train step);
-# ``engine.cached_program`` (XLA's program cache, which eager PyTorch does
-# not need) stays here for good.
+# Names of the reference's public surface the port leaves out, per package:
+# only ``engine.cached_program`` (XLA's program cache, which eager PyTorch
+# does not need), for good.
 KNOWN_GAPS = {
     "": set(),
     "core": set(),
@@ -164,12 +165,12 @@ KNOWN_GAPS = {
     "configs": set(),
     "models": set(),
     "train": set(),
-    "dist": {"sharding"},
+    "dist": set(),
 }
 # every subpackage of the reference is in
 LATER_SUBPACKAGES = set()
-# the reference's launchers that a later slice brings (``train`` and ``mesh`` are in)
-LATER_LAUNCHERS = {"cluster", "dryrun"}
+# every launcher of the reference is in (``train``, ``mesh``, ``dryrun``, ``cluster``)
+LATER_LAUNCHERS = set()
 
 
 @pytest.mark.parametrize("package", list(KNOWN_GAPS), ids=lambda p: p or "top")
