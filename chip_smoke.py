@@ -6,6 +6,9 @@
     python3 chip_smoke.py --families-only  # phases 1 and 17
     python3 chip_smoke.py --encdec-mesh-only  # phases 1, 2, 18 and 19
     python3 chip_smoke.py --sharded-only   # phases 1, 2, 19 and 20
+    python3 chip_smoke.py --wide-k-only    # phases 1, 2, the select instance's checks,
+                                           # the kmax = 128 and 256 fits (and 256 at n = 16000),
+                                           # the select instance's times
 
 Phases (any failure exits non-zero):
 
@@ -43,7 +46,11 @@ Phases (any failure exits non-zero):
      and key splits, under both plans) and at K = 135 and 256 at d = 8
      (with exact ties), ``lune_filter`` at d = 320, 777, 1100 and 1536,
      ``edge_cascade`` at d = 1536 (windows of windows) and at
-     k_check = 127; ``sbcn_tile`` (the SBCN tiles' products and norms in
+     k_check = 127; past K = 256, the select instance of ``pairwise_topk``
+     (``check_select_cases``) bit for bit at K = 257 and 307 (n = 4000,
+     d = 8; K = 307 also in sort tiles of 128 keys and chunks of 128 rows),
+     K = n - 1 at n = 1007, K = 263 at d = 24 and 1536, on exact ties, and
+     the K = 257 lists starting with the K = 256 lists; ``sbcn_tile`` (the SBCN tiles' products and norms in
      the reference's order above d = 256) bit for bit at d = 320, 1100 and
      1536 on every fused-path tier, the row path's panel tiles (the dense
      path), the slot path's 2-lane tiers, single pairs (XLA's loop) and
@@ -106,28 +113,34 @@ Phases (any failure exits non-zero):
      temperature 0.8) with the reference's serving regressions (a greedy
      row alone and behind a hot one under two seeds, EOS masking, the
      stats); tokens/s, prefill seconds and seconds a decode step;
-  13. embedding curation: the phase-12 model embeds 2000 documents (mean
+  13. embedding curation: the phase-12 model embeds 1500 documents (mean
      of the final hidden states over 48 tokens, d = 1536, 40 injected
      near-duplicates); ``MultiHDBSCAN(kmax=24).fit(X).select_all()`` on the
      card with the counters set to 0 just before it (``pairwise_topk``,
-     ``edge_cascade`` and ``single_linkage`` must launch); the first 700
+     ``edge_cascade`` and ``single_linkage`` must launch); the first 500
      rows' card fit equals their CPU fit bit for bit (graph counts, the
      SBCN candidates included, since the tiles' products follow the
-     reference's order through ``sbcn_tile``, which must launch); the exact variant of
-     the first 1500 rows on the card launches the sliced ``lune_filter``,
-     keeps a subset of their RNG* graph and its MST weight multisets bit
-     for bit,
+     reference's order through ``sbcn_tile``, which must launch); the exact
+     variant of the documents on the card launches the sliced
+     ``lune_filter``, keeps a subset of the RNG* fit's graph and its MST
+     weight multisets bit for bit,
      and ``lune_filter`` is timed on its unresolved edges beside its plain
      version and bound; MST weight multisets at mpts 2, 8, 16, 24 equal
      dense scipy MSTs; DBCV's choice and the near-duplicate pairs flagged;
   14. ``MultiHDBSCAN(kmax=128)`` at n = 4000, d = 8 (K = 135) with the
      counters set to 0 just before it: mpts 2..16 MST weight multisets
-     equal a kmax = 16 fit's bit for bit; then ``pairwise_topk`` at the
+     equal a kmax = 16 fit's bit for bit; ``MultiHDBSCAN(kmax=256)`` of the
+     same points (K = 263) with the counters set to 0 just before it: the
+     select instance once, ``edge_cascade`` at least twice and
+     ``single_linkage`` once, 255 levels, mpts 2..128 MST weight multisets
+     equal the kmax = 128 fit's bit for bit, its stage seconds and peak
+     memory; the select instance timed at (n, d, K) = (4000, 8, 263),
+     (16000, 8, 263), (4000, 8, 307) and (4000, 1536, 263); then ``pairwise_topk`` at the
      shapes of phases 13 and 14 (and at n = 4000, d = 1536 on phase 3's
      points, the earlier runs' shape) and ``lune_filter`` at d = 1536, each
      beside its plain version (outputs bit-equal) and its bound; the two
-     sliced rows join the ``{"kernels": ...}`` line (phases 12-16 run
-     before 11);
+     sliced rows and the select instance's at the kmax = 256 fit's shape
+     join the ``{"kernels": ...}`` line (phases 12-16 run before 11);
   15. LM training on a copy of phase 12's masters (the path launches none
      of the hand-written kernels): (a) one AdamW step at full width and 2
      layers in float32 (``microbatch`` 2, ``xent_chunk`` 10 of S = 24, a
@@ -272,14 +285,17 @@ WIDE_WIDTHS = (320, 1536)       # the sliced instances; 1536 is qwen2-1.5b's d_m
 RAGGED_WIDE = (777, 1100)        # a ragged d (d % 4 != 0); two 512-deep panels and windows of windows
 N_WIDE = 4000
 K_EMBED = 31                      # the top-K of a kmax = 24 fit (the embedding fit)
-K_WIDE = (135, 256)               # the top-K of kmax = 128, and the kernel's longest list
+K_WIDE = (135, 256)               # the top-K of kmax = 128, and the list instances' longest list
+K_SELECT = (257, 307)             # the select instance (K > 256): just past the lists, and kmax = 300's
+KMAX_256 = 256                    # the select instance's fit (K = 263)
+K_SELECT_FIT = KMAX_256 + 7       # its list, also at d = 24 and 1536
 KMAX_128 = 128
 LM_ARCH = "qwen2_1_5b"
 LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
 LM_REQUESTS, LM_NEW_TOKENS, LM_MAX_LEN = 8, 24, 48
 LM_PROFILED_STEPS = 8
-N_DOCS, N_DOCS_EXACT = 2000, 1500  # 4000, then 2500, until the run outgrew its limit on slow hosts
-N_DOCS_CPU = 700                  # the CPU comparison fit's rows: its worker must not set phase 13's time
+N_DOCS = 1500                     # 4000, 2500, then 2000, until the run outgrew its limit on slow hosts
+N_DOCS_CPU = 500                  # the CPU comparison fit's rows: its worker must not set phase 13's time
 KMAX_EMBED = 24
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 4, 24
 TRAIN_PARITY_CHUNK = 10           # does not divide TRAIN_PARITY_SEQ: chunks of 10, 10 and 4
@@ -445,6 +461,36 @@ def keys_split():
         yield
     finally:
         fn(before)
+
+
+@contextlib.contextmanager
+def select_plan(sort_tile: int, chunk_bytes: int):
+    """Within the block, the select instance sorts ``sort_tile`` keys at a
+    time and holds ``chunk_bytes`` of distance rows a chunk (whole tiles of
+    128 rows, at least one): small values run its loops over several sort
+    tiles and chunks."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("pairwise_topk").repro_pairwise_topk_set_select_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p], None
+    before = ctypes.c_int(), ctypes.c_size_t()
+    fn(sort_tile, chunk_bytes, ctypes.addressof(before[0]), ctypes.addressof(before[1]))
+    try:
+        yield
+    finally:
+        after = ctypes.c_int(), ctypes.c_size_t()
+        fn(before[0].value, before[1].value, ctypes.addressof(after[0]), ctypes.addressof(after[1]))
+
+
+def library_topk(x, k_eff: int):
+    """The library yardstick of ``pairwise_topk``: the whole d2 matrix from
+    ``mm``, self masked, then ``torch.topk``."""
+    import torch
+
+    xn = (x * x).sum(1)
+    d2 = (xn[:, None] + xn[None, :] - 2.0 * (x @ x.T)).clamp_min_(0.0)
+    d2.fill_diagonal_(float("inf"))
+    return torch.topk(d2, k_eff, dim=1, largest=False)
 
 
 def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
@@ -870,6 +916,51 @@ def check_wide_cases(dev) -> dict:
     return errs
 
 
+def check_select_cases(dev) -> dict:
+    """The select instance (K > 256) against the plain version on the card,
+    raw lists bit-equal and refined indices equal: K = 257 and 307 at
+    n = 4000, d = 8 (K = 307 also with sort tiles of 128 keys and chunks of
+    128 rows); K = n - 1 at the ragged n = 1007; K = 263 at d = 24 (a
+    generic width) and d = 1536 (the sliced product); exact ties (each point
+    8 times: n = 320, d = 2 at K = 257 and n - 1; d = 320 with copies 500
+    rows apart at K = 263); and on each of those point sets the first 256
+    entries of the K = 257 list equal to the K = 256 list, bit for bit.
+    Returns the largest raw d2 difference per case (0 when bit-equal)."""
+    import numpy as np
+    import torch
+
+    pt = kernel_module("pairwise_topk")
+    errs = {}
+    x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 11)).to(dev)
+    for k_eff in K_SELECT:
+        errs[f"n={N_WIDE},d={D},K={k_eff}"] = check_pairwise_topk(x8, k_eff, k_eff - 8)
+    with select_plan(128, 1):
+        errs[f"n={N_WIDE},d={D},K={K_SELECT[1]},tiles"] = check_pairwise_topk(x8, K_SELECT[1], K_SELECT[1] - 8)
+    errs[f"n={N_RAGGED},d={D},K={N_RAGGED - 1}"] = check_pairwise_topk(x8[:N_RAGGED], N_RAGGED - 1, N_RAGGED - 9)
+    for d in (24, WIDE_WIDTHS[-1]):
+        xd = torch.from_numpy(make_points(N_WIDE, d, SEED + d)).to(dev)
+        errs[f"n={N_WIDE},d={d},K={K_SELECT_FIT}"] = check_pairwise_topk(xd, K_SELECT_FIT, K_SELECT_FIT - 8)
+    rng = np.random.default_rng(SEED + 12)
+    t = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)  # noqa: E731
+    x_dup = t(np.repeat(rng.normal(size=(40, 2)), 8, axis=0))
+    x_tie = t(np.tile(rng.normal(size=(N_WIDE // 8, WIDE_WIDTHS[0])), (8, 1)))
+    for xs, k_eff in ((x_dup, K_SELECT[0]), (x_dup, len(x_dup) - 1), (x_tie, K_SELECT_FIT)):
+        n, d = xs.shape
+        errs[f"n={n},d={d},K={k_eff},ties"] = check_pairwise_topk(xs, k_eff, k_eff - 8)
+    for xs in (x8, x_dup, x_tie):
+        d_256, i_256 = pt.pairwise_topk(xs, 256)
+        d_257, i_257 = pt.pairwise_topk(xs, 257)
+        check(bool((d_257[:, :256].view(torch.int32) == d_256.view(torch.int32)).all()
+                   and (i_257[:, :256] == i_256).all()),
+              f"the K=257 lists start with the K=256 lists at n={xs.shape[0]}, d={xs.shape[1]}")
+    print(f"pairwise_topk's select instance: kernel == plain (raw lists bit-equal, refined indices equal) at "
+          f"K={list(K_SELECT)} (n={N_WIDE}, d={D}; K={K_SELECT[1]} also in sort tiles of 128 and chunks of 128 "
+          f"rows), K=n-1 (n={N_RAGGED}), K={K_SELECT_FIT} at d=24 and {WIDE_WIDTHS[-1]}, on exact ties (n=320, d=2, "
+          f"K={K_SELECT[0]} and n-1; d={WIDE_WIDTHS[0]}, K={K_SELECT_FIT}); K=257 lists start with the K=256 "
+          f"lists", flush=True)
+    return errs
+
+
 def prim_case(n: int, d: int, dev, ties: str | None = None):
     """``make_points`` at (n, d) on ``dev`` and squared core distances from
     the plain top-K (7th neighbour).  With ``ties`` every point comes 8
@@ -1160,6 +1251,7 @@ def kernel_resources(record: dict) -> None:
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
             m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|pairwise_topk_merge_kernel|"
+                          r"pairwise_topk_select_kernel|pairwise_d2_kernel|pairwise_d2_sliced_kernel|"
                           r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
                           r"edge_cascade_kernel|edge_cascade_prologue|"
                           r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel|"
@@ -1201,6 +1293,8 @@ def kernel_resources(record: dict) -> None:
         d = {"generic": 100, "sliced": WIDE_WIDTHS[-1]}.get(u["d"], u["d"])
         if u["kernel"] in ("pairwise_topk_kernel", "pairwise_topk_sliced_kernel"):
             u.update(pt.kernel_config(N, d, 32 * u["slots"]))
+        elif u["kernel"] == "pairwise_topk_select_kernel":
+            u.update(pt.kernel_config(N, D, K_SELECT_FIT))
         elif u["kernel"] in ("lune_filter_kernel", "lune_filter_sliced_kernel"):
             u.update(lf.kernel_config(d, 8, 512))
         elif u["kernel"] == "edge_cascade_kernel":
@@ -1984,10 +2078,9 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
     the card fits them at kmax = 24 through ``MultiHDBSCAN``, with the
     launch counters set to 0 just before it; the first N_DOCS_CPU rows
     fitted on the card equal the port's CPU fit bit for bit; the exact
-    variant of the first N_DOCS_EXACT rows on the card (the sliced
-    ``lune_filter`` on a fit's path) keeps a subset of their RNG* graph and
-    its MST weights bit for bit, and ``lune_filter`` is timed on its
-    unresolved edges; MST
+    variant of the documents on the card (the sliced ``lune_filter`` on a
+    fit's path) keeps a subset of the RNG* fit's graph and its MST weights
+    bit for bit, and ``lune_filter`` is timed on its unresolved edges; MST
     weight multisets at mpts 2, 8, 16, 24 equal dense scipy MSTs; then the
     curation report.  Returns the launches of the fit, the embeddings and
     the fit's largest ``sbcn_tile`` calls (``tile_dots.largest``)."""
@@ -2030,8 +2123,7 @@ def embedding_phase(cfg, params, smi: str, record: dict) -> dict:
         st.tile_dots.largest.clear()
         est_g = MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_c)
         views_g = est_g.select_all()
-        x_x = x[:N_DOCS_EXACT]
-        exact_phase(x_x, MultiHDBSCAN(kmax=KMAX_EMBED, device=CARD).fit(x_x), smi, rec)
+        exact_phase(x, est, smi, rec)
         cpu = job.get(timeout=CPU_FIT_TIMEOUT)
     rec["launches"], rec["graph"] = launches, est.graph_.stats
     rec["stages_s"] = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
@@ -2161,7 +2253,7 @@ def kmax128_phase(smi: str, record: dict) -> dict:
     """Phase 14: ``MultiHDBSCAN(kmax=128)`` at n = N_WIDE, d = 8 on the card
     (K = 135), with the counters set to 0 just before it: mpts 2..16 MST
     weight multisets equal a kmax = 16 fit's bit for bit.  Returns its
-    launches."""
+    launches and the fitted estimator."""
     import numpy as np
     import torch
     from repro_torch.api import MultiHDBSCAN
@@ -2190,7 +2282,99 @@ def kmax128_phase(smi: str, record: dict) -> dict:
     print(f"phase 14: kmax={KMAX_128} at n={N_WIDE}, d={D} on the card in {fit_s:.2f} s (with select_all), "
           f"launches {launches}, graph {est.graph_.stats}; MST weight multisets == the kmax={KMAX} fit's for mpts "
           f"2..{KMAX}; stages (s) on {smi}: {json.dumps(stages)}", flush=True)
+    return launches, est
+
+
+def kmax256_phase(x, est_128, smi: str, record: dict, key: str = "kmax256_fit") -> dict:
+    """``MultiHDBSCAN(kmax=256).fit(x).select_all()`` on the card (K = 263:
+    the select instance), with the counters set to 0 just before it: the
+    select instance launches once (the fit's one ``pairwise_topk`` call),
+    ``edge_cascade`` at least twice, ``single_linkage`` once; 255 levels;
+    where ``est_128`` is given (phase 14's kmax = 128 fit of the same
+    points), its MST weight multisets at mpts 2..128 bit for bit.  Records
+    the stage seconds, the peak device memory and what earlier phases held
+    when it began under ``key``; returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import MultiHDBSCAN
+    from repro_torch.kernels import fused_cascade as fc
+
+    pt, sl = kernel_module("pairwise_topk"), kernel_module("single_linkage")
+    n, d = x.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases: the peak counts it too
+    pt.pairwise_topk.launches = pt.pairwise_topk.select_launches = 0
+    fc.edge_cascade.launches = sl.single_linkage.launches = 0
+    t0 = time.monotonic()
+    est = MultiHDBSCAN(kmax=KMAX_256, device=CARD).fit(x)
+    t1 = time.monotonic()
+    views = est.select_all()
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "pairwise_topk_select": pt.pairwise_topk.select_launches,
+                "edge_cascade": fc.edge_cascade.launches, "single_linkage": sl.single_linkage.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["pairwise_topk"] == 1 and launches["pairwise_topk_select"] == 1,
+          f"the kmax={KMAX_256} fit ran its top-K (K={K_SELECT_FIT}) through the select instance, once")
+    check(launches["edge_cascade"] >= 2 and launches["single_linkage"] == 1,
+          f"the kmax={KMAX_256} fit launched edge_cascade for both stages and single_linkage once")
+    check(len(views) == KMAX_256 - 1 and all(v.labels.shape == (n,) for v in views),
+          f"kmax={KMAX_256}: one level a mpts")
+    if est_128 is not None:
+        for mpts in est_128.mpts_values_:
+            check(np.array_equal(np.sort(est.mst_for(mpts)[2]), np.sort(est_128.mst_for(mpts)[2])),
+                  f"the kmax={KMAX_256} fit keeps the kmax={KMAX_128} fit's MST weight multiset bit for bit at "
+                  f"mpts={mpts}")
+    stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
+    stages["hierarchy"] = t2 - t1
+    record[key] = {"n": n, "d": d, "kmax": KMAX_256, "fit_s": t1 - t0, "stages_s": stages, "launches": launches,
+                   "max_memory_allocated": peak, "allocated_before": held, "graph": est.graph_.stats}
+    same = f"; MST weight multisets == the kmax={KMAX_128} fit's for mpts 2..{KMAX_128}" if est_128 else ""
+    print(f"kmax={KMAX_256} at n={n}, d={d} on the card: fit {t1 - t0:.2f} s, select_all {t2 - t1:.2f} s, launches "
+          f"{launches}, graph {est.graph_.stats}, peak {peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before it)"
+          f"{same}; stages (s) on {smi}: "
+          f"{json.dumps(stages)}", flush=True)
     return launches
+
+
+def select_kernel_times(launches_256: dict, checked: dict, smi: str, record: dict) -> list:
+    """The select instance timed beside its plain version, the library
+    yardstick (``mm`` + ``topk``) and its bound (``topk_flops_bytes``, as
+    ``pairwise_topk.work``) at the kmax = 256 fit's shape (n = 4000, d = 8,
+    K = 263) and at (16000, 8, 263), (4000, 8, 307) and (4000, 1536, 263),
+    outputs bit-equal (the last two on ``check_select_cases``'s points,
+    whose differences ``checked`` holds).  Returns its row of the
+    ``{"kernels": ...}`` line, at the fit's shape with the fit's launches."""
+    import torch
+
+    pt = kernel_module("pairwise_topk")
+    dev = torch.device(CARD)
+    rows = {}
+    for name, x, k_eff in (
+            ("pairwise_topk_select", make_points(N_WIDE, D, SEED + 30), K_SELECT_FIT),
+            ("pairwise_topk_select_n16000", make_points(N, D, SEED), K_SELECT_FIT),
+            ("pairwise_topk_select_k307", make_points(N_WIDE, D, SEED + 11), K_SELECT[1]),
+            ("pairwise_topk_select_d1536", make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1]),
+             K_SELECT_FIT)):
+        x = torch.from_numpy(x).to(dev)
+        n, d = x.shape
+        err = checked.get(f"n={n},d={d},K={k_eff}")
+        err = check_pairwise_topk(x, k_eff, k_eff - 8) if err is None else err
+        ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+        plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 1, warm=False)
+        library_ms = cuda_ms(lambda: library_topk(x, k_eff), 5)
+        b_ms, b_by = bound(*topk_flops_bytes(n, d, k_eff))
+        rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches_256["pairwise_topk_select"] if name ==
+                      "pairwise_topk_select" else None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                      "config": pt.kernel_config(n, d, k_eff)}
+        print(f"{name} on {smi}: " + json.dumps(rows[name]), flush=True)
+    record["select_kernels"] = rows
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [{"name": "pairwise_topk_select", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+             "replaces": "src/repro/kernels/pairwise_topk.py:37",
+             **{k: rows["pairwise_topk_select"][k] for k in keys}}]
 
 
 def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> list:
@@ -2218,13 +2402,7 @@ def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, r
         ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
         plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 1, warm=False)
 
-        def library_topk():
-            xn = (x * x).sum(1)
-            d2 = (xn[:, None] + xn[None, :] - 2.0 * (x @ x.T)).clamp_min_(0.0)
-            d2.fill_diagonal_(float("inf"))
-            return torch.topk(d2, k_eff, dim=1, largest=False)
-
-        library_ms = cuda_ms(library_topk, 5)
+        library_ms = cuda_ms(lambda: library_topk(x, k_eff), 5)
         b_ms, b_by = bound(*topk_flops_bytes(n, d, k_eff))
         rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches,
                       "max_abs_err": check_pairwise_topk(x, k_eff, k_eff - 8), "ms": ms, "plain_ms": plain_ms,
@@ -3560,6 +3738,7 @@ def main(argv: list[str]) -> int:
     families_only = "--families-only" in argv
     encdec_mesh_only = "--encdec-mesh-only" in argv
     sharded_only = "--sharded-only" in argv
+    wide_k_only = "--wide-k-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3629,6 +3808,24 @@ def main(argv: list[str]) -> int:
     print("kernel instances (registers a thread, spills, resident blocks per SM at n=16000 or the "
           "default tiles; generic d read at d=100, sliced at d=1536):", flush=True)
     kernel_resources(record)
+    if wide_k_only:
+        phase("3. the select instance against its plain version")
+        dev = torch.device("cuda")
+        record["select_pairwise_topk_max_abs_err"] = check_select_cases(dev)
+        phase("14. the kmax = 128 and 256 fits, the select instance's times")
+        launches_128, est_128 = kmax128_phase(smi, record)
+        launches_256 = kmax256_phase(make_points(N_WIDE, D, SEED + 30), est_128, smi, record)
+        kmax256_phase(make_points(N, D, SEED), None, smi, record, key="kmax256_fit_n16000")
+        select_rows = select_kernel_times(launches_256, record["select_pairwise_topk_max_abs_err"], smi, record)
+        x = torch.from_numpy(make_points(N, D, SEED)).to(dev)
+        x_wide = torch.from_numpy(make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1])).to(dev)
+        lists_ms = {f"n={N},d={D},K={k}": ms for k, ms in topk_times(x).items()}
+        lists_ms[f"n={N_WIDE},d={WIDE_WIDTHS[-1]},K={K_EMBED}"] = cuda_ms(lambda: pt.pairwise_topk(x_wide, K_EMBED), 5)
+        print(f"the list instances on {smi} (ms): {json.dumps(lists_ms)}", flush=True)
+        phase("end")
+        print(f"seconds by phase: {json.dumps(phase_s)}", flush=True)
+        print(json.dumps({"kernels": select_rows}), flush=True)
+        return 0
 
     phase("3. kernels against their plain versions")
     # -- 3. kernels against their plain versions -----------------------------
@@ -3649,6 +3846,7 @@ def main(argv: list[str]) -> int:
     check_prim_cases(dev)
     check_linkage_cases()
     record["wide_pairwise_topk_max_abs_err"] = check_wide_cases(dev)
+    record["select_pairwise_topk_max_abs_err"] = check_select_cases(dev)
     record["sbcn_tile_max_abs_err"] = check_sbcn_tile_cases(dev)
     if kernels_only:
         record["pairwise_topk_ms_by_k"] = topk_times(x)
@@ -3886,10 +4084,13 @@ def main(argv: list[str]) -> int:
     # -- 13. embedding curation ------------------------------------------------
     launches_emb, x_emb, sbcn_fit_calls = embedding_phase(lm_cfg, lm_params, smi, record)
 
-    phase("14. the kmax = 128 fit, and the wide kernels' times")
-    # -- 14. the kmax = 128 fit ------------------------------------------------
-    launches_128 = kmax128_phase(smi, record)
+    phase("14. the kmax = 128 and 256 fits, and the wide kernels' times")
+    # -- 14. the kmax = 128 and 256 fits -----------------------------------------
+    launches_128, est_128 = kmax128_phase(smi, record)
+    launches_256 = kmax256_phase(make_points(N_WIDE, D, SEED + 30), est_128, smi, record)
+    del est_128
     wide_rows = wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
+    select_rows = select_kernel_times(launches_256, record["select_pairwise_topk_max_abs_err"], smi, record)
 
     phase("15. LM training")
     # -- 15. LM training -------------------------------------------------------
@@ -3921,13 +4122,7 @@ def main(argv: list[str]) -> int:
     ms = by_k[k_eff]
     plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 3)
 
-    def library_topk():
-        xn = (x * x).sum(1)
-        d2 = (xn[:, None] + xn[None, :] - 2.0 * (x @ x.T)).clamp_min_(0.0)
-        d2.fill_diagonal_(float("inf"))
-        return torch.topk(d2, k_eff, dim=1, largest=False)
-
-    library_ms = cuda_ms(library_topk, 3)
+    library_ms = cuda_ms(lambda: library_topk(x, k_eff), 3)
     b_ms, b_by = bound(*topk_flops_bytes(N, D, k_eff))
     print(f"pairwise_topk at n={N}, d={D} on {smi}: {ms:.4f} ms at K={k_eff} (bound {b_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms); by K {json.dumps(by_k)}", flush=True)
@@ -3967,7 +4162,7 @@ def main(argv: list[str]) -> int:
         "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
     })
     kernels += new_kernel_times(x, est_w, est_wide, msts_dualtree, launches, smi, record)
-    kernels += wide_rows
+    kernels += wide_rows + select_rows
     kernels += sbcn_tile_rows(torch.from_numpy(x_emb).to(CARD), sbcn_fit_calls, launches_emb, smi, record)
     record["kernels"] = kernels
 

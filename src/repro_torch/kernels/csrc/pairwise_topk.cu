@@ -36,7 +36,8 @@
 // float bits above the index, whose unsigned order is the strict (d2, idx)
 // order, so the result does not depend on the order in which keys merge.
 // The list is spread over the lanes: entry p sits in lane p / S, slot p % S,
-// with S <= 8 slots, so K <= 256; a merge moves entry p - 1 to p where the
+// with S <= 8 slots, so K <= 256 (KMAX; longer lists take the select
+// instance, below); a merge moves entry p - 1 to p where the
 // new key orders before it, register moves within a lane and one shuffle-up
 // between lanes, whatever S.  Past S = 4 a warp owns one row (R = 1), so the
 // list's 64-bit slots stay in registers.  K up to 256 is one sweep over the
@@ -73,6 +74,42 @@
 // 32 row tiles of n = 4000 fill the card.  |x|^2 comes from a pre-pass
 // (norms_win32.cuh: rows staged a block at a time), once a call.
 //
+// K > 256 at every width (the select instance).  A list longer than 256
+// cannot stay in a warp's registers (the sliced instance already takes 254
+// a thread), so the instance stores the distances and selects instead of
+// merging as it streams.  Per chunk of rows (as many as 256 MiB of d2
+// rows hold, in tiles of 128; set with repro_pairwise_topk_set_select_plan):
+//   1. the distance pass writes the chunk's d2 rows (self +inf) into the
+//      workspace with the list instances' own staging and arithmetic:
+//      load_rows / stage_key / row_d2 at d <= 256 (rows in registers at
+//      d in {2, 4, 8, 16, 32}, in shared memory otherwise; the key tiles
+//      split across blocks so that a chunk fills the card), and the
+//      register-blocked product sliced_d2_tile above 256, so the bits are
+//      the K <= 256 lists' bits.  Stored, not recomputed, at every width:
+//      the select reads a row four to seven times (one pass a digit, one
+//      to gather), which at d = 1536 would mean 0.37 ms of FMA a sweep
+//      (n = 4000) against 0.019 ms to write and read the 64 MB once; at
+//      d = 8 (n = 16000) a recompute would cost fewer operations than the
+//      1.02 GB of rows cost bytes (0.31 ms a pass), but each recompute
+//      re-reads x and the norms across the block's keys and needs the
+//      row's rank state kept between kernels; storing keeps one path for
+//      every width (a recompute at small d is later work).
+//   2. the select kernel, a block a row: a radix select over the row's
+//      strict 64-bit keys (d2's bits above the index, as the lists'),
+//      digit by digit from the top (d2 as 11 + 11 + 10 bits, then the
+//      index as 11 + 10 + 11), each digit a shared-memory histogram of
+//      the keys that share the digits so far (warp-aggregated atomics),
+//      stopping where the chosen bin holds exactly the keys still wanted.
+//      It yields the largest key T with exactly K keys at most T, so exact
+//      duplicates (one bin holding every key) resolve on the index, lowest
+//      first, whatever order the atomics run in.  The keys at most T are
+//      gathered into shared memory (any order), sorted by a bitonic sort
+//      and written as (d2, idx).  Past 16384 keys (128 KiB) the row takes
+//      its ranks a sort tile at a time: the threshold of rank 16384 t, the
+//      keys between two thresholds gathered and sorted, up to K = n - 1.
+// Among strict keys the first 256 entries of a K = 257 list are the
+// K = 256 list: both are the smallest keys in the same strict order.
+//
 // Arithmetic per pair, in the reference's order: d2 = fmaxf((qn + kn) -
 // 2 dot, 0), with the norms and the dot product summed as XLA on the CPU
 // sums the reference's top-K (its Pallas kernel in interpret mode, and its
@@ -98,7 +135,7 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int KMAX = 256;                // 8 slots of 32 lanes
+constexpr int KMAX = 256;                // 8 slots of 32 lanes; longer lists take the select instance
 constexpr int MAX_D_TILED = 256;         // above this width the sliced instance runs
 constexpr int KEY_TILE = 1024;           // keys staged per tile at most
 constexpr int SMEM_DEFAULT = 48 * 1024;  // above this, dynamic smem needs an opt-in
@@ -113,6 +150,14 @@ constexpr int STAGE_FLOATS = STAGES * (BM + BN) * BKP;
 constexpr int UNION_FLOATS = TM * TN * THREADS > BM * SD2 ? TM * TN * THREADS : BM * SD2;
 constexpr size_t SLICED_SMEM = (size_t)(STAGE_FLOATS + UNION_FLOATS + BM) * sizeof(float);
 static_assert(PANEL % BK == 0, "a panel ends on a slice boundary");
+// the select instance: the bins of a digit; the keys a block sorts in
+// shared memory at once (16384: 128 KiB) and the bytes of one chunk of d2
+// rows in the workspace (256 MiB), both settable for tests
+// (repro_pairwise_topk_set_select_plan)
+constexpr int SEL_BINS = 2048;
+int sort_max = 16384;
+size_t select_budget = (size_t)256 << 20;
+static_assert(SEL_BINS % THREADS == 0 && (SEL_BINS / 2) % THREADS == 0, "a thread scans whole bins");
 // the partial lists' bytes the mirrored plan may take (64 MiB; 0 splits the
 // keys at every shape: repro_pairwise_topk_set_mirror_budget)
 size_t mirror_budget = (size_t)64 << 20;
@@ -121,6 +166,12 @@ size_t mirror_budget = (size_t)64 << 20;
 // chains at the other widths a template instance takes (d > 32 reads a
 // pre-pass's windows of 32)
 __host__ __device__ constexpr bool seq_norm(int d) { return d >= 5 && d <= 8; }
+
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
 
 template <int D>
 __host__ __device__ constexpr int vec_width() { return D % 4 == 0 ? 4 : (D % 2 == 0 ? 2 : 1); }
@@ -225,13 +276,79 @@ __device__ __forceinline__ void stage_key(const float* __restrict__ src, int r, 
   }
 }
 
+// The warp's R query rows from row0 (a row at or past n_rows is dead and
+// reads zeros): coordinates in registers where D > 0, else in the warp's
+// shared row qs (generic d, R = 1), and |q|^2 in the reference's order
+// (`norms`, the pre-pass's values, where d > 32).
+template <int D, int R>
+__device__ __forceinline__ void load_rows(const float* __restrict__ x, const float* __restrict__ norms, int n_rows,
+                                          int d, int row0, int lane, float* qs, float (&q)[R][D > 0 ? D : 1],
+                                          float (&qn)[R], int (&row)[R], bool (&live)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = row0 + r;
+    live[r] = row[r] < n_rows;
+    qn[r] = 0.f;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) q[r][j] = live[r] ? x[(size_t)row[r] * D + j] : 0.f;
+      qn[r] = norm_of<D>(q[r]);
+    }
+  }
+  if constexpr (D == 0) {
+    for (int j = lane; j < d; j += 32) qs[j] = live[0] ? x[(size_t)row[0] * d + j] : 0.f;
+    __syncwarp();
+    if (norms != nullptr) {
+      qn[0] = live[0] ? norms[row[0]] : 0.f;
+    } else if (seq_norm(d)) {
+      qn[0] = __fmul_rn(qs[0], qs[0]);
+      for (int j = 1; j < d; ++j) qn[0] = __fadd_rn(qn[0], __fmul_rn(qs[j], qs[j]));
+    } else {
+      for (int j = 0; j < d; ++j) qn[0] = fmaf(qs[j], qs[j], qn[0]);
+    }
+  }
+}
+
+// d2 of key kr of the staged tile (sk, skn: stage_key's layout, kt keys)
+// against the warp's R rows: an fmaf chain in index order a row (d <= 256
+// is one panel), then max((|q|^2 + |k|^2) - 2 q.k, 0).
+template <int D, int R>
+__device__ __forceinline__ void row_d2(const float (&q)[R][D > 0 ? D : 1], const float (&qn)[R], const float* qs,
+                                       const float* sk, const float* skn, int kt, int kr, int d, float (&d2)[R]) {
+  constexpr int V = vec_width<D>();
+  float kc[D > 0 ? D : 1];
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int c = 0; c < D / V; ++c) {
+      if constexpr (V == 4) {
+        const float4 t = reinterpret_cast<const float4*>(sk)[c * kt + kr];
+        kc[4 * c] = t.x, kc[4 * c + 1] = t.y, kc[4 * c + 2] = t.z, kc[4 * c + 3] = t.w;
+      } else {
+        const float2 t = reinterpret_cast<const float2*>(sk)[c * kt + kr];
+        kc[2 * c] = t.x, kc[2 * c + 1] = t.y;
+      }
+    }
+  }
+  const float kn = skn[kr];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float dot = 0.f;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) dot = fmaf(q[r][j], kc[j], dot);
+    } else {
+      for (int j = 0; j < d; ++j) dot = fmaf(qs[j], sk[j * kt + kr], dot);
+    }
+    d2[r] = fmaxf(qn[r] + kn - 2.f * dot, 0.f);
+  }
+}
+
 // d <= 256.  `norms` holds |x|^2 from the pre-pass where d > 32, else null.
 template <int D, int S>
 __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
     const float* __restrict__ x, const float* __restrict__ norms, int n, int d_rt, int k, int kt,
     float* __restrict__ out_d, int* __restrict__ out_i) {
   constexpr int R = rows_per_warp<D, S>();
-  constexpr int V = vec_width<D>();
   constexpr int DR = D > 0 ? D : 1;  // register extent of a row
   const int d = D > 0 ? D : d_rt;
   extern __shared__ __align__(16) float smem[];
@@ -246,30 +363,7 @@ __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
   float qn[R];
   int row[R];
   bool live[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    row[r] = row0 + r;
-    live[r] = row[r] < n;
-    qn[r] = 0.f;
-    if constexpr (D > 0) {
-#pragma unroll
-      for (int j = 0; j < D; ++j) q[r][j] = live[r] ? x[(size_t)row[r] * D + j] : 0.f;
-      qn[r] = norm_of<D>(q[r]);
-    }
-  }
-  if constexpr (D == 0) {
-    float* qs = sq + warp * d;
-    for (int j = lane; j < d; j += 32) qs[j] = live[0] ? x[(size_t)row[0] * d + j] : 0.f;
-    __syncwarp();
-    if (norms != nullptr) {
-      qn[0] = live[0] ? norms[row[0]] : 0.f;
-    } else if (seq_norm(d)) {
-      qn[0] = __fmul_rn(qs[0], qs[0]);
-      for (int j = 1; j < d; ++j) qn[0] = __fadd_rn(qn[0], __fmul_rn(qs[j], qs[j]));
-    } else {
-      for (int j = 0; j < d; ++j) qn[0] = fmaf(qs[j], qs[j], qn[0]);
-    }
-  }
+  load_rows<D, R>(x, norms, n, d, row0, lane, sq + warp * d, q, qn, row, live);
 
   // the rows' lists, and the d2 of each row's K-th entry (FLT_MAX while
   // the list has room: a key with d2 = +inf never enters)
@@ -296,38 +390,16 @@ __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
       constexpr bool MASKED = decltype(masked)::value;
       const int kr = b + lane;  // < kt: kt is a multiple of 32
       const int c0 = k0 + b;
-      float kc[DR];
-      if constexpr (D > 0) {
-#pragma unroll
-        for (int c = 0; c < D / V; ++c) {
-          if constexpr (V == 4) {
-            const float4 t = reinterpret_cast<const float4*>(sk)[c * kt + kr];
-            kc[4 * c] = t.x, kc[4 * c + 1] = t.y, kc[4 * c + 2] = t.z, kc[4 * c + 3] = t.w;
-          } else {
-            const float2 t = reinterpret_cast<const float2*>(sk)[c * kt + kr];
-            kc[2 * c] = t.x, kc[2 * c + 1] = t.y;
-          }
-        }
-      }
-      const float kn = skn[kr];
       // the R rows' distances first (independent FMA chains), then their
       // candidates: keys whose d2 is at most the row's K-th d2.  A tie on
       // d2 that loses on the index is merged too and only moves entries
       // past K.
       float d2[R];
+      row_d2<D, R>(q, qn, sq + warp * d, sk, skn, kt, kr, d, d2);
       bool cand[R];
       bool any = false;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float dot = 0.f;
-        if constexpr (D > 0) {
-#pragma unroll
-          for (int j = 0; j < D; ++j) dot = fmaf(q[r][j], kc[j], dot);
-        } else {
-          const float* qs = sq + warp * d;
-          for (int j = 0; j < d; ++j) dot = fmaf(qs[j], sk[j * kt + kr], dot);
-        }
-        d2[r] = fmaxf(qn[r] + kn - 2.f * dot, 0.f);
         cand[r] = d2[r] <= wd[r];
         if constexpr (MASKED) cand[r] = cand[r] && live[r] && kr < rows && c0 + lane != row[r];
         any |= cand[r];
@@ -373,42 +445,24 @@ __global__ void __launch_bounds__(THREADS, 2) pairwise_topk_kernel(
   }
 }
 
-// The sliced instance (d > 256; see the note at the top).  Each row keeps
-// `slots` partial lists of `kp` entries, sorted, at lists[(row * slots +
-// slot) * kp ...]; the merge kernel below finishes.  With the keys split,
-// block (bx, by) takes rows [BM bx, BM bx + BM) against key tiles [tps by,
-// tps by + tps), into slot by.  Mirrored (d2 is symmetric bit for bit:
-// fmaf's product, the norms' sum and the panels' sums all commute), block
-// b takes the b-th tile (R, T), R <= T, of the upper triangle and merges
-// its rows' survivors into slot T of rows R and its columns' into slot R
-// of rows T.
-template <int S>
-__global__ void __launch_bounds__(THREADS, 1) pairwise_topk_sliced_kernel(
-    const float* __restrict__ x, const float* __restrict__ norms, int n, int d, int k, int tps,
-    bool mirror, int slots, int kp, unsigned long long* __restrict__ lists) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;                   // STAGES x (BM query rows, BN key rows) x BKP: the slices
-  float* uni = stage + STAGE_FLOATS;     // the panel totals (TM TN, THREADS), then the d2 tile (BM, SD2)
-  float* thr = uni + UNION_FLOATS;       // (BM,): the d2 of each row's K-th entry
+// The sliced instance's d2 tile: rows [m0, m0 + BM) against keys [k0,
+// k0 + BN) into uni (BM, SD2), self pairs and rows or keys past n +inf (an
+// entry that never enters a list).  A register-blocked product: d streams
+// through `stage` in slices of BK floats (two buffers of cp.async copies),
+// each thread keeps TM x TN fmaf chains, one a panel of PANEL floats, and
+// the panel sums are added in order through uni.  Ends at the block's
+// barrier, the tile written.
+__device__ __forceinline__ void sliced_d2_tile(const float* __restrict__ x, const float* __restrict__ norms, int n,
+                                               int d, int m0, int k0, float* stage, float* uni) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ty = lane >> 3, tx = lane & 7, wm = warp >> 1, wn = warp & 1;
-  const int key_tiles = (n + BN - 1) / BN;
-  int rt = blockIdx.x, t_begin = blockIdx.y * tps, t_end = min(key_tiles, t_begin + tps);
-  if (mirror) {
-    int rem = blockIdx.x;
-    for (rt = 0; rem >= key_tiles - rt; ++rt) rem -= key_tiles - rt;
-    t_begin = rt + rem, t_end = t_begin + 1;
-  }
-  const int m0 = rt * BM;
   const int n_slices = (d + BK - 1) / BK;
   const bool vec = (d & 3) == 0;  // rows start on 16 bytes: 16-byte copies
-  const int klane = (k - 1) / S, kslot = (k - 1) % S;
-  for (int r = tid; r < BM; r += THREADS) thr[r] = FLT_MAX;
 
   // stage the slice [s0, s0 + BK) of the block's rows and of keys k0.. into
   // buffer b; past the last slice only an empty group, so that every
   // iteration waits for the same count
-  auto issue = [&](int b, int k0, int s0) {
+  auto issue = [&](int b, int s0) {
     float* dst = stage + b * (BM + BN) * BKP;
     if (s0 < d && vec) {
       for (int c = tid; c < (BM + BN) * (BK / 4); c += THREADS) {
@@ -427,6 +481,125 @@ __global__ void __launch_bounds__(THREADS, 1) pairwise_topk_sliced_kernel(
     }
     cp_async_commit();
   };
+
+  // acc[i][j]: row wm 32 + ty + 4 i against key wn 64 + tx + 8 j
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = -0.f;  // fmaf(a, b, -0) is a b rounded: the first product
+  bool folded = false;
+#pragma unroll
+  for (int b = 0; b < STAGES - 1; ++b) issue(b, b * BK);
+  for (int s = 0; s < n_slices; ++s) {
+    issue((s + STAGES - 1) % STAGES, (s + STAGES - 1) * BK);
+    cp_async_wait<STAGES - 1>();  // slice s has landed
+    __syncthreads();
+    const float* sq = stage + s % STAGES * (BM + BN) * BKP + (wm * 32 + ty) * BKP;
+    const float* sk = stage + s % STAGES * (BM + BN) * BKP + (BM + wn * 64 + tx) * BKP;
+    const int ds = min(BK, d - s * BK);
+    if (ds == BK) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 2) {
+        float2 a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float2*>(sq + 4 * i * BKP + kk);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = *reinterpret_cast<const float2*>(sk + 8 * j * BKP + kk);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+      }
+    } else {  // the last slice of a ragged d: only the floats below d
+      for (int kk = 0; kk < ds; ++kk) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = sq[4 * i * BKP + kk];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = sk[8 * j * BKP + kk];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    // a panel ends here: add its chains to the totals, in order, and
+    // start the next panel's chains from their first products
+    const int done = (s + 1) * BK;
+    if (done % PANEL == 0 && done < d) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          float& tot = uni[(i * TN + j) * THREADS + tid];
+          tot = folded ? __fadd_rn(tot, acc[i][j]) : acc[i][j];
+          acc[i][j] = -0.f;
+        }
+      folded = true;
+    }
+    __syncthreads();  // buffer s % STAGES is free for slice s + STAGES
+  }
+  if (folded) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = __fadd_rn(uni[(i * TN + j) * THREADS + tid], acc[i][j]);
+    __syncthreads();  // every total is read before the d2 tile overwrites them
+  }
+  // the d2 tile
+  float kn[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int g = k0 + wn * 64 + tx + 8 * j;
+    kn[j] = g < n ? norms[g] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = wm * 32 + ty + 4 * i, g = m0 + r;
+    const float qn = g < n ? norms[g] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = wn * 64 + tx + 8 * j;
+      const float v = fmaxf(__fsub_rn(__fadd_rn(qn, kn[j]), 2.f * acc[i][j]), 0.f);
+      uni[r * SD2 + c] = g < n && k0 + c < n && k0 + c != g ? v : CUDART_INF_F;
+    }
+  }
+  __syncthreads();
+}
+
+// The sliced instance (d > 256; see the note at the top).  Each row keeps
+// `slots` partial lists of `kp` entries, sorted, at lists[(row * slots +
+// slot) * kp ...]; the merge kernel below finishes.  With the keys split,
+// block (bx, by) takes rows [BM bx, BM bx + BM) against key tiles [tps by,
+// tps by + tps), into slot by.  Mirrored (d2 is symmetric bit for bit:
+// fmaf's product, the norms' sum and the panels' sums all commute), block
+// b takes the b-th tile (R, T), R <= T, of the upper triangle and merges
+// its rows' survivors into slot T of rows R and its columns' into slot R
+// of rows T.
+template <int S>
+__global__ void __launch_bounds__(THREADS, 1) pairwise_topk_sliced_kernel(
+    const float* __restrict__ x, const float* __restrict__ norms, int n, int d, int k, int tps,
+    bool mirror, int slots, int kp, unsigned long long* __restrict__ lists) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                   // STAGES x (BM query rows, BN key rows) x BKP: the slices
+  float* uni = stage + STAGE_FLOATS;     // the panel totals (TM TN, THREADS), then the d2 tile (BM, SD2)
+  float* thr = uni + UNION_FLOATS;       // (BM,): the d2 of each row's K-th entry
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int key_tiles = (n + BN - 1) / BN;
+  int rt = blockIdx.x, t_begin = blockIdx.y * tps, t_end = min(key_tiles, t_begin + tps);
+  if (mirror) {
+    int rem = blockIdx.x;
+    for (rt = 0; rem >= key_tiles - rt; ++rt) rem -= key_tiles - rt;
+    t_begin = rt + rem, t_end = t_begin + 1;
+  }
+  const int m0 = rt * BM;
+  const int klane = (k - 1) / S, kslot = (k - 1) % S;
+  for (int r = tid; r < BM; r += THREADS) thr[r] = FLT_MAX;
 
   // merge the survivors of line g (a row of the d2 tile, or in the mirror a
   // column), whose key key0 + 32 i + lane has d2 v[i], into its partial
@@ -473,94 +646,7 @@ __global__ void __launch_bounds__(THREADS, 1) pairwise_topk_sliced_kernel(
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BN;
-    // acc[i][j]: row wm 32 + ty + 4 i against key wn 64 + tx + 8 j
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = -0.f;  // fmaf(a, b, -0) is a b rounded: the first product
-    bool folded = false;
-#pragma unroll
-    for (int b = 0; b < STAGES - 1; ++b) issue(b, k0, b * BK);
-    for (int s = 0; s < n_slices; ++s) {
-      issue((s + STAGES - 1) % STAGES, k0, (s + STAGES - 1) * BK);
-      cp_async_wait<STAGES - 1>();  // slice s has landed
-      __syncthreads();
-      const float* sq = stage + s % STAGES * (BM + BN) * BKP + (wm * 32 + ty) * BKP;
-      const float* sk = stage + s % STAGES * (BM + BN) * BKP + (BM + wn * 64 + tx) * BKP;
-      const int ds = min(BK, d - s * BK);
-      if (ds == BK) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 2) {
-          float2 a[TM], b[TN];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float2*>(sq + 4 * i * BKP + kk);
-#pragma unroll
-          for (int j = 0; j < TN; ++j) b[j] = *reinterpret_cast<const float2*>(sk + 8 * j * BKP + kk);
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        }
-      } else {  // the last slice of a ragged d: only the floats below d
-        for (int kk = 0; kk < ds; ++kk) {
-          float a[TM], b[TN];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) a[i] = sq[4 * i * BKP + kk];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) b[j] = sk[8 * j * BKP + kk];
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-      // a panel ends here: add its chains to the totals, in order, and
-      // start the next panel's chains from their first products
-      const int done = (s + 1) * BK;
-      if (done % PANEL == 0 && done < d) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            float& tot = uni[(i * TN + j) * THREADS + tid];
-            tot = folded ? __fadd_rn(tot, acc[i][j]) : acc[i][j];
-            acc[i][j] = -0.f;
-          }
-        folded = true;
-      }
-      __syncthreads();  // buffer s % STAGES is free for slice s + STAGES
-    }
-    if (folded) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fadd_rn(uni[(i * TN + j) * THREADS + tid], acc[i][j]);
-      __syncthreads();  // every total is read before the d2 tile overwrites them
-    }
-    // the d2 tile; self pairs and keys past n are +inf, which never enters
-    float kn[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int g = k0 + wn * 64 + tx + 8 * j;
-      kn[j] = g < n ? norms[g] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = wm * 32 + ty + 4 * i, g = m0 + r;
-      const float qn = g < n ? norms[g] : 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = wn * 64 + tx + 8 * j;
-        const float v = fmaxf(__fsub_rn(__fadd_rn(qn, kn[j]), 2.f * acc[i][j]), 0.f);
-        uni[r * SD2 + c] = g < n && k0 + c < n && k0 + c != g ? v : CUDART_INF_F;
-      }
-    }
-    __syncthreads();
+    sliced_d2_tile(x, norms, n, d, m0, k0, stage, uni);
     // warp w merges the survivors of its BM / WARPS rows; the first tile
     // of a list starts it (and writes it even without a survivor)
     const bool first = t == t_begin;
@@ -626,6 +712,194 @@ __global__ void __launch_bounds__(THREADS) pairwise_topk_merge_kernel(
   }
 }
 
+// The select instance (K > KMAX; see the note at the top).  Its distance
+// pass at d <= 256: d2 of rows [r0, r1) against the key tiles [tps by,
+// tps by + tps) into the chunk's rows d2_out (r1 - r0, n), self +inf: the
+// K <= KMAX instances' rows (load_rows), key tiles (stage_key) and
+// arithmetic (row_d2), without their lists.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2) pairwise_d2_kernel(
+    const float* __restrict__ x, const float* __restrict__ norms, int n, int d_rt, int kt, int tps, int r0, int r1,
+    float* __restrict__ d2_out) {
+  constexpr int R = rows_per_warp<D, 1>();
+  constexpr int DR = D > 0 ? D : 1;
+  const int d = D > 0 ? D : d_rt;
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;           // (d / V, kt, V): key tile
+  float* skn = sk + kt * d;   // (kt,): key norms
+  float* sq = skn + kt;       // (WARPS, d): the warp's query row (generic d only)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  float q[R][DR];
+  float qn[R];
+  int row[R];
+  bool live[R];
+  load_rows<D, R>(x, norms, r1, d, r0 + (blockIdx.x * WARPS + warp) * R, lane, sq + warp * d, q, qn, row, live);
+  const int split = blockIdx.y, k_end = min(n, (split + 1) * tps * kt);
+  for (int k0 = split * tps * kt; k0 < k_end; k0 += kt) {
+    const int rows = min(kt, k_end - k0);
+    __syncthreads();  // the previous key tile is consumed
+    for (int r = tid; r < rows; r += THREADS)
+      stage_key<D>(x + (size_t)(k0 + r) * d, r, kt, d, norms != nullptr ? norms + k0 + r : nullptr, sk, skn);
+    __syncthreads();
+    for (int b = 0; b < rows; b += 32) {
+      const int kr = b + lane, col = k0 + kr;
+      float d2[R];
+      row_d2<D, R>(q, qn, sq + warp * d, sk, skn, kt, kr, d, d2);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (live[r] && kr < rows) d2_out[(size_t)(row[r] - r0) * n + col] = col == row[r] ? CUDART_INF_F : d2[r];
+    }
+  }
+}
+
+// The select instance's distance pass above d = 256: block (bx, by) writes
+// the d2 tile of rows r0 + BM bx.. (those below r1) against keys BN by..,
+// the sliced instance's product (sliced_d2_tile), into the chunk's rows.
+__global__ void __launch_bounds__(THREADS, 1) pairwise_d2_sliced_kernel(
+    const float* __restrict__ x, const float* __restrict__ norms, int n, int d, int r0, int r1,
+    float* __restrict__ d2_out) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                // STAGES x (BM query rows, BN key rows) x BKP: the slices
+  float* uni = stage + STAGE_FLOATS;  // the panel totals, then the d2 tile (BM, SD2)
+  const int m0 = r0 + blockIdx.x * BM, k0 = blockIdx.y * BN;
+  sliced_d2_tile(x, norms, n, d, m0, k0, stage, uni);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < BM && m0 + r < r1; r += WARPS)
+    for (int c = lane; c < BN && k0 + c < n; c += 32) d2_out[(size_t)(m0 + r - r0) * n + k0 + c] = uni[r * SD2 + c];
+}
+
+struct SelectState {
+  unsigned bin, below, count;
+};
+
+// The digits of a 64-bit key (d2's bits above the index), from the top:
+// d2's 32 bits as 11 + 11 + 10, the index's as 11 + 10 + 11.
+__device__ __forceinline__ void key_digit(int p, int& shift, int& bits) {
+  shift = p == 0 ? 53 : p == 1 ? 42 : p == 2 ? 32 : p == 3 ? 21 : p == 4 ? 11 : 0;
+  bits = p == 2 || p == 4 ? 10 : 11;
+}
+
+// Bin b of the block's histogram (nb bins) with cum(< b) < rem <= cum(<= b),
+// into st->bin, and cum(< b) into st->below: a block scan over the bins.
+__device__ __forceinline__ void find_bin(const unsigned* hist, int nb, unsigned rem, unsigned* warp_sums,
+                                         SelectState* st) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = nb / THREADS, b0 = tid * per;
+  unsigned s = 0;
+  for (int q = 0; q < per; ++q) s += hist[b0 + q];
+  unsigned inc = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  unsigned below = inc - s;
+  for (int w = 0; w < warp; ++w) below += warp_sums[w];
+  if (below < rem && rem <= below + s) {  // one thread's bins hold the crossing
+    for (int q = 0; q < per; ++q) {
+      const unsigned h = hist[b0 + q];
+      if (below + h >= rem) {
+        st->bin = b0 + q, st->below = below;
+        break;
+      }
+      below += h;
+    }
+  }
+  __syncthreads();
+}
+
+// The largest key T such that exactly `rank` of row `self`'s keys (self
+// excluded) are at most T: a radix select, a digit a pass from the top,
+// each pass a shared-memory histogram (warp-aggregated atomics) of the keys
+// that share the digits chosen so far.  Where the chosen bin holds exactly
+// the keys still wanted, T is the bin's largest possible key and the passes
+// stop; the last digit's bins hold one key each.  Keys are unique (the
+// index is in them), so the set does not depend on the order of the
+// atomics: among keys with equal d2 the lower indices come first.
+__device__ unsigned long long select_rank(const unsigned* __restrict__ u, int n, int self, unsigned rank,
+                                          unsigned* hist, unsigned* warp_sums, SelectState* st) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long prefix = 0, mask = 0;
+  unsigned rem = rank;
+  for (int p = 0; p < 6; ++p) {
+    int shift, bits;
+    key_digit(p, shift, bits);
+    const int nb = 1 << bits;
+    for (int b = threadIdx.x; b < nb; b += THREADS) hist[b] = 0;
+    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += THREADS) {  // whole warps, for __match_any_sync
+      const int j = j0 + threadIdx.x;
+      const unsigned long long key = j < n ? (unsigned long long)u[j] << 32 | (unsigned)j : 0;
+      const bool in = j < n && j != self && (key & mask) == prefix;
+      const unsigned bin = in ? (unsigned)(key >> shift) & (nb - 1) : ~0u;
+      const unsigned peers = __match_any_sync(FULL, bin);
+      if (in && __ffs(peers) - 1 == lane) atomicAdd(&hist[bin], (unsigned)__popc(peers));
+    }
+    __syncthreads();
+    find_bin(hist, nb, rem, warp_sums, st);
+    const unsigned b = st->bin, count = hist[b];
+    rem -= st->below;
+    prefix |= (unsigned long long)b << shift;
+    mask |= (unsigned long long)(nb - 1) << shift;
+    __syncthreads();  // every thread has read the bin before the next pass clears it
+    if (count == rem) return prefix | ~mask;
+  }
+  return prefix;
+}
+
+// The select instance's second pass: block b takes row self = r0 + b of
+// the chunk (d2, (rows, n)) and writes its k smallest keys in ascending
+// order, sort_tile (a power of two) at a time: the threshold of the ranks
+// so far (select_rank), the keys between the last threshold and this one
+// gathered into shared memory (any order), a bitonic sort there, written
+// out as (d2, index).
+__global__ void __launch_bounds__(THREADS) pairwise_topk_select_kernel(
+    const float* __restrict__ d2, int n, int r0, int k, int sort_tile, float* __restrict__ out_d,
+    int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned long long keys[];  // (sort_tile,)
+  __shared__ unsigned hist[SEL_BINS];
+  __shared__ unsigned warp_sums[WARPS];
+  __shared__ SelectState st;
+  const int tid = threadIdx.x, self = r0 + blockIdx.x;
+  const unsigned* u = reinterpret_cast<const unsigned*>(d2 + (size_t)blockIdx.x * n);
+  unsigned long long lo = 0;
+  for (int c0 = 0; c0 < k; c0 += sort_tile) {
+    const int m = min(k - c0, sort_tile);
+    const unsigned long long hi = select_rank(u, n, self, (unsigned)(c0 + m), hist, warp_sums, &st);
+    if (tid == 0) st.count = 0;
+    __syncthreads();
+    for (int j = tid; j < n; j += THREADS) {
+      const unsigned long long key = (unsigned long long)u[j] << 32 | (unsigned)j;
+      if (j != self && key <= hi && (c0 == 0 || key > lo)) {
+        const unsigned at = atomicAdd(&st.count, 1u);
+        if (at < (unsigned)m) keys[at] = key;
+      }
+    }
+    const int len = pow2_at_least(m);
+    for (int p = m + tid; p < len; p += THREADS) keys[p] = ~0ull;
+    __syncthreads();
+    for (int size = 2; size <= len; size <<= 1)
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int t = tid; t < len / 2; t += THREADS) {
+          const int a = 2 * t - (t & (stride - 1)), b = a + stride;
+          const unsigned long long ka = keys[a], kb = keys[b];
+          if ((ka > kb) == ((a & size) == 0)) keys[a] = kb, keys[b] = ka;
+        }
+        __syncthreads();
+      }
+    for (int p = tid; p < m; p += THREADS) {
+      const unsigned long long v = keys[p];
+      out_d[(size_t)self * k + c0 + p] = __uint_as_float((unsigned)(v >> 32));
+      out_i[(size_t)self * k + c0 + p] = (int)(unsigned)v;
+    }
+    lo = hi;
+    __syncthreads();  // the keys are written out before the next tile gathers
+  }
+}
+
 // The key split of the sliced instance: key tiles a block (tps) and
 // splits, so that the blocks fill the card's resident slots in as few
 // waves, and as few tiles a block, as the shape allows.
@@ -688,6 +962,17 @@ int launch_sliced(const float* x, int n, int d, int k, float* out_d, int* out_i,
   return (int)cudaGetLastError();
 }
 
+// The key tile of the d <= 256 instances (keys staged at once, a multiple
+// of 32) and their dynamic shared memory: the tile, its norms and, at a
+// generic d, each warp's query row, within SMEM_BUDGET.
+template <int D>
+void tile_plan(int d, int* kt, size_t* smem) {
+  const int q_floats = D > 0 ? 0 : WARPS * d;
+  const int fit = (SMEM_BUDGET / (int)sizeof(float) - q_floats) / (d + 1);
+  *kt = (fit < KEY_TILE ? fit : KEY_TILE) / 32 * 32;
+  *smem = (size_t)(*kt * d + *kt + q_floats) * sizeof(float);
+}
+
 // Launches the <D, S> instance, or with `occ` set only reports its blocks per
 // SM, threads per block, dynamic shared memory and key tile into occ[0..3],
 // or with `work_bytes` set only the workspace it needs.
@@ -699,11 +984,10 @@ int launch(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaSt
     *work_bytes = pre ? (size_t)n * sizeof(float) : 0;
     return 0;
   }
-  const int q_floats = D > 0 ? 0 : WARPS * d;
-  int kt = (SMEM_BUDGET / (int)sizeof(float) - q_floats) / (d + 1);
-  kt = (kt < KEY_TILE ? kt : KEY_TILE) / 32 * 32;
+  int kt;
+  size_t smem;
+  tile_plan<D>(d, &kt, &smem);
   if (kt < 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kt * d + kt + q_floats) * sizeof(float);
   if (smem > (size_t)SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
         pairwise_topk_kernel<D, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -742,11 +1026,103 @@ int launch_d(const float* x, int n, int d, int k, float* out_d, int* out_i, cuda
 #undef REPRO_TOPK_S
 }
 
+// The select instance's distance pass for rows [r0, r1) at width D (D < 0:
+// above 256), into d2.
+template <int D>
+int launch_d2(const float* x, const float* norms, int n, int d, int r0, int r1, float* d2, int sms,
+              cudaStream_t stream) {
+  cudaError_t e;
+  if constexpr (D < 0) {
+    e = cudaFuncSetAttribute(pairwise_d2_sliced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SLICED_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((r1 - r0 + BM - 1) / BM, (n + BN - 1) / BN);
+    pairwise_d2_sliced_kernel<<<grid, THREADS, SLICED_SMEM, stream>>>(x, norms, n, d, r0, r1, d2);
+  } else {
+    int kt;
+    size_t smem;
+    tile_plan<D>(d, &kt, &smem);
+    if (kt < 32) return (int)cudaErrorInvalidValue;
+    if (smem > (size_t)SMEM_DEFAULT) {
+      e = cudaFuncSetAttribute(pairwise_d2_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    constexpr int R = rows_per_warp<D, 1>();
+    const int blocks = (r1 - r0 + WARPS * R - 1) / (WARPS * R), key_tiles = (n + kt - 1) / kt;
+    // the keys split so that the grid fills two waves of two blocks an SM
+    int splits = (4 * sms + blocks - 1) / blocks;
+    splits = splits < 1 ? 1 : (splits > key_tiles ? key_tiles : splits);
+    const int tps = (key_tiles + splits - 1) / splits;
+    pairwise_d2_kernel<D><<<dim3(blocks, (key_tiles + tps - 1) / tps), THREADS, smem, stream>>>(
+        x, norms, n, d, kt, tps, r0, r1, d2);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Rows of d2 a chunk of the select instance holds: select_budget bytes in
+// whole tiles of BM rows, at least one tile, at most n rows.
+size_t select_rows(int n) {
+  size_t rows = select_budget / ((size_t)n * sizeof(float)) / BM * BM;
+  rows = rows < (size_t)BM ? (size_t)BM : rows;
+  return rows < (size_t)n ? rows : (size_t)n;
+}
+
+// The select instance (K > KMAX), with launch()'s occ / work_bytes contract;
+// occ reports the selecting kernel, whose key tile is its sort tile.
+// Workspace: |x|^2 (n floats) where d > 32, and one chunk of d2 rows.
+int launch_select(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream, int* occ,
+                  void* work, size_t* work_bytes) {
+  const int sort_tile = pow2_at_least(k < sort_max ? k : sort_max);
+  const size_t sel_smem = (size_t)sort_tile * sizeof(unsigned long long);
+  cudaError_t e;
+  if (sel_smem > (size_t)SMEM_DEFAULT) {
+    e = cudaFuncSetAttribute(pairwise_topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sel_smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (occ != nullptr) {
+    occ[1] = THREADS, occ[2] = (int)sel_smem, occ[3] = sort_tile;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, pairwise_topk_select_kernel, THREADS, sel_smem);
+  }
+  const bool pre = d > 32;  // |x|^2 in windows of 32 from the pre-pass
+  const size_t rows = select_rows(n), norm_bytes = pre ? align256((size_t)n * sizeof(float)) : 0;
+  if (work_bytes != nullptr) {
+    *work_bytes = norm_bytes + rows * n * sizeof(float);
+    return 0;
+  }
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  float* norms = pre ? static_cast<float*>(work) : nullptr;
+  float* d2 = reinterpret_cast<float*>(static_cast<char*>(work) + norm_bytes);
+  if (pre) {
+    const int s = launch_norms(x, n, d, norms, stream);
+    if (s != 0) return s;
+  }
+  for (int r0 = 0; r0 < n; r0 += (int)rows) {
+    const int r1 = r0 + (int)rows < n ? r0 + (int)rows : n;
+    int s;
+    switch (d > MAX_D_TILED ? -1 : d) {
+      case -1: s = launch_d2<-1>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      case 2: s = launch_d2<2>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      case 4: s = launch_d2<4>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      case 8: s = launch_d2<8>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      case 16: s = launch_d2<16>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      case 32: s = launch_d2<32>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+      default: s = launch_d2<0>(x, norms, n, d, r0, r1, d2, sms, stream); break;
+    }
+    if (s != 0) return s;
+    pairwise_topk_select_kernel<<<r1 - r0, THREADS, sel_smem, stream>>>(d2, n, r0, k, sort_tile, out_d, out_i);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 int dispatch(const float* x, int n, int d, int k, float* out_d, int* out_i, void* stream,
              int* occ, void* work, size_t* work_bytes) {
-  if (n < 2 || d < 1 || k < 1 || k > KMAX || k > n - 1 || reinterpret_cast<size_t>(x) % 16 != 0)
+  if (n < 2 || d < 1 || k < 1 || k > n - 1 || reinterpret_cast<size_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (k > KMAX) return launch_select(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
   if (d > MAX_D_TILED) return launch_d<-1>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
   switch (d) {
     case 2: return launch_d<2>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
@@ -794,4 +1170,16 @@ extern "C" size_t repro_pairwise_topk_set_mirror_budget(size_t bytes) {
   const size_t before = mirror_budget;
   mirror_budget = bytes;
   return before;
+}
+
+// Sets the select instance's sort tile (keys sorted in shared memory at once,
+// rounded up to a power of two) and its d2 chunk's bytes (whole tiles of 128
+// rows, at least one), where a value is above 0, and returns the settings
+// before through the pointers: small values run its loops over several
+// tiles and chunks at a small n.
+extern "C" void repro_pairwise_topk_set_select_plan(int sort_tile, size_t chunk_bytes, int* sort_before,
+                                                    size_t* chunk_before) {
+  *sort_before = sort_max, *chunk_before = select_budget;
+  if (sort_tile > 0) sort_max = sort_tile;
+  if (chunk_bytes > 0) select_budget = chunk_bytes;
 }

@@ -30,7 +30,8 @@ import torch
 
 from . import _build
 
-KMAX = 256  # the kernel's top-k list: up to 8 register slots in each of a warp's 32 lanes
+KMAX = 256  # the list instances' longest: 8 register slots in each of a warp's 32 lanes
+MAX_D_TILED = 256  # above this width the sliced instances run
 # Depth of one FMA chain in the reference's dot products.  XLA on the CPU
 # hands the reference's float32 dot_general to YNNPACK (turning its fusion
 # off with --xla_cpu_experimental_ynn_fusion_type= changes the bits), whose
@@ -92,13 +93,20 @@ def pairwise_topk_plain(
     return out_d, out_i
 
 
+def instance(d: int, k_top: int) -> str:
+    """The kernel instance a launch at width ``d`` and K = ``k_top`` takes,
+    as ``csrc/pairwise_topk.cu``'s ``dispatch`` routes it: ``"select"``
+    past ``KMAX`` at every width (the distances of a chunk of rows into the
+    workspace, then a radix select and a sort a row), else the list
+    instances, ``"sliced"`` above ``MAX_D_TILED`` and ``"tiled"`` at or
+    below it."""
+    if k_top > KMAX:
+        return "select"
+    return "sliced" if d > MAX_D_TILED else "tiled"
+
+
 def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     n, d = x.shape
-    if k_top > KMAX:
-        raise ValueError(
-            f"the pairwise_topk kernel keeps at most {KMAX} neighbours (kmax - 1 plus "
-            f"the refine slack of 8, so kmax <= {KMAX - 7} on the card); got k_top={k_top}"
-        )
     xf = x.float().contiguous()
     if xf.data_ptr() % 16:  # the kernel reads rows as float4
         xf = xf.clone()
@@ -111,7 +119,8 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     lib.repro_pairwise_topk_workspace.argtypes = [i, i, i, p]
     lib.repro_pairwise_topk_workspace.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        # the pre-pass's norms (d > 32) and the sliced instance's partial lists
+        # the pre-pass's norms (d > 32), the sliced instance's partial lists
+        # and the select instance's chunk of distance rows
         nbytes = ctypes.c_size_t()
         _build.check(lib.repro_pairwise_topk_workspace(n, d, k_top, ctypes.addressof(nbytes)),
                      "pairwise_topk workspace")
@@ -121,6 +130,8 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
                                          None if work is None else work.data_ptr(), stream)
     _build.check(status, "pairwise_topk")
     pairwise_topk.launches += 1
+    if instance(d, k_top) == "select":
+        pairwise_topk.select_launches += 1
     return out_d, out_i
 
 
@@ -129,7 +140,10 @@ def kernel_config(n: int, d: int, k_top: int) -> dict:
     card, without launching: resident blocks per SM, threads per block,
     dynamic shared memory bytes and keys per shared-memory tile (above
     d = 256 those of the sliced instance's main kernel; its pre-pass and
-    merge pass are part of the one launch)."""
+    merge pass are part of the one launch).  Past K = ``KMAX`` those of
+    the select instance's selecting kernel, whose tile is the keys it
+    sorts in shared memory at once (its distance pass takes the list
+    instances' tiles)."""
     occ = (ctypes.c_int * 4)()
     fn = _build.load("pairwise_topk").repro_pairwise_topk_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -147,8 +161,9 @@ def pairwise_topk(
     ascending order (self excluded) and int32 row indices.  ``x`` is
     (n, d) float32, bfloat16 or float16 (upcast to float32).  CUDA tensors
     run the kernel (``block_q``/``block_k`` tile only the plain version;
-    ``launches`` counts calls, whatever passes a call makes on the card);
-    CPU tensors run the plain version.
+    ``launches`` counts calls, whatever passes a call makes on the card,
+    and ``select_launches`` those of them that take the select instance,
+    K > ``KMAX``); CPU tensors run the plain version.
     """
     if x.ndim != 2:
         raise ValueError(f"x must be (n, d); got shape {tuple(x.shape)}")
@@ -165,6 +180,7 @@ def pairwise_topk(
 
 
 pairwise_topk.launches = 0
+pairwise_topk.select_launches = 0
 
 
 def work(n: int, d: int, k_eff: int) -> tuple[float, float]:

@@ -8,6 +8,7 @@ for MST weight multisets.
 """
 
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -390,10 +391,14 @@ def test_edge_cascade_rejects_bad_input():
 
 
 def test_pairwise_topk_rejects_bad_input():
-    # the kernel's list holds 256 entries; its launch path says so before
-    # it touches the card
-    with pytest.raises(ValueError, match=r"at most 256 neighbours .* kmax <= 249 on the card"):
-        t_pt._launch(torch.zeros((300, 2)), 257)
+    # no cap on K: past the list instances' 256 entries (kmax >= 250) a
+    # launch takes the select instance, at every width, as csrc's dispatch
+    # routes it by its KMAX and MAX_D_TILED
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/pairwise_topk.cu").read_text()
+    for name in ("KMAX", "MAX_D_TILED"):
+        assert f"constexpr int {name} = {getattr(t_pt, name)};" in src, name
+    assert "if (k > KMAX) return launch_select(" in src
+    assert [t_pt.instance(d, k) for d in (8, 1536) for k in (256, 257)] == ["tiled", "select", "sliced", "select"]
     with pytest.raises(ValueError, match="k_top"):
         t_pt.pairwise_topk(torch.zeros((5, 2)), 5)
     with pytest.raises(ValueError, match="float"):

@@ -1,6 +1,7 @@
 """Build the port's chain kernels (``csrc/prim_mst.cu``,
-``csrc/single_linkage.cu``), the SBCN tile products (``csrc/sbcn_tile.cu``)
-and the windows-of-32 norms (``csrc/norms_win32.cuh``) for the CPU with
+``csrc/single_linkage.cu``), the SBCN tile products (``csrc/sbcn_tile.cu``),
+the windows-of-32 norms (``csrc/norms_win32.cuh``) and the top-K
+(``csrc/pairwise_topk.cu``) for the CPU with
 g++ and the emulation headers in ``include/``: every CUDA thread runs as a
 ``std::thread``, so the kernels' barriers, warp reductions, atomics,
 mbarrier rings and pushes between the blocks of a thread-block cluster run
@@ -60,7 +61,21 @@ REWRITES = {
         (r"extern __shared__ __align__\(16\) float nsm\[\];", "float* nsm = (float*)stub_dyn_smem();"),
         (_LAUNCH, _STUB_LAUNCH),
     ],
+    "pairwise_topk": [
+        (r"extern __shared__ __align__\(16\) float smem\[\];", "float* smem = (float*)stub_dyn_smem();"),
+        (r"extern __shared__ __align__\(16\) float nsm\[\];", "float* nsm = (float*)stub_dyn_smem();"),
+        (r"extern __shared__ __align__\(16\) unsigned long long keys\[\];",
+         "unsigned long long* keys = (unsigned long long*)stub_dyn_smem();"),
+        (r"__shared__ unsigned (hist|warp_sums)\[(\w+)\];", r"STUB_SHARED(unsigned, \1, \2);"),
+        (r"__shared__ SelectState st;", 'SelectState& st = *(SelectState*)stub_static_smem("st", sizeof(SelectState));'),
+        (_LAUNCH, _STUB_LAUNCH),
+    ],
 }
+# headers a source includes that the rewrites must reach: put in its text
+INLINED = {"pairwise_topk": ("norms_win32.cuh",)}
+# g++ flags a source needs beyond the common ones (blocks that never wait on
+# each other run a few at a time: grids of hundreds of 256-thread blocks)
+EXTRA_FLAGS = {"pairwise_topk": ("-DSTUB_BLOCK_BATCH=4",)}
 # a header without an entry point of its own gets one (extern "C")
 ENTRIES = {
     "norms_win32": 'extern "C" int repro_norms_win32(const float* x, int n, int d, float* out) '
@@ -80,6 +95,8 @@ def build(name: str, out_dir: Path) -> Path:
     src_file = CSRC / f"{name}.cu"
     text = src_file.read_text() if src_file.exists() else "#include <cuda_runtime.h>\n" + (
         CSRC / f"{name}.cuh").read_text() + ENTRIES[name]
+    for header in INLINED.get(name, ()):
+        text = text.replace(f'#include "{header}"', (CSRC / header).read_text())
     for pattern, repl in REWRITES[name]:
         text, hits = re.subn(pattern, repl, text)
         if not hits:
@@ -94,7 +111,8 @@ def build(name: str, out_dir: Path) -> Path:
     src.write_text(text)
     lib = out_dir / f"lib{name}.so"
     cmd = [compiler() or "g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-           f"-I{out_dir}", "-include", "cuda_stub_core.h", "-x", "c++", str(src), "-o", str(lib)]
+           *EXTRA_FLAGS.get(name, ()), f"-I{out_dir}", "-include", "cuda_stub_core.h", "-x", "c++", str(src),
+           "-o", str(lib)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}.cu:\n{proc.stderr}")

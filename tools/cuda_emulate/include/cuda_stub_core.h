@@ -1,6 +1,6 @@
 // cuda_stub_core.h — a CPU emulation of the CUDA features that the port's
-// chain kernels (prim_mst.cu, single_linkage.cu), sbcn_tile.cu and the norms
-// pre-pass (norms_win32.cuh) use, for g++: every CUDA
+// chain kernels (prim_mst.cu, single_linkage.cu), sbcn_tile.cu, the norms
+// pre-pass (norms_win32.cuh) and pairwise_topk.cu use, for g++: every CUDA
 // thread of a launch is a std::thread, so barriers, warp reductions and
 // pushes between the blocks of a cluster run as they would on the card,
 // one ordering of them at a time.  Shared memory is a byte buffer a block
@@ -56,6 +56,7 @@ struct StubBlock {
   std::unique_ptr<std::barrier<>> bar;                // __syncthreads
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<std::vector<unsigned>> warp_vals;       // redux.sync and ballot operands
+  std::vector<std::vector<uint64_t>> warp_vals64;     // shuffle and match operands
   std::vector<std::shared_ptr<void>> owned;           // objects that live as long as the launch
 };
 struct StubGrid {
@@ -92,7 +93,45 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return m;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline bool __any_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) != 0u; }
+inline bool __all_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) == 0xffffffffu; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+
+// every lane's value of v (at most 8 bytes), the warp's lanes all taking part
+template <typename T>
+std::vector<T> stub_warp_values(T v) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  StubBlock& b = stub_block();
+  const int w = threadIdx.x / 32;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  b.warp_vals64[w][threadIdx.x % 32] = bits;
+  b.warp_bar[w]->arrive_and_wait();
+  std::vector<T> all(32);
+  for (int l = 0; l < 32; ++l) std::memcpy(&all[l], &b.warp_vals64[w][l], sizeof(T));
+  b.warp_bar[w]->arrive_and_wait();
+  return all;
+}
+template <typename T>
+T __shfl_sync(unsigned, T v, int src) { return stub_warp_values(v)[src & 31]; }
+template <typename T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  const T got = stub_warp_values(v)[lane >= delta ? lane - delta : lane];
+  return lane >= delta ? got : v;
+}
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int m) { return stub_warp_values(v)[(threadIdx.x % 32) ^ (unsigned)m]; }
+template <typename T>
+unsigned __match_any_sync(unsigned, T v) {
+  const std::vector<T> all = stub_warp_values(v);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (all[l] == v ? 1u : 0u) << l;
+  return m;
+}
 
 // An emulated wait (an mbarrier's phase) that has not ended after
 // STUB_WAIT_LIMIT fails the launch instead of hanging it: the wait and every
@@ -159,24 +198,34 @@ void stub_run(K kernel, dim3 grid_dim, unsigned block, size_t smem, int cluster,
     for (unsigned w = 0; w < block / 32; ++w) {
       blk->warp_bar.push_back(std::make_unique<std::barrier<>>(32));
       blk->warp_vals.emplace_back(32, 0u);
+      blk->warp_vals64.emplace_back(32, 0ull);
     }
     g.blocks.push_back(std::move(blk));
   }
   for (unsigned c = 0; c < grid / cluster; ++c)
     g.cluster_bar.push_back(std::make_unique<std::barrier<>>(cluster * block));
-  std::vector<std::thread> ts;
-  for (unsigned b = 0; b < grid; ++b)
-    for (unsigned t = 0; t < block; ++t)
-      ts.emplace_back([&, b, t] {
-        stub_grid = &g;
-        stub_block_id = b;
-        blockIdx = dim3(b % grid_dim.x, b / grid_dim.x % grid_dim.y, b / (grid_dim.x * grid_dim.y));
-        threadIdx = dim3(t);
-        blockDim = dim3(block);
-        gridDim = grid_dim;
-        kernel(args...);
-      });
-  for (auto& t : ts) t.join();
+  // every block at once, or with STUB_BLOCK_BATCH defined and no clusters
+  // that many at a time (for kernels whose blocks never wait on each other)
+#ifdef STUB_BLOCK_BATCH
+  const unsigned batch = cluster == 1 ? STUB_BLOCK_BATCH : grid;
+#else
+  const unsigned batch = grid;
+#endif
+  for (unsigned b0 = 0; b0 < grid; b0 += batch) {
+    std::vector<std::thread> ts;
+    for (unsigned b = b0; b < grid && b < b0 + batch; ++b)
+      for (unsigned t = 0; t < block; ++t)
+        ts.emplace_back([&, b, t] {
+          stub_grid = &g;
+          stub_block_id = b;
+          blockIdx = dim3(b % grid_dim.x, b / grid_dim.x % grid_dim.y, b / (grid_dim.x * grid_dim.y));
+          threadIdx = dim3(t);
+          blockDim = dim3(block);
+          gridDim = grid_dim;
+          kernel(args...);
+        });
+    for (auto& t : ts) t.join();
+  }
 }
 
 // kernel<<<grid, block, smem, stream>>>(args...) without clusters
