@@ -6,9 +6,9 @@
     python3 chip_smoke.py --families-only  # phases 1 and 17
     python3 chip_smoke.py --encdec-mesh-only  # phases 1, 2, 18 and 19
     python3 chip_smoke.py --sharded-only   # phases 1, 2, 19 and 20
-    python3 chip_smoke.py --wide-k-only    # phases 1, 2, the select instance's checks,
+    python3 chip_smoke.py --wide-k-only    # phases 1, 2, the checks past K = 256,
                                            # the kmax = 128 and 256 fits (and 256 at n = 16000),
-                                           # the select instance's times
+                                           # the stored select's path, the times past K = 256
 
 Phases (any failure exits non-zero):
 
@@ -46,11 +46,15 @@ Phases (any failure exits non-zero):
      and key splits, under both plans) and at K = 135 and 256 at d = 8
      (with exact ties), ``lune_filter`` at d = 320, 777, 1100 and 1536,
      ``edge_cascade`` at d = 1536 (windows of windows) and at
-     k_check = 127; past K = 256, the select instance of ``pairwise_topk``
-     (``check_select_cases``) bit for bit at K = 257 and 307 (n = 4000,
-     d = 8; K = 307 also in sort tiles of 128 keys and chunks of 128 rows),
-     K = n - 1 at n = 1007, K = 263 at d = 24 and 1536, on exact ties, and
-     the K = 257 lists starting with the K = 256 lists; ``sbcn_tile`` (the SBCN tiles' products and norms in
+     k_check = 127; past K = 256 (``check_select_cases``), bit for bit, the
+     streamed select of ``pairwise_topk`` at K = 257 and 307 (n = 4000,
+     d = 8; K = 307 also with a row's buffer compacted at K + 32 keys), K =
+     n - 1 at n = 1007, K = 1024 at n = 1100, K = 263 at d = 24, on exact
+     ties, and the stored select at K = 307 in sort tiles of 128 keys and
+     chunks of 128 rows and at K = n - 1 (n = 1007; the streamed select
+     turned off), K = 1025 (n = 1100), K = 263 at d = 1536 and on exact ties
+     at d = 320, and the K = 257 lists starting with the K = 256 lists;
+     ``sbcn_tile`` (the SBCN tiles' products and norms in
      the reference's order above d = 256) bit for bit at d = 320, 1100 and
      1536 on every fused-path tier, the row path's panel tiles (the dense
      path), the slot path's 2-lane tiers, single pairs (XLA's loop) and
@@ -131,16 +135,22 @@ Phases (any failure exits non-zero):
      counters set to 0 just before it: mpts 2..16 MST weight multisets
      equal a kmax = 16 fit's bit for bit; ``MultiHDBSCAN(kmax=256)`` of the
      same points (K = 263) with the counters set to 0 just before it: the
-     select instance once, ``edge_cascade`` at least twice and
+     streamed select once, ``edge_cascade`` at least twice and
      ``single_linkage`` once, 255 levels, mpts 2..128 MST weight multisets
      equal the kmax = 128 fit's bit for bit, its stage seconds and peak
-     memory; the select instance timed at (n, d, K) = (4000, 8, 263),
-     (16000, 8, 263), (4000, 8, 307) and (4000, 1536, 263); then ``pairwise_topk`` at the
+     memory (the MST stage's apart); the stored select's path,
+     ``hdbscan_baseline(X, [256], kmax=256)`` at n = 1007, d = 320, with
+     the counters set to 0 just before it (the stored select once, MST
+     weights against dense scipy); the streamed select timed at (n, d, K) =
+     (4000, 8, 263), (16000, 8, 263) and (4000, 8, 307), each in turns with
+     the stored select on the same points, and the stored select at (4000,
+     1536, 263); then ``pairwise_topk`` at the
      shapes of phases 13 and 14 (and at n = 4000, d = 1536 on phase 3's
      points, the earlier runs' shape) and ``lune_filter`` at d = 1536, each
      beside its plain version (outputs bit-equal) and its bound; the two
-     sliced rows and the select instance's at the kmax = 256 fit's shape
-     join the ``{"kernels": ...}`` line (phases 12-16 run before 11);
+     sliced rows, the streamed select's at the kmax = 256 fit's shape and
+     the stored select's at d = 1536 join the ``{"kernels": ...}`` line
+     (phases 12-16 run before 11);
   15. LM training on a copy of phase 12's masters (the path launches none
      of the hand-written kernels): (a) one AdamW step at full width and 2
      layers in float32 (``microbatch`` 2, ``xent_chunk`` 10 of S = 24, a
@@ -286,9 +296,10 @@ RAGGED_WIDE = (777, 1100)        # a ragged d (d % 4 != 0); two 512-deep panels 
 N_WIDE = 4000
 K_EMBED = 31                      # the top-K of a kmax = 24 fit (the embedding fit)
 K_WIDE = (135, 256)               # the top-K of kmax = 128, and the list instances' longest list
-K_SELECT = (257, 307)             # the select instance (K > 256): just past the lists, and kmax = 300's
-KMAX_256 = 256                    # the select instance's fit (K = 263)
-K_SELECT_FIT = KMAX_256 + 7       # its list, also at d = 24 and 1536
+K_SELECT = (257, 307)             # past the lists (K > 256; the streamed select at d <= 256): just past, and kmax = 300's
+KMAX_256 = 256                    # the streamed select's fit (K = 263)
+K_SELECT_FIT = KMAX_256 + 7       # its list, also at d = 24 and, on the stored select, 1536
+N_KSTREAM = 1100                  # K = 1024 (the streamed select's longest) and 1025 (the stored select's)
 KMAX_128 = 128
 LM_ARCH = "qwen2_1_5b"
 LM_PARITY_TOL = 1e-3              # float32 logits, card vs CPU, 2 layers at full width
@@ -482,6 +493,25 @@ def select_plan(sort_tile: int, chunk_bytes: int):
         fn(before[0].value, before[1].value, ctypes.addressof(after[0]), ctypes.addressof(after[1]))
 
 
+@contextlib.contextmanager
+def stream_plan(cap: int = -1, from_k: int = 0):
+    """Within the block, the streamed select compacts a row's buffer at
+    ``cap`` keys (clamped to [K + 32, the buffer]; -1 leaves it) and runs
+    for K above ``from_k`` (0 leaves it; ``pairwise_topk.KSTREAM`` turns the
+    instance off, so that the stored select takes its lists)."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("pairwise_topk").repro_pairwise_topk_set_stream_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p], None
+    before = ctypes.c_int(), ctypes.c_int()
+    fn(cap, from_k, ctypes.addressof(before[0]), ctypes.addressof(before[1]))
+    try:
+        yield
+    finally:
+        after = ctypes.c_int(), ctypes.c_int()
+        fn(before[0].value, before[1].value, ctypes.addressof(after[0]), ctypes.addressof(after[1]))
+
+
 def library_topk(x, k_eff: int):
     """The library yardstick of ``pairwise_topk``: the whole d2 matrix from
     ``mm``, self masked, then ``torch.topk``."""
@@ -493,10 +523,11 @@ def library_topk(x, k_eff: int):
     return torch.topk(d2, k_eff, dim=1, largest=False)
 
 
-def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
+def check_pairwise_topk(x, k_eff: int, k_top: int, plain=None) -> float:
     """Kernel vs plain at one shape: raw d2 within 1e-5 * (|q|^2 + |k|^2)
     and, as both run the same float32 arithmetic, the raw lists (d2 and
-    indices) bit-equal; refined indices equal.  Returns the largest raw d2
+    indices) bit-equal; refined indices equal.  ``plain`` is the plain
+    version's lists where the caller has them.  Returns the largest raw d2
     difference."""
     import torch
     from repro_torch.kernels import ops
@@ -504,7 +535,7 @@ def check_pairwise_topk(x, k_eff: int, k_top: int) -> float:
     pt = kernel_module("pairwise_topk")
 
     d_k, i_k = pt.pairwise_topk(x, k_eff)
-    d_p, i_p = pt.pairwise_topk_plain(x, k_eff)
+    d_p, i_p = pt.pairwise_topk_plain(x, k_eff) if plain is None else plain
     torch.cuda.synchronize()
     n = x.shape[0]
     check(d_k.shape == (n, k_eff) and i_k.shape == (n, k_eff), "pairwise_topk output shape")
@@ -917,47 +948,69 @@ def check_wide_cases(dev) -> dict:
 
 
 def check_select_cases(dev) -> dict:
-    """The select instance (K > 256) against the plain version on the card,
-    raw lists bit-equal and refined indices equal: K = 257 and 307 at
-    n = 4000, d = 8 (K = 307 also with sort tiles of 128 keys and chunks of
-    128 rows); K = n - 1 at the ragged n = 1007; K = 263 at d = 24 (a
-    generic width) and d = 1536 (the sliced product); exact ties (each point
-    8 times: n = 320, d = 2 at K = 257 and n - 1; d = 320 with copies 500
-    rows apart at K = 263); and on each of those point sets the first 256
-    entries of the K = 257 list equal to the K = 256 list, bit for bit.
-    Returns the largest raw d2 difference per case (0 when bit-equal)."""
+    """The lists past K = 256 against the plain version on the card, raw
+    lists bit-equal and refined indices equal.  The streamed select (K <= 1024
+    at d <= 256): K = 257 and 307 at n = 4000, d = 8, K = 307 again with a
+    row's buffer compacted at K + 32 keys (the small-buffer hook: a row
+    compacts some (K / 32) ln(n / (K + 32)), about 21, times); K = n - 1 at
+    the ragged n = 1007; K = 1024 at n = 1100; K = 263 at d = 24 (a generic
+    width); exact ties (each point 8 times: n = 320, d = 2 at K = 257 and
+    n - 1).  The stored select: K = 307 at d = 8 in sort tiles of 128 keys
+    and chunks of 128 rows and K = n - 1 at n = 1007 (the streamed select
+    turned off by the hook, on the same plain lists), K = 1025 at n = 1100
+    (past the streamed select's longest), K = 263 at d = 1536 (the sliced
+    product) and on exact ties at d = 320 (copies 500 rows apart).  On each
+    of x8, the d = 2 ties and the d = 320 ties the first 256 entries of the
+    K = 257 list equal the K = 256 list, bit for bit.  Returns the largest
+    raw d2 difference per case (0 when bit-equal)."""
     import numpy as np
     import torch
 
     pt = kernel_module("pairwise_topk")
     errs = {}
+    def case(xs, k_eff: int, label: str = "", plain=None, hook=None, stored: bool = False):
+        """One case under ``hook``, on the stored select where ``stored``
+        (the streamed one turned off), else on the instance ``dispatch``
+        routes it to; its key names the instance."""
+        n, d = xs.shape
+        inst = "select" if stored else pt.instance(d, k_eff)
+        with hook or contextlib.nullcontext(), stream_plan(from_k=pt.KSTREAM) if stored else contextlib.nullcontext():
+            errs[f"n={n},d={d},K={k_eff},{inst}{label}"] = check_pairwise_topk(xs, k_eff, k_eff - 8, plain)
+
     x8 = torch.from_numpy(make_points(N_WIDE, D, SEED + 11)).to(dev)
-    for k_eff in K_SELECT:
-        errs[f"n={N_WIDE},d={D},K={k_eff}"] = check_pairwise_topk(x8, k_eff, k_eff - 8)
-    with select_plan(128, 1):
-        errs[f"n={N_WIDE},d={D},K={K_SELECT[1]},tiles"] = check_pairwise_topk(x8, K_SELECT[1], K_SELECT[1] - 8)
-    errs[f"n={N_RAGGED},d={D},K={N_RAGGED - 1}"] = check_pairwise_topk(x8[:N_RAGGED], N_RAGGED - 1, N_RAGGED - 9)
+    case(x8, K_SELECT[0])
+    plain_307 = pt.pairwise_topk_plain(x8, K_SELECT[1])
+    case(x8, K_SELECT[1], plain=plain_307)
+    case(x8, K_SELECT[1], ",cap", plain_307, stream_plan(cap=K_SELECT[1] + 32))
+    case(x8, K_SELECT[1], ",tiles", plain_307, select_plan(128, 1), stored=True)
+    x_r = x8[:N_RAGGED]
+    plain_r = pt.pairwise_topk_plain(x_r, N_RAGGED - 1)
+    case(x_r, N_RAGGED - 1, plain=plain_r)
+    case(x_r, N_RAGGED - 1, plain=plain_r, stored=True)
+    x_k = torch.from_numpy(make_points(N_KSTREAM, D, SEED + 13)).to(dev)
+    case(x_k, pt.KSTREAM)
+    case(x_k, pt.KSTREAM + 1)
     for d in (24, WIDE_WIDTHS[-1]):
-        xd = torch.from_numpy(make_points(N_WIDE, d, SEED + d)).to(dev)
-        errs[f"n={N_WIDE},d={d},K={K_SELECT_FIT}"] = check_pairwise_topk(xd, K_SELECT_FIT, K_SELECT_FIT - 8)
+        case(torch.from_numpy(make_points(N_WIDE, d, SEED + d)).to(dev), K_SELECT_FIT)
     rng = np.random.default_rng(SEED + 12)
     t = lambda v: torch.from_numpy(v.astype(np.float32)).to(dev)  # noqa: E731
     x_dup = t(np.repeat(rng.normal(size=(40, 2)), 8, axis=0))
     x_tie = t(np.tile(rng.normal(size=(N_WIDE // 8, WIDE_WIDTHS[0])), (8, 1)))
     for xs, k_eff in ((x_dup, K_SELECT[0]), (x_dup, len(x_dup) - 1), (x_tie, K_SELECT_FIT)):
-        n, d = xs.shape
-        errs[f"n={n},d={d},K={k_eff},ties"] = check_pairwise_topk(xs, k_eff, k_eff - 8)
+        case(xs, k_eff, ",ties")
     for xs in (x8, x_dup, x_tie):
         d_256, i_256 = pt.pairwise_topk(xs, 256)
         d_257, i_257 = pt.pairwise_topk(xs, 257)
         check(bool((d_257[:, :256].view(torch.int32) == d_256.view(torch.int32)).all()
                    and (i_257[:, :256] == i_256).all()),
               f"the K=257 lists start with the K=256 lists at n={xs.shape[0]}, d={xs.shape[1]}")
-    print(f"pairwise_topk's select instance: kernel == plain (raw lists bit-equal, refined indices equal) at "
-          f"K={list(K_SELECT)} (n={N_WIDE}, d={D}; K={K_SELECT[1]} also in sort tiles of 128 and chunks of 128 "
-          f"rows), K=n-1 (n={N_RAGGED}), K={K_SELECT_FIT} at d=24 and {WIDE_WIDTHS[-1]}, on exact ties (n=320, d=2, "
-          f"K={K_SELECT[0]} and n-1; d={WIDE_WIDTHS[0]}, K={K_SELECT_FIT}); K=257 lists start with the K=256 "
-          f"lists", flush=True)
+    print(f"pairwise_topk past K=256: kernel == plain (raw lists bit-equal, refined indices equal); the streamed "
+          f"select at K={list(K_SELECT)} (n={N_WIDE}, d={D}; K={K_SELECT[1]} also compacting at K+32), K=n-1 "
+          f"(n={N_RAGGED}), K={pt.KSTREAM} (n={N_KSTREAM}), K={K_SELECT_FIT} at d=24, on exact ties (n=320, d=2, "
+          f"K={K_SELECT[0]} and n-1); the stored select at K={K_SELECT[1]} in sort tiles of 128 and chunks of 128 "
+          f"rows, K=n-1 (n={N_RAGGED}), K={pt.KSTREAM + 1} (n={N_KSTREAM}), K={K_SELECT_FIT} at "
+          f"d={WIDE_WIDTHS[-1]}, on exact ties (d={WIDE_WIDTHS[0]}); K=257 lists start with the K=256 lists",
+          flush=True)
     return errs
 
 
@@ -1251,7 +1304,8 @@ def kernel_resources(record: dict) -> None:
     for log in _build.LOGS.values():
         for u in _build.ptxas_usage(log):
             m = re.search(r"(pairwise_topk_kernel|pairwise_topk_sliced_kernel|pairwise_topk_merge_kernel|"
-                          r"pairwise_topk_select_kernel|pairwise_d2_kernel|pairwise_d2_sliced_kernel|"
+                          r"pairwise_topk_select_kernel|pairwise_topk_stream_kernel|pairwise_d2_kernel|"
+                          r"pairwise_d2_sliced_kernel|"
                           r"norms_win32_kernel|lune_filter_kernel|lune_filter_sliced_kernel|sum_sq_seq_kernel|"
                           r"edge_cascade_kernel|edge_cascade_prologue|"
                           r"prim_mst_floor_kernel|prim_mst_kernel|single_linkage_kernel|"
@@ -1293,8 +1347,10 @@ def kernel_resources(record: dict) -> None:
         d = {"generic": 100, "sliced": WIDE_WIDTHS[-1]}.get(u["d"], u["d"])
         if u["kernel"] in ("pairwise_topk_kernel", "pairwise_topk_sliced_kernel"):
             u.update(pt.kernel_config(N, d, 32 * u["slots"]))
-        elif u["kernel"] == "pairwise_topk_select_kernel":
-            u.update(pt.kernel_config(N, D, K_SELECT_FIT))
+        elif u["kernel"] == "pairwise_topk_stream_kernel":  # the kmax = 256 fit's list at each width
+            u.update(pt.kernel_config(N, d, K_SELECT_FIT))
+        elif u["kernel"] == "pairwise_topk_select_kernel":  # the stored select's shape in the kernels line
+            u.update(pt.kernel_config(N_WIDE, WIDE_WIDTHS[-1], K_SELECT_FIT))
         elif u["kernel"] in ("lune_filter_kernel", "lune_filter_sliced_kernel"):
             u.update(lf.kernel_config(d, 8, 512))
         elif u["kernel"] == "edge_cascade_kernel":
@@ -2287,36 +2343,58 @@ def kmax128_phase(smi: str, record: dict) -> dict:
 
 def kmax256_phase(x, est_128, smi: str, record: dict, key: str = "kmax256_fit") -> dict:
     """``MultiHDBSCAN(kmax=256).fit(x).select_all()`` on the card (K = 263:
-    the select instance), with the counters set to 0 just before it: the
-    select instance launches once (the fit's one ``pairwise_topk`` call),
+    the streamed select), with the counters set to 0 just before it: the
+    streamed select launches once (the fit's one ``pairwise_topk`` call),
     ``edge_cascade`` at least twice, ``single_linkage`` once; 255 levels;
     where ``est_128`` is given (phase 14's kmax = 128 fit of the same
     points), its MST weight multisets at mpts 2..128 bit for bit.  Records
-    the stage seconds, the peak device memory and what earlier phases held
-    when it began under ``key``; returns the launches."""
+    the stage seconds, the peak device memory (the whole run's, and that of
+    the MST stage, ``multi._mst_stage_local``, apart from what came before
+    it) and what earlier phases held when it began under ``key``; returns
+    the launches."""
     import numpy as np
     import torch
     from repro_torch.api import MultiHDBSCAN
+    from repro_torch.core import multi
     from repro_torch.kernels import fused_cascade as fc
 
     pt, sl = kernel_module("pairwise_topk"), kernel_module("single_linkage")
     n, d = x.shape
+    peaks = {}
+    stage = multi._mst_stage_local
+
+    def mst_stage(*args, **kwargs):
+        """The MST stage with the peak before it and its own apart."""
+        torch.cuda.synchronize()
+        peaks["before_mst_stage"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = stage(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks["mst_stage"] = torch.cuda.max_memory_allocated()
+        return out
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # by earlier phases: the peak counts it too
-    pt.pairwise_topk.launches = pt.pairwise_topk.select_launches = 0
+    pt.pairwise_topk.launches = pt.pairwise_topk.select_launches = pt.pairwise_topk.stream_launches = 0
     fc.edge_cascade.launches = sl.single_linkage.launches = 0
-    t0 = time.monotonic()
-    est = MultiHDBSCAN(kmax=KMAX_256, device=CARD).fit(x)
-    t1 = time.monotonic()
-    views = est.select_all()
-    torch.cuda.synchronize()
-    t2 = time.monotonic()
+    multi._mst_stage_local = mst_stage
+    try:
+        t0 = time.monotonic()
+        est = MultiHDBSCAN(kmax=KMAX_256, device=CARD).fit(x)
+        t1 = time.monotonic()
+        views = est.select_all()
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    finally:
+        multi._mst_stage_local = stage
     launches = {"pairwise_topk": pt.pairwise_topk.launches, "pairwise_topk_select": pt.pairwise_topk.select_launches,
+                "pairwise_topk_stream": pt.pairwise_topk.stream_launches,
                 "edge_cascade": fc.edge_cascade.launches, "single_linkage": sl.single_linkage.launches}
-    peak = torch.cuda.max_memory_allocated()
-    check(launches["pairwise_topk"] == 1 and launches["pairwise_topk_select"] == 1,
-          f"the kmax={KMAX_256} fit ran its top-K (K={K_SELECT_FIT}) through the select instance, once")
+    peaks["after_mst_stage"] = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
+    check(launches["pairwise_topk"] == 1 and launches["pairwise_topk_stream"] == 1,
+          f"the kmax={KMAX_256} fit ran its top-K (K={K_SELECT_FIT}) through the streamed select, once")
     check(launches["edge_cascade"] >= 2 and launches["single_linkage"] == 1,
           f"the kmax={KMAX_256} fit launched edge_cascade for both stages and single_linkage once")
     check(len(views) == KMAX_256 - 1 and all(v.labels.shape == (n,) for v in views),
@@ -2329,52 +2407,117 @@ def kmax256_phase(x, est_128, smi: str, record: dict, key: str = "kmax256_fit") 
     stages = {k: est.timings_[k] for k in ("knn", "rng_build", "mst_range")}
     stages["hierarchy"] = t2 - t1
     record[key] = {"n": n, "d": d, "kmax": KMAX_256, "fit_s": t1 - t0, "stages_s": stages, "launches": launches,
-                   "max_memory_allocated": peak, "allocated_before": held, "graph": est.graph_.stats}
+                   "max_memory_allocated": peak, "peaks": peaks, "allocated_before": held,
+                   "graph": est.graph_.stats, "mst_chunk_rows": multi.MST_CHUNK_ELEMS // len(est.graph_.edges)}
     same = f"; MST weight multisets == the kmax={KMAX_128} fit's for mpts 2..{KMAX_128}" if est_128 else ""
     print(f"kmax={KMAX_256} at n={n}, d={d} on the card: fit {t1 - t0:.2f} s, select_all {t2 - t1:.2f} s, launches "
-          f"{launches}, graph {est.graph_.stats}, peak {peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before it)"
-          f"{same}; stages (s) on {smi}: "
-          f"{json.dumps(stages)}", flush=True)
+          f"{launches}, graph {est.graph_.stats}, peak {peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before it; "
+          f"by stage {json.dumps({k: round(v / 1e9, 3) for k, v in peaks.items()})} GB; MST rows a chunk "
+          f"{record[key]['mst_chunk_rows']}){same}; stages (s) on {smi}: {json.dumps(stages)}", flush=True)
     return launches
 
 
-def select_kernel_times(launches_256: dict, checked: dict, smi: str, record: dict) -> list:
-    """The select instance timed beside its plain version, the library
-    yardstick (``mm`` + ``topk``) and its bound (``topk_flops_bytes``, as
-    ``pairwise_topk.work``) at the kmax = 256 fit's shape (n = 4000, d = 8,
-    K = 263) and at (16000, 8, 263), (4000, 8, 307) and (4000, 1536, 263),
-    outputs bit-equal (the last two on ``check_select_cases``'s points,
-    whose differences ``checked`` holds).  Returns its row of the
-    ``{"kernels": ...}`` line, at the fit's shape with the fit's launches."""
+def stored_select_path(smi: str, record: dict) -> dict:
+    """The stored select on a path a user takes: the paper's baseline,
+    ``hdbscan_baseline(X, [256], kmax=256)``, on n = 1007 points at d = 320
+    (K = 263 above d = 256), with the counters set to 0 just before it: the
+    stored select once (the streamed select never), ``prim_mst`` and
+    ``single_linkage`` once; its MST weight multiset equal to a dense
+    float64 MST's (rtol 1e-5).  Returns the launches."""
+    import numpy as np
     import torch
+    from repro_torch.core import multi, ref as oref
+
+    pm, pt, sl = (kernel_module(k) for k in ("prim_mst", "pairwise_topk", "single_linkage"))
+    x = make_points(N_RAGGED, WIDE_WIDTHS[0], SEED + 40)
+    pt.pairwise_topk.launches = pt.pairwise_topk.select_launches = pt.pairwise_topk.stream_launches = 0
+    pm.prim_mst.launches = sl.single_linkage.launches = 0
+    t0 = time.monotonic()
+    (h,), _ = multi.hdbscan_baseline(x, [KMAX_256], kmax=KMAX_256, device=CARD)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = {"pairwise_topk": pt.pairwise_topk.launches, "pairwise_topk_select": pt.pairwise_topk.select_launches,
+                "pairwise_topk_stream": pt.pairwise_topk.stream_launches, "prim_mst": pm.prim_mst.launches,
+                "single_linkage": sl.single_linkage.launches}
+    check(launches["pairwise_topk_select"] == 1 and launches["pairwise_topk_stream"] == 0
+          and launches["prim_mst"] == 1 and launches["single_linkage"] == 1,
+          f"the kmax={KMAX_256} baseline at d={WIDE_WIDTHS[0]} ran the stored select once: {launches}")
+    x64 = x.astype(np.float64)
+    dense = oref.mst_weights(oref.mrd_matrix(x64, KMAX_256, oref.core_distances(x64, KMAX_256)))
+    check(h.mst_w.shape == (N_RAGGED - 1,) and np.allclose(np.sort(h.mst_w.astype(np.float64)), dense, rtol=RTOL,
+                                                           atol=0.0),
+          f"the kmax={KMAX_256} baseline's MST weight multiset vs dense scipy at d={WIDE_WIDTHS[0]}")
+    record["stored_select_path"] = {"n": N_RAGGED, "d": WIDE_WIDTHS[0], "kmax": KMAX_256, "s": secs,
+                                    "launches": launches}
+    print(f"the stored select's path: hdbscan_baseline(X, [{KMAX_256}], kmax={KMAX_256}) at n={N_RAGGED}, "
+          f"d={WIDE_WIDTHS[0]} on {smi} in {secs:.2f} s, launches {launches}; MST weights == dense scipy",
+          flush=True)
+    return launches
+
+
+def select_kernel_times(launches_256: dict, launches_stored: dict, checked: dict, smi: str, record: dict) -> list:
+    """The lists past K = 256 timed beside their plain version, the library
+    yardstick (``mm`` + ``topk``) and their bound (``topk_flops_bytes``, as
+    ``pairwise_topk.work``): the streamed select at the kmax = 256 fit's
+    shape (n = 4000, d = 8, K = 263), at (16000, 8, 263) and (4000, 8, 307),
+    each also on the stored select (the streamed one turned off by the hook,
+    timed in turns with it: stream, stored, stored, stream); the stored
+    select at (4000, 1536, 263).  Outputs bit-equal (where
+    ``check_select_cases`` held a shape, its differences ``checked``
+    holds).  Returns the rows of the ``{"kernels": ...}`` line: the
+    streamed select at the fit's shape with the fit's launches, the stored
+    select at d = 1536 with the launches of its path (``stored_select_path``)."""
+    import torch
+    from repro_torch.kernels import _build
 
     pt = kernel_module("pairwise_topk")
     dev = torch.device(CARD)
+    off = lambda: stream_plan(from_k=pt.KSTREAM)  # noqa: E731  (the stored select at every K)
     rows = {}
     for name, x, k_eff in (
-            ("pairwise_topk_select", make_points(N_WIDE, D, SEED + 30), K_SELECT_FIT),
-            ("pairwise_topk_select_n16000", make_points(N, D, SEED), K_SELECT_FIT),
-            ("pairwise_topk_select_k307", make_points(N_WIDE, D, SEED + 11), K_SELECT[1]),
-            ("pairwise_topk_select_d1536", make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1]),
-             K_SELECT_FIT)):
+            ("pairwise_topk_stream", make_points(N_WIDE, D, SEED + 30), K_SELECT_FIT),
+            ("pairwise_topk_stream_n16000", make_points(N, D, SEED), K_SELECT_FIT),
+            ("pairwise_topk_stream_k307", make_points(N_WIDE, D, SEED + 11), K_SELECT[1]),
+            ("pairwise_topk_select", make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1]), K_SELECT_FIT)):
         x = torch.from_numpy(x).to(dev)
         n, d = x.shape
-        err = checked.get(f"n={n},d={d},K={k_eff}")
+        inst = pt.instance(d, k_eff)
+        err = checked.get(f"n={n},d={d},K={k_eff},{inst}")
         err = check_pairwise_topk(x, k_eff, k_eff - 8) if err is None else err
-        ms = cuda_ms(lambda: pt.pairwise_topk(x, k_eff), 5)
+        run = lambda: pt.pairwise_topk(x, k_eff)  # noqa: E731
+        if inst == "stream":
+            with off():
+                check_pairwise_topk(x, k_eff, k_eff - 8)  # the stored select on the same points
+            ms = [cuda_ms(run, 5)]
+            with off():
+                stored_ms = [cuda_ms(run, 5), cuda_ms(run, 5)]
+            ms.append(cuda_ms(run, 5))
+        else:
+            ms, stored_ms = [cuda_ms(run, 5)], None
         plain_ms = cuda_ms(lambda: pt.pairwise_topk_plain(x, k_eff), 1, warm=False)
         library_ms = cuda_ms(lambda: library_topk(x, k_eff), 5)
         b_ms, b_by = bound(*topk_flops_bytes(n, d, k_eff))
-        rows[name] = {"n": n, "d": d, "K": k_eff, "launches": launches_256["pairwise_topk_select"] if name ==
-                      "pairwise_topk_select" else None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        launches = {"pairwise_topk_stream": launches_256["pairwise_topk_stream"],
+                    "pairwise_topk_select": launches_stored["pairwise_topk_select"]}.get(name)
+        rows[name] = {"n": n, "d": d, "K": k_eff, "instance": inst, "launches": launches, "max_abs_err": err,
+                      "ms": sum(ms) / len(ms), "ms_runs": ms, "stored_select_ms_runs": stored_ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                       "config": pt.kernel_config(n, d, k_eff)}
+        nbytes = ctypes.c_size_t()
+        lib = _build.load("pairwise_topk")
+        lib.repro_pairwise_topk_workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        check(lib.repro_pairwise_topk_workspace(n, d, k_eff, ctypes.addressof(nbytes)) == 0, "workspace query")
+        rows[name]["workspace_bytes"] = nbytes.value
+        if inst == "stream":
+            with off():
+                check(lib.repro_pairwise_topk_workspace(n, d, k_eff, ctypes.addressof(nbytes)) == 0, "workspace query")
+            rows[name]["stored_select_workspace_bytes"] = nbytes.value
         print(f"{name} on {smi}: " + json.dumps(rows[name]), flush=True)
     record["select_kernels"] = rows
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return [{"name": "pairwise_topk_select", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
-             "replaces": "src/repro/kernels/pairwise_topk.py:37",
-             **{k: rows["pairwise_topk_select"][k] for k in keys}}]
+    return [{"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_topk.cu",
+             "replaces": "src/repro/kernels/pairwise_topk.py:37", **{k: rows[name][k] for k in keys}}
+            for name in ("pairwise_topk_stream", "pairwise_topk_select")]
 
 
 def wide_kernel_times(x_emb, launches_emb: dict, launches_128: dict, smi: str, record: dict) -> list:
@@ -3809,14 +3952,16 @@ def main(argv: list[str]) -> int:
           "default tiles; generic d read at d=100, sliced at d=1536):", flush=True)
     kernel_resources(record)
     if wide_k_only:
-        phase("3. the select instance against its plain version")
+        phase("3. the lists past K = 256 against their plain version")
         dev = torch.device("cuda")
         record["select_pairwise_topk_max_abs_err"] = check_select_cases(dev)
-        phase("14. the kmax = 128 and 256 fits, the select instance's times")
+        phase("14. the kmax = 128 and 256 fits, the times past K = 256")
         launches_128, est_128 = kmax128_phase(smi, record)
         launches_256 = kmax256_phase(make_points(N_WIDE, D, SEED + 30), est_128, smi, record)
         kmax256_phase(make_points(N, D, SEED), None, smi, record, key="kmax256_fit_n16000")
-        select_rows = select_kernel_times(launches_256, record["select_pairwise_topk_max_abs_err"], smi, record)
+        launches_stored = stored_select_path(smi, record)
+        select_rows = select_kernel_times(launches_256, launches_stored, record["select_pairwise_topk_max_abs_err"],
+                                          smi, record)
         x = torch.from_numpy(make_points(N, D, SEED)).to(dev)
         x_wide = torch.from_numpy(make_points(N_WIDE, WIDE_WIDTHS[-1], SEED + WIDE_WIDTHS[-1])).to(dev)
         lists_ms = {f"n={N},d={D},K={k}": ms for k, ms in topk_times(x).items()}
@@ -4088,9 +4233,11 @@ def main(argv: list[str]) -> int:
     # -- 14. the kmax = 128 and 256 fits -----------------------------------------
     launches_128, est_128 = kmax128_phase(smi, record)
     launches_256 = kmax256_phase(make_points(N_WIDE, D, SEED + 30), est_128, smi, record)
+    launches_stored = stored_select_path(smi, record)
     del est_128
     wide_rows = wide_kernel_times(x_emb, launches_emb, launches_128, smi, record)
-    select_rows = select_kernel_times(launches_256, record["select_pairwise_topk_max_abs_err"], smi, record)
+    select_rows = select_kernel_times(launches_256, launches_stored, record["select_pairwise_topk_max_abs_err"], smi,
+                                      record)
 
     phase("15. LM training")
     # -- 15. LM training -------------------------------------------------------

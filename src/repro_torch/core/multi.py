@@ -102,26 +102,45 @@ class MultiDensityResult:
     timings: dict[str, float]
 
 
+# The MST stage's rows at a time: as many as keep (rows x edges) at most
+# this.  Borůvka holds about seven int64 (rows, edges) arrays at once (the
+# sort keys, their order and ranks, a round's component ids and candidates),
+# so a chunk takes some 7.5 GB at most; the rows' MSTs do not depend on
+# each other, so the chunks' outputs are the whole stage's, bit for bit.
+MST_CHUNK_ELEMS = 1 << 27
+
+
 def _mst_stage_local(d2_e, cd2_dev, ea, eb, row_idx, *, n: int, plan):
-    """Reweight + batched Borůvka + row compaction for the selected rows."""
-    w_sel = mrd_mod.reweight_all_mpts(d2_e, cd2_dev, ea, eb)[row_idx]
-    in_mst = plan.mst_range(ea, eb, w_sel, n=n)
-    return _compact_mst_rows(in_mst, ea, eb, w_sel, n=n)
+    """Reweight + batched Borůvka + row compaction for the selected rows,
+    ``MST_CHUNK_ELEMS // m`` rows at a time (no sync between chunks)."""
+    step = max(1, MST_CHUNK_ELEMS // max(1, int(ea.shape[0])))
+    parts = []
+    for r0 in range(0, int(row_idx.shape[0]), step):
+        # rows j - 1 of the reweighting are mpts = j: the chunk's columns of
+        # the core distances give its rows alone (row-major, as Borůvka's
+        # sorts and gathers want them: a transposed layout costs them copies)
+        w_sel = mrd_mod.reweight_all_mpts(d2_e, cd2_dev[:, row_idx[r0 : r0 + step]], ea, eb).contiguous()
+        in_mst = plan.mst_range(ea, eb, w_sel, n=n)
+        parts.append(_compact_mst_rows(in_mst, ea, eb, w_sel, n=n))
+    return parts[0] if len(parts) == 1 else tuple(torch.cat(p) for p in zip(*parts))
 
 
 def _compact_mst_rows(in_mst, ea, eb, w_sel, *, n: int):
     """(R, m) MST mask -> (R, n-1) ascending edge-id compaction + counts.
 
-    A cumsum-positioned scatter per row (no sync); rows with fewer than
-    n-1 edges keep edge id 0 in their unfilled slots, and ``counts`` says so.
+    Slot s of a row holds the edge id where the row's int32 running count
+    of MST edges first reaches s + 1 (a binary search, no sync); rows with
+    fewer than n-1 edges keep edge id 0 in their unfilled slots, and
+    ``counts`` says so.  No int64 (R, m) array: the running counts are
+    int32, the searches (R, n-1).
     """
-    R, m = in_mst.shape
+    R, _ = in_mst.shape
     dev = in_mst.device
-    dst = torch.where(in_mst, torch.cumsum(in_mst, dim=1) - 1, n - 1)
-    sel = torch.zeros((R, n), dtype=torch.int64, device=dev)
-    sel.scatter_(1, dst, torch.arange(m, device=dev).expand(R, m).contiguous())
-    sel = sel[:, : n - 1]
+    pos = torch.cumsum(in_mst, dim=1, dtype=torch.int32)
+    slots = torch.arange(1, n, dtype=torch.int32, device=dev).expand(R, n - 1).contiguous()
+    sel = torch.searchsorted(pos, slots)
     counts = in_mst.sum(dim=1, dtype=torch.int32)
+    sel = torch.where(slots <= counts[:, None], sel, 0)
     # float32 sqrt through float64: correctly rounded on every device, as
     # the reference's XLA sqrt is (torch's vectorised CPU float32 sqrt is not)
     mst_w = torch.sqrt(w_sel.gather(1, sel).double()).float()

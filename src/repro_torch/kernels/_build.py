@@ -29,6 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags a source adds: pairwise_topk.cu's ~80 kernel instances take nvcc
+# 58 s on one thread of the H100 machine's 8-core host, 29 s with its device
+# code compiled on every core (both beside the other sources' builds)
+NVCC_EXTRA = {"pairwise_topk": ("--split-compile=0",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 LOGS: dict[str, str] = {}  # nvcc's output per source built by this process
@@ -49,7 +53,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *NVCC_EXTRA.get(name, ()))
+    digest = hashlib.sha256(src + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -66,7 +71,7 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_EXTRA.get(name, ()), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.monotonic(),

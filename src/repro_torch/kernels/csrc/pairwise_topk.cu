@@ -37,7 +37,7 @@
 // order, so the result does not depend on the order in which keys merge.
 // The list is spread over the lanes: entry p sits in lane p / S, slot p % S,
 // with S <= 8 slots, so K <= 256 (KMAX; longer lists take the select
-// instance, below); a merge moves entry p - 1 to p where the
+// instances, below); a merge moves entry p - 1 to p where the
 // new key orders before it, register moves within a lane and one shuffle-up
 // between lanes, whatever S.  Past S = 4 a warp owns one row (R = 1), so the
 // list's 64-bit slots stay in registers.  K up to 256 is one sweep over the
@@ -74,36 +74,66 @@
 // 32 row tiles of n = 4000 fill the card.  |x|^2 comes from a pre-pass
 // (norms_win32.cuh: rows staged a block at a time), once a call.
 //
-// K > 256 at every width (the select instance).  A list longer than 256
-// cannot stay in a warp's registers (the sliced instance already takes 254
-// a thread), so the instance stores the distances and selects instead of
-// merging as it streams.  Per chunk of rows (as many as 256 MiB of d2
-// rows hold, in tiles of 128; set with repro_pairwise_topk_set_select_plan):
+// K > 256 (the select instances).  A list longer than 256 cannot stay in a
+// warp's registers (the sliced instance already takes 254 a thread), so
+// these instances select instead of merging as they stream.  Both order the
+// row's strict 64-bit keys (d2's bits above the index, as the lists').
+//
+// The streamed select (256 < K <= KSTREAM = 1024 at d <= 256) keeps the
+// distances out of device memory: at d = 8 a pair costs 2d + 3 operations,
+// fewer than the 8 bytes of writing and reading it back (the stored select
+// moved 1.02 GB at n = 16000).  One sweep over the key tiles with the list
+// instances' staging and arithmetic (load_rows / stage_key / row_d2, so the
+// bits are the lists' bits); a warp owns two rows at d < 32 (one staged key
+// serves both), else one, and each row a buffer of candidate keys in shared
+// memory and a threshold tau (+inf at first).  A round's keys at most tau
+// go into the buffer at a warp-aggregated offset (a ballot and a popcount: no
+// atomics, no match); where the round would overflow the buffer, the warp
+// compacts it: a radix select (8-bit digits from the highest bit in which
+// the buffer's keys differ, a shared-memory histogram a warp) finds a key
+// tau with K keys at or below it (and at most an eighth of the free room
+// more: the last pass may stop early), and the keys above tau go.  tau is
+// the K-th smallest key of a subset of the row's keys, so it is never below
+// the row's true K-th key, and a key dropped is strictly above it: the
+// result is the K smallest keys whatever the order of arrival.  After the
+// sweep the K smallest are selected exactly, the smallest P2 (the largest
+// power of two at most K) sorted by a bitonic sort, and the rest apart (one
+// warp minimum a key up to 16 of them, K = 263: 256 + 7; else a second
+// select and sort).  After the first fill a key enters with probability
+// about K / (keys seen), so a row takes some K ln(n / slots) keys past its
+// first buffer and compacts a few times (n = 16000, K = 263: five).  What
+// bounds it on this card is not the card's rates but the warps' latency:
+// the buffers (576 keys a row at K = 263, 72 KiB of a block's 112 KiB) hold
+// an SM to 16 warps, so the compactions' and the sorts' dependent shared-
+// memory passes show; the sweep itself is the list instances' arithmetic
+// plus two ballots and an append a round.  KSTREAM is where the buffers
+// (K + K / 2 keys a row at least) still fit two blocks an SM with at least
+// two rows a block: K = 1024 takes 2304-key buffers, two warps a block.
+// The workspace holds the norms above d = 32, nothing else.
+//
+// The stored select (K > KSTREAM up to n - 1, and every K > 256 above
+// d = 256, where a recompute would repeat the product) stores the distances
+// and selects from them.  Per chunk of rows (as many as 256 MiB of d2 rows
+// hold, in tiles of 128; set with repro_pairwise_topk_set_select_plan):
 //   1. the distance pass writes the chunk's d2 rows (self +inf) into the
 //      workspace with the list instances' own staging and arithmetic:
 //      load_rows / stage_key / row_d2 at d <= 256 (rows in registers at
 //      d in {2, 4, 8, 16, 32}, in shared memory otherwise; the key tiles
 //      split across blocks so that a chunk fills the card), and the
 //      register-blocked product sliced_d2_tile above 256, so the bits are
-//      the K <= 256 lists' bits.  Stored, not recomputed, at every width:
-//      the select reads a row four to seven times (one pass a digit, one
-//      to gather), which at d = 1536 would mean 0.37 ms of FMA a sweep
-//      (n = 4000) against 0.019 ms to write and read the 64 MB once; at
-//      d = 8 (n = 16000) a recompute would cost fewer operations than the
-//      1.02 GB of rows cost bytes (0.31 ms a pass), but each recompute
-//      re-reads x and the norms across the block's keys and needs the
-//      row's rank state kept between kernels; storing keeps one path for
-//      every width (a recompute at small d is later work).
+//      the K <= 256 lists' bits.  At d = 1536 the select reads a row four
+//      to seven times (one pass a digit, one to gather), which recomputed
+//      would mean 0.37 ms of FMA a sweep (n = 4000) against 0.019 ms to
+//      write and read the 64 MB once.
 //   2. the select kernel, a block a row: a radix select over the row's
-//      strict 64-bit keys (d2's bits above the index, as the lists'),
-//      digit by digit from the top (d2 as 11 + 11 + 10 bits, then the
-//      index as 11 + 10 + 11), each digit a shared-memory histogram of
-//      the keys that share the digits so far (warp-aggregated atomics),
-//      stopping where the chosen bin holds exactly the keys still wanted.
-//      It yields the largest key T with exactly K keys at most T, so exact
-//      duplicates (one bin holding every key) resolve on the index, lowest
-//      first, whatever order the atomics run in.  The keys at most T are
-//      gathered into shared memory (any order), sorted by a bitonic sort
+//      strict 64-bit keys, digit by digit from the top (d2 as 11 + 11 + 10
+//      bits, then the index as 11 + 10 + 11), each digit a shared-memory
+//      histogram of the keys that share the digits so far (warp-aggregated
+//      atomics), stopping where the chosen bin holds exactly the keys still
+//      wanted.  It yields the largest key T with exactly K keys at most T, so
+//      exact duplicates (one bin holding every key) resolve on the index,
+//      lowest first, whatever order the atomics run in.  The keys at most T
+//      are gathered into shared memory (any order), sorted by a bitonic sort
 //      and written as (d2, idx).  Past 16384 keys (128 KiB) the row takes
 //      its ranks a sort tile at a time: the threshold of rank 16384 t, the
 //      keys between two thresholds gathered and sorted, up to K = n - 1.
@@ -161,6 +191,19 @@ static_assert(SEL_BINS % THREADS == 0 && (SEL_BINS / 2) % THREADS == 0, "a threa
 // the partial lists' bytes the mirrored plan may take (64 MiB; 0 splits the
 // keys at every shape: repro_pairwise_topk_set_mirror_budget)
 size_t mirror_budget = (size_t)64 << 20;
+// the streamed select: the longest list it takes (K <= KSTREAM at d <= 256),
+// a block's shared memory (two blocks an SM), the part of it the rows'
+// candidate buffers may take and the least key tile left beside them; the
+// bins of a compaction's digit.  For tests
+// (repro_pairwise_topk_set_stream_plan): the buffer fill that triggers a
+// compaction (0: the whole buffer) and the K above which the instance runs.
+constexpr int KSTREAM = 1024;
+constexpr int STREAM_SMEM = 112 * 1024;
+constexpr int STREAM_BUF_BUDGET = 72 * 1024, STREAM_MIN_TILE = 64;
+constexpr int DIGIT_BITS = 8, DIGIT_BINS = 1 << DIGIT_BITS;
+static_assert(DIGIT_BINS == 32 * 8, "a lane scans 8 bins");
+int stream_cap = 0;
+int stream_from = KMAX;
 
 // the reference's order for |x|^2 at width D: unfused at d = 5-8, fmaf
 // chains at the other widths a template instance takes (d > 32 reads a
@@ -900,6 +943,269 @@ __global__ void __launch_bounds__(THREADS) pairwise_topk_select_kernel(
   }
 }
 
+// The streamed select's rows a warp: two where a row sits in registers
+// below d = 32 (one key staged from shared memory serves both), else one.
+template <int D>
+__host__ __device__ constexpr int stream_rows() { return D > 0 && D < 32 ? 2 : 1; }
+
+// A key T such that `rank` to `rank + slack` of the `cnt` keys in buf (a
+// warp's buffer in shared memory; keys unique, 1 <= rank < cnt) are at most
+// T; with slack 0, the largest key T with exactly `rank` keys at most T.  A
+// radix select by the warp, DIGIT_BITS a pass from the highest bit in which
+// the keys differ (so the first pass spreads them over the bins), each pass
+// a histogram in `hist` (DIGIT_BINS counters) of the keys that share the
+// digits chosen so far.  Where the bin that holds the rank-th key holds at
+// most `slack` keys past it, T is the bin's largest possible key; the last
+// digit's bins hold one key each.
+__device__ unsigned long long warp_select(const unsigned long long* buf, int cnt, unsigned rank, unsigned slack,
+                                          unsigned* hist, int lane) {
+  __syncwarp();  // the lanes' appends are visible
+  unsigned long long lo = ~0ull, hi = 0;
+#pragma unroll 4
+  for (int j = lane; j < cnt; j += 32) {
+    const unsigned long long v = buf[j];
+    lo = v < lo ? v : lo;
+    hi = v > hi ? v : hi;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long a = __shfl_xor_sync(FULL, lo, o), b = __shfl_xor_sync(FULL, hi, o);
+    lo = a < lo ? a : lo;
+    hi = b > hi ? b : hi;
+  }
+  int top = 63 - __clzll((long long)(lo ^ hi));  // lo != hi: at least two unique keys
+  unsigned long long mask = top == 63 ? 0ull : ~0ull << (top + 1), prefix = lo & mask;
+  unsigned rem = rank;
+  for (;;) {
+    const int low = top >= DIGIT_BITS - 1 ? top - (DIGIT_BITS - 1) : 0;
+    const unsigned nb = 1u << (top - low + 1);
+#pragma unroll
+    for (int q = 0; q < DIGIT_BINS / 32; ++q) hist[q * 32 + lane] = 0;
+    __syncwarp();
+#pragma unroll 4
+    for (int j = lane; j < cnt; j += 32) {
+      const unsigned long long v = buf[j];
+      if ((v & mask) == prefix) atomicAdd(&hist[(unsigned)(v >> low) & (nb - 1)], 1u);
+    }
+    __syncwarp();
+    // lane l holds bins [8 l, 8 l + 8): its sum, a scan over the lanes, and
+    // the lane whose bins the rank crosses walks them
+    unsigned h[DIGIT_BINS / 32], s = 0;
+#pragma unroll
+    for (int q = 0; q < DIGIT_BINS / 32; ++q) s += h[q] = hist[lane * (DIGIT_BINS / 32) + q];
+    unsigned inc = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned v = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc += v;
+    }
+    const int src = __ffs(__ballot_sync(FULL, inc - s < rem && rem <= inc)) - 1;
+    unsigned below = inc - s, bin = 0, count = 0;
+    bool found = false;
+#pragma unroll
+    for (int q = 0; q < DIGIT_BINS / 32; ++q) {
+      if (!found && below + h[q] >= rem) found = true, bin = lane * (DIGIT_BINS / 32) + q, count = h[q];
+      if (!found) below += h[q];
+    }
+    bin = __shfl_sync(FULL, bin, src), below = __shfl_sync(FULL, below, src), count = __shfl_sync(FULL, count, src);
+    rem -= below;
+    prefix |= (unsigned long long)bin << low;
+    mask |= (unsigned long long)(nb - 1) << low;
+    __syncwarp();  // every lane has read the bins before the next pass clears them
+    if (count - rem <= slack) return prefix | ~mask;
+    top = low - 1;
+  }
+}
+
+// Keeps the keys of buf (cnt of them) at most t at the front, in their
+// order, and returns how many; moves the others to `high` in their order
+// where it is not null (past buf's keys), else drops them.  A ballot a round
+// of 32, each key written at the count of the keys before it that go the
+// same way (a kept key at or below its own place, read in this round or
+// before).
+__device__ int warp_partition(unsigned long long* buf, int cnt, unsigned long long t, unsigned long long* high,
+                              int lane) {
+  const unsigned below_lane = (1u << lane) - 1;
+  int lo = 0, hi = 0;
+  for (int j0 = 0; j0 < cnt; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned long long v = j < cnt ? buf[j] : ~0ull;
+    const bool keep = j < cnt && v <= t, move = j < cnt && !keep && high != nullptr;
+    const unsigned mk = __ballot_sync(FULL, keep), mm = __ballot_sync(FULL, move);
+    if (keep) buf[lo + __popc(mk & below_lane)] = v;
+    if (move) high[hi + __popc(mm & below_lane)] = v;
+    lo += __popc(mk), hi += __popc(mm);
+  }
+  __syncwarp();
+  return lo;
+}
+
+// Sorts buf[0, len) ascending in place (len a power of two): a bitonic
+// network by the warp, a pair a lane at a time.
+__device__ void warp_bitonic(unsigned long long* buf, int len, int lane) {
+  __syncwarp();  // the lanes' keys are visible
+  for (int size = 2; size <= len; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < len / 2; t += 32) {
+        const int a = 2 * t - (t & (stride - 1)), b = a + stride;
+        const unsigned long long ka = buf[a], kb = buf[b];
+        if ((ka > kb) == ((a & size) == 0)) buf[a] = kb, buf[b] = ka;
+      }
+      __syncwarp();
+    }
+}
+
+// The streamed select (K > KMAX at d <= 256, K <= KSTREAM; see the note at
+// the top).  A warp owns R = stream_rows<D>() rows and, for each, a buffer
+// of `slots` keys in shared memory and a threshold tau: the keys at most tau
+// are the row's candidates.  The block's warps share each key tile, as the
+// list instances do (load_rows, stage_key, row_d2: the same bits).  A
+// round's candidates go into the buffer at a warp-aggregated offset (a
+// ballot and a popcount); where `cap` keys would be exceeded, the warp
+// selects the K-th smallest key of the buffer (warp_select), sets tau to it
+// and keeps the K keys at most tau (and a few more: a compaction in the
+// sweep may stop a radix pass early).  After the sweep the warp selects the
+// K smallest exactly, sorts them in shared memory (the largest power of two
+// of them and the rest apart) and writes them.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2) pairwise_topk_stream_kernel(
+    const float* __restrict__ x, const float* __restrict__ norms, int n, int d_rt, int k, int kt, int slots,
+    int cap, float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int R = stream_rows<D>();
+  constexpr int DR = D > 0 ? D : 1;
+  const int d = D > 0 ? D : d_rt;
+  const int warps = blockDim.x >> 5;
+  extern __shared__ __align__(16) float smem[];
+  auto* buf = reinterpret_cast<unsigned long long*>(smem);          // (warps, R, slots): the buffers
+  auto* hist = reinterpret_cast<unsigned*>(buf + (size_t)warps * R * slots);  // (warps, DIGIT_BINS)
+  float* sk = reinterpret_cast<float*>(hist + warps * DIGIT_BINS);  // (d / V, kt, V): key tile
+  float* skn = sk + kt * d;                                          // (kt,): key norms
+  float* sq = skn + kt;                                              // (warps, d): query rows (generic d)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = (blockIdx.x * warps + warp) * R;
+  unsigned long long* wbuf = buf + (size_t)warp * R * slots;
+  unsigned* whist = hist + warp * DIGIT_BINS;
+  const unsigned below_lane = (1u << lane) - 1;
+  // a compaction keeps K keys and at most an eighth of the room past the
+  // next round's 32 more (a looser tau for fewer radix passes; cap >= k + 32)
+  const unsigned slack = (unsigned)(cap - k - 32) / 8;
+
+  float q[R][DR];
+  float qn[R];
+  int row[R];
+  bool live[R];
+  load_rows<D, R>(x, norms, n, d, row0, lane, sq + warp * d, q, qn, row, live);
+  unsigned long long tau[R];
+  int cnt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) tau[r] = ~0ull, cnt[r] = 0;
+
+  for (int k0 = 0; k0 < n; k0 += kt) {
+    const int rows = min(kt, n - k0);
+    __syncthreads();  // the previous key tile is consumed
+    for (int r = tid; r < rows; r += blockDim.x)
+      stage_key<D>(x + (size_t)(k0 + r) * d, r, kt, d, norms != nullptr ? norms + k0 + r : nullptr, sk, skn);
+    __syncthreads();
+    // One 32-key round: lane l takes key b + l against the warp's R rows;
+    // only a round at the end of the keys, over the warp's own rows or in
+    // the last block runs the masks.
+    auto sweep_round = [&](const int b, auto masked) {
+      constexpr bool MASKED = decltype(masked)::value;
+      const int kr = b + lane, col = k0 + kr;
+      float d2[R];
+      row_d2<D, R>(q, qn, sq + warp * d, sk, skn, kt, kr, d, d2);
+      unsigned long long key[R];
+      bool cand[R];
+      unsigned m[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        key[r] = (unsigned long long)__float_as_uint(d2[r]) << 32 | (unsigned)col;
+        cand[r] = key[r] <= tau[r];
+        if constexpr (MASKED) cand[r] = cand[r] && live[r] && kr < rows && col != row[r];
+        m[r] = __ballot_sync(FULL, cand[r]);
+      }
+      // a buffer that a round could overflow (the fullest within 32 of
+      // cap) is compacted first where this round's candidates overflow it
+      int fullest = cnt[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) fullest = max(fullest, cnt[r]);
+      if (fullest + 32 > cap) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (cnt[r] + __popc(m[r]) <= cap) continue;  // else cnt[r] > k + slack: cap >= k + 32 + slack
+          tau[r] = warp_select(wbuf + r * slots, cnt[r], (unsigned)k, slack, whist, lane);
+          cnt[r] = warp_partition(wbuf + r * slots, cnt[r], tau[r], nullptr, lane);
+          cand[r] = cand[r] && key[r] <= tau[r];
+          m[r] = __ballot_sync(FULL, cand[r]);
+        }
+      }
+      // the appends: a candidate goes in at the count of the candidates of
+      // lower lanes
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (cand[r]) wbuf[r * slots + cnt[r] + __popc(m[r] & below_lane)] = key[r];
+        cnt[r] += __popc(m[r]);
+      }
+    };
+    for (int b = 0; b < rows; b += 32) {
+      const int c0 = k0 + b;
+      // a vote, so that the compiler sees a warp-uniform branch
+      if (__all_sync(FULL, b + 32 <= rows && row0 + R <= n && (row0 + R <= c0 || row0 >= c0 + 32)))
+        sweep_round(b, std::false_type{});
+      else
+        sweep_round(b, std::true_type{});
+    }
+  }
+  // the K smallest of each row's buffer (it holds at least K keys: a key
+  // left out is above K kept ones), sorted: the P2 smallest (P2 the largest
+  // power of two at most K) by a bitonic sort, the other K - P2 apart: up to
+  // 16 of them one warp minimum at a time (K = 263: 256 and 7), more by a
+  // second select and a bitonic sort of their own, padded
+  const int p2 = pow2_at_least(k + 1) / 2, tail = k - p2, tail_len = tail > 0 ? pow2_at_least(tail) : 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!live[r]) continue;  // warp-uniform
+    unsigned long long* rb = wbuf + r * slots;
+    float* od = out_d + (size_t)row[r] * k;
+    int* oi = out_i + (size_t)row[r] * k;
+    if (tail > 0 && tail <= 16) {
+      const unsigned long long t = warp_select(rb, cnt[r], (unsigned)p2, 0, whist, lane);
+      unsigned long long last = t, mine = 0;
+      for (int i = 0; i < tail; ++i) {  // the i-th key past t, in lane i
+        unsigned long long m = ~0ull;
+        for (int j = lane; j < cnt[r]; j += 32) {
+          const unsigned long long v = rb[j];
+          m = v > last && v < m ? v : m;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const unsigned long long v = __shfl_xor_sync(FULL, m, o);
+          m = v < m ? v : m;
+        }
+        last = m;
+        mine = lane == i ? m : mine;
+      }
+      warp_partition(rb, cnt[r], t, nullptr, lane);
+      warp_bitonic(rb, p2, lane);
+      if (lane < tail) od[p2 + lane] = __uint_as_float((unsigned)(mine >> 32)), oi[p2 + lane] = (int)(unsigned)mine;
+    } else {
+      if (cnt[r] > k) warp_partition(rb, cnt[r], warp_select(rb, cnt[r], (unsigned)k, 0, whist, lane), nullptr, lane);
+      if (tail > 0) warp_partition(rb, k, warp_select(rb, k, (unsigned)p2, 0, whist, lane), rb + k, lane);
+      for (int p = k + tail + lane; p < k + tail_len; p += 32) rb[p] = ~0ull;
+      warp_bitonic(rb, p2, lane);
+      if (tail > 0) warp_bitonic(rb + k, tail_len, lane);
+      for (int p = p2 + lane; p < k; p += 32) {
+        const unsigned long long v = rb[k + p - p2];
+        od[p] = __uint_as_float((unsigned)(v >> 32)), oi[p] = (int)(unsigned)v;
+      }
+    }
+    for (int p = lane; p < p2; p += 32) {
+      const unsigned long long v = rb[p];
+      od[p] = __uint_as_float((unsigned)(v >> 32)), oi[p] = (int)(unsigned)v;
+    }
+  }
+}
+
 // The key split of the sliced instance: key tiles a block (tps) and
 // splits, so that the blocks fill the card's resident slots in as few
 // waves, and as few tiles a block, as the shape allows.
@@ -1117,11 +1423,96 @@ int launch_select(const float* x, int n, int d, int k, float* out_d, int* out_i,
   return 0;
 }
 
+// The streamed select's block at width D and K = k: the most warps (a
+// power of two, at most WARPS) whose R rows' buffers hold the sorted list
+// and half a list of appends (at least 32), each buffer as many keys
+// (`slots`, a multiple of 32) as STREAM_BUF_BUDGET allows and a key tile of
+// STREAM_MIN_TILE keys leaves room for (K = 263 at d = 8: 576); the
+// compaction's trigger (`cap`); the key tile that the rest of STREAM_SMEM
+// holds (a multiple of 32, at most KEY_TILE) and the block's dynamic shared
+// memory.
+struct StreamPlan {
+  int warps, slots, cap, kt;
+  size_t smem;
+};
+template <int D>
+StreamPlan stream_plan(int d, int k) {
+  constexpr int R = stream_rows<D>();
+  // half a list of appends (at least 32), and the end's sort of the keys
+  // past the largest power of two at most K, padded
+  const int tail = k - pow2_at_least(k + 1) / 2;
+  const int room = k / 2 > 32 ? k / 2 : 32, tail_len = tail > 0 ? pow2_at_least(tail) : 0;
+  const int need = k + (room > tail_len ? room : tail_len);
+  const size_t tile_min = (size_t)STREAM_MIN_TILE * (d + 1) * sizeof(float);
+  int warps = WARPS, slots = 0;
+  size_t other = 0;
+  for (;; warps >>= 1) {
+    other = (size_t)warps * DIGIT_BINS * 4 + (D > 0 ? 0 : (size_t)warps * d * sizeof(float));
+    size_t budget = STREAM_SMEM > other + tile_min ? STREAM_SMEM - other - tile_min : 0;
+    budget = budget < (size_t)STREAM_BUF_BUDGET ? budget : (size_t)STREAM_BUF_BUDGET;
+    slots = (int)(budget / ((size_t)warps * R * sizeof(unsigned long long))) / 32 * 32;
+    if (slots >= need || warps == 1) break;
+  }
+  int cap = stream_cap > 0 ? stream_cap : slots;
+  cap = cap < k + 32 ? k + 32 : (cap > slots ? slots : cap);
+  const size_t fixed = (size_t)warps * R * slots * sizeof(unsigned long long) + other;
+  const long fit = fixed < (size_t)STREAM_SMEM ? (long)((STREAM_SMEM - fixed) / sizeof(float)) / (d + 1) : 0;
+  const int kt = (int)(fit < KEY_TILE ? fit : KEY_TILE) / 32 * 32;
+  return StreamPlan{warps, slots, cap, kt, fixed + (size_t)kt * (d + 1) * sizeof(float)};
+}
+
+// The streamed select (KMAX < K <= KSTREAM at d <= 256), with launch()'s
+// occ / work_bytes contract.  Workspace: |x|^2 (n floats) where d > 32; the
+// candidate buffers live in shared memory.
+template <int D>
+int launch_stream(const float* x, int n, int d, int k, float* out_d, int* out_i, cudaStream_t stream, int* occ,
+                  void* work, size_t* work_bytes) {
+  const bool pre = D == 0 && d > 32;  // |x|^2 in windows of 32 from the pre-pass
+  if (work_bytes != nullptr) {
+    *work_bytes = pre ? (size_t)n * sizeof(float) : 0;
+    return 0;
+  }
+  const StreamPlan p = stream_plan<D>(d, k);
+  if (p.kt < 32 || p.slots < k + 32 || p.slots < k + pow2_at_least(k - pow2_at_least(k + 1) / 2))
+    return (int)cudaErrorInvalidValue;
+  if (p.smem > (size_t)SMEM_DEFAULT) {
+    const cudaError_t e = cudaFuncSetAttribute(pairwise_topk_stream_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (occ != nullptr) {
+    occ[1] = 32 * p.warps, occ[2] = (int)p.smem, occ[3] = p.kt;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, pairwise_topk_stream_kernel<D>, 32 * p.warps,
+                                                              p.smem);
+  }
+  float* norms = pre ? static_cast<float*>(work) : nullptr;
+  if (pre) {
+    const int e = launch_norms(x, n, d, norms, stream);
+    if (e != 0) return e;
+  }
+  const int rows_per_block = p.warps * stream_rows<D>();
+  pairwise_topk_stream_kernel<D><<<(n + rows_per_block - 1) / rows_per_block, 32 * p.warps, p.smem, stream>>>(
+      x, norms, n, d, k, p.kt, p.slots, p.cap, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
 int dispatch(const float* x, int n, int d, int k, float* out_d, int* out_i, void* stream,
              int* occ, void* work, size_t* work_bytes) {
   if (n < 2 || d < 1 || k < 1 || k > n - 1 || reinterpret_cast<size_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  // past the lists' 256 entries: the streamed select up to KSTREAM at
+  // d <= 256, else the stored select (up to K = n - 1, at every width)
+  if (k > stream_from && k <= KSTREAM && d <= MAX_D_TILED) {
+    switch (d) {
+      case 2: return launch_stream<2>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+      case 4: return launch_stream<4>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+      case 8: return launch_stream<8>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+      case 16: return launch_stream<16>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+      case 32: return launch_stream<32>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+      default: return launch_stream<0>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
+    }
+  }
   if (k > KMAX) return launch_select(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
   if (d > MAX_D_TILED) return launch_d<-1>(x, n, d, k, out_d, out_i, s, occ, work, work_bytes);
   switch (d) {
@@ -1182,4 +1573,16 @@ extern "C" void repro_pairwise_topk_set_select_plan(int sort_tile, size_t chunk_
   *sort_before = sort_max, *chunk_before = select_budget;
   if (sort_tile > 0) sort_max = sort_tile;
   if (chunk_bytes > 0) select_budget = chunk_bytes;
+}
+
+// Sets the streamed select's compaction trigger (the keys a row's buffer
+// holds before it selects; 0: the whole buffer; clamped to [K + 32, the
+// buffer]) where cap >= 0, and the K above which the instance runs (up to
+// KSTREAM; KMAX by default) where from >= 1, and returns the settings
+// before through the pointers: a small cap runs many compactions at a small
+// n, a small `from` runs the instance at short lists, KSTREAM turns it off.
+extern "C" void repro_pairwise_topk_set_stream_plan(int cap, int from, int* cap_before, int* from_before) {
+  *cap_before = stream_cap, *from_before = stream_from;
+  if (cap >= 0) stream_cap = cap;
+  if (from >= 1) stream_from = from;
 }

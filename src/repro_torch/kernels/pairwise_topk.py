@@ -32,6 +32,7 @@ from . import _build
 
 KMAX = 256  # the list instances' longest: 8 register slots in each of a warp's 32 lanes
 MAX_D_TILED = 256  # above this width the sliced instances run
+KSTREAM = 1024  # the streamed select's longest list (at d <= MAX_D_TILED): its buffers' shared memory
 # Depth of one FMA chain in the reference's dot products.  XLA on the CPU
 # hands the reference's float32 dot_general to YNNPACK (turning its fusion
 # off with --xla_cpu_experimental_ynn_fusion_type= changes the bits), whose
@@ -95,13 +96,15 @@ def pairwise_topk_plain(
 
 def instance(d: int, k_top: int) -> str:
     """The kernel instance a launch at width ``d`` and K = ``k_top`` takes,
-    as ``csrc/pairwise_topk.cu``'s ``dispatch`` routes it: ``"select"``
-    past ``KMAX`` at every width (the distances of a chunk of rows into the
-    workspace, then a radix select and a sort a row), else the list
-    instances, ``"sliced"`` above ``MAX_D_TILED`` and ``"tiled"`` at or
+    as ``csrc/pairwise_topk.cu``'s ``dispatch`` routes it.  Past ``KMAX``:
+    ``"stream"`` up to ``KSTREAM`` at d <= ``MAX_D_TILED`` (one sweep over
+    the distances, a buffer of candidates a row in shared memory, no d2 row
+    stored), else ``"select"`` (the distances of a chunk of rows into the
+    workspace, then a radix select and a sort a row).  Up to ``KMAX`` the
+    list instances, ``"sliced"`` above ``MAX_D_TILED`` and ``"tiled"`` at or
     below it."""
     if k_top > KMAX:
-        return "select"
+        return "stream" if k_top <= KSTREAM and d <= MAX_D_TILED else "select"
     return "sliced" if d > MAX_D_TILED else "tiled"
 
 
@@ -120,7 +123,7 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
     lib.repro_pairwise_topk_workspace.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         # the pre-pass's norms (d > 32), the sliced instance's partial lists
-        # and the select instance's chunk of distance rows
+        # and the stored select's chunk of distance rows
         nbytes = ctypes.c_size_t()
         _build.check(lib.repro_pairwise_topk_workspace(n, d, k_top, ctypes.addressof(nbytes)),
                      "pairwise_topk workspace")
@@ -130,8 +133,10 @@ def _launch(x: torch.Tensor, k_top: int) -> tuple[torch.Tensor, torch.Tensor]:
                                          None if work is None else work.data_ptr(), stream)
     _build.check(status, "pairwise_topk")
     pairwise_topk.launches += 1
-    if instance(d, k_top) == "select":
+    if k_top > KMAX:
         pairwise_topk.select_launches += 1
+        if instance(d, k_top) == "stream":
+            pairwise_topk.stream_launches += 1
     return out_d, out_i
 
 
@@ -141,9 +146,11 @@ def kernel_config(n: int, d: int, k_top: int) -> dict:
     dynamic shared memory bytes and keys per shared-memory tile (above
     d = 256 those of the sliced instance's main kernel; its pre-pass and
     merge pass are part of the one launch).  Past K = ``KMAX`` those of
-    the select instance's selecting kernel, whose tile is the keys it
-    sorts in shared memory at once (its distance pass takes the list
-    instances' tiles)."""
+    the streamed select's kernel (its key tile; ``smem_bytes`` holds its
+    rows' candidate buffers) where ``instance`` says ``"stream"``, else of
+    the stored select's selecting kernel, whose tile is the keys it sorts
+    in shared memory at once (its distance pass takes the list instances'
+    tiles)."""
     occ = (ctypes.c_int * 4)()
     fn = _build.load("pairwise_topk").repro_pairwise_topk_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -162,8 +169,9 @@ def pairwise_topk(
     (n, d) float32, bfloat16 or float16 (upcast to float32).  CUDA tensors
     run the kernel (``block_q``/``block_k`` tile only the plain version;
     ``launches`` counts calls, whatever passes a call makes on the card,
-    and ``select_launches`` those of them that take the select instance,
-    K > ``KMAX``); CPU tensors run the plain version.
+    ``select_launches`` those of them past the lists, K > ``KMAX``, and
+    ``stream_launches`` those of these that take the streamed select); CPU
+    tensors run the plain version.
     """
     if x.ndim != 2:
         raise ValueError(f"x must be (n, d); got shape {tuple(x.shape)}")
@@ -181,6 +189,7 @@ def pairwise_topk(
 
 pairwise_topk.launches = 0
 pairwise_topk.select_launches = 0
+pairwise_topk.stream_launches = 0
 
 
 def work(n: int, d: int, k_eff: int) -> tuple[float, float]:

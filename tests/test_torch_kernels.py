@@ -392,13 +392,18 @@ def test_edge_cascade_rejects_bad_input():
 
 def test_pairwise_topk_rejects_bad_input():
     # no cap on K: past the list instances' 256 entries (kmax >= 250) a
-    # launch takes the select instance, at every width, as csrc's dispatch
-    # routes it by its KMAX and MAX_D_TILED
+    # launch takes the streamed select up to KSTREAM at d <= 256 and the
+    # stored select past it and at every K above d = 256, as csrc's
+    # dispatch routes it by its KMAX, KSTREAM and MAX_D_TILED
     src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/pairwise_topk.cu").read_text()
-    for name in ("KMAX", "MAX_D_TILED"):
+    for name in ("KMAX", "MAX_D_TILED", "KSTREAM"):
         assert f"constexpr int {name} = {getattr(t_pt, name)};" in src, name
+    assert "int stream_from = KMAX;" in src
+    assert "if (k > stream_from && k <= KSTREAM && d <= MAX_D_TILED) {" in src
     assert "if (k > KMAX) return launch_select(" in src
-    assert [t_pt.instance(d, k) for d in (8, 1536) for k in (256, 257)] == ["tiled", "select", "sliced", "select"]
+    ks = t_pt.KSTREAM
+    assert [t_pt.instance(d, k) for d in (8, 1536) for k in (256, 257, ks, ks + 1)] == [
+        "tiled", "stream", "stream", "select", "sliced", "select", "select", "select"]
     with pytest.raises(ValueError, match="k_top"):
         t_pt.pairwise_topk(torch.zeros((5, 2)), 5)
     with pytest.raises(ValueError, match="float"):

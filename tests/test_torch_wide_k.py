@@ -17,12 +17,18 @@ the select instance of ``csrc/pairwise_topk.cu`` runs them.  Held here:
   attachment neighbours equal, lambdas within one float32 ulp, as
   ``tests/test_torch_predict.py`` explains);
 * the CUDA source itself, through ``tools/cuda_emulate`` (every CUDA thread
-  a ``std::thread``): the select instance bit-equal to the plain version at
+  a ``std::thread``): the stored select bit-equal to the plain version at
   every width class (registers, shared-memory rows with and without the
   windows-of-32 norms, the sliced product), on exact duplicates, at
   K = n - 1 and with its sort tile and row chunks set small, so that a
-  row takes several sort tiles and the call several chunks; and the list
-  instances, whose distance code it now shares, at K <= 256.
+  row takes several sort tiles and the call several chunks (the streamed
+  select turned off for these); the streamed select (K <= 1024 at
+  d <= 256) bit-equal at the same width classes, on duplicates, at
+  K = n - 1 and K = 1024, with its buffers' compaction trigger set small
+  and at short lists, so that rows compact many times, and its K = 257
+  lists starting with the list instance's K = 256 lists; the routing
+  boundary at K = 1024 / 1025; and the list instances, whose distance code
+  both share, at K <= 256.
 """
 
 import ctypes
@@ -143,9 +149,13 @@ def test_k257_list_starts_with_the_k256_list(case):
 
 def test_routing_by_k():
     """K <= 256 stays on the list instances (tiled at d <= 256, sliced
-    above); K > 256 takes the select instance at every width."""
+    above); K > 256 takes the streamed select up to KSTREAM at d <= 256 and
+    the stored select past it, and at every K above d = 256."""
     assert [t_pt.instance(d, k) for d in (8, 24, 320, 1536) for k in (256, 257)] == [
-        "tiled", "select", "tiled", "select", "sliced", "select", "sliced", "select"]
+        "tiled", "stream", "tiled", "stream", "sliced", "select", "sliced", "select"]
+    ks = t_pt.KSTREAM
+    assert [t_pt.instance(d, k) for d in (8, 256, 257) for k in (ks, ks + 1)] == [
+        "stream", "select", "stream", "select", "select", "select"]
 
 
 def _blobs(n: int, d: int, seed: int) -> np.ndarray:
@@ -208,6 +218,8 @@ def emulated(tmp_path_factory):
     lib.repro_pairwise_topk_workspace.restype = I
     lib.repro_pairwise_topk_set_select_plan.argtypes = [I, ctypes.c_size_t, P, P]
     lib.repro_pairwise_topk_set_select_plan.restype = None
+    lib.repro_pairwise_topk_set_stream_plan.argtypes = [I, I, P, P]
+    lib.repro_pairwise_topk_set_stream_plan.restype = None
 
     def set_plan(sort_tile: int, chunk_bytes: int) -> tuple[int, int]:
         before = ctypes.c_int(), ctypes.c_size_t()
@@ -215,20 +227,34 @@ def emulated(tmp_path_factory):
                                                 ctypes.addressof(before[1]))
         return before[0].value, before[1].value
 
-    def run(x: np.ndarray, k: int, sort_tile: int = 0, chunk_bytes: int = 0):
+    def set_stream(cap: int, from_k: int) -> tuple[int, int]:
+        before = ctypes.c_int(), ctypes.c_int()
+        lib.repro_pairwise_topk_set_stream_plan(cap, from_k, ctypes.addressof(before[0]),
+                                                ctypes.addressof(before[1]))
+        return before[0].value, before[1].value
+
+    def workspace(n: int, d: int, k: int) -> int:
+        nbytes = ctypes.c_size_t()
+        assert lib.repro_pairwise_topk_workspace(n, d, k, ctypes.addressof(nbytes)) == 0
+        return nbytes.value
+
+    def run(x: np.ndarray, k: int, sort_tile: int = 0, chunk_bytes: int = 0, cap: int = -1, from_k: int = 0):
+        """The lists of x at K = k; the select plan (sort tile, d2 chunk
+        bytes) and the stream plan (compaction trigger, the K above which
+        the streamed select runs) set for the call, 0 / -1 leaving them."""
         n, d = x.shape
-        before = set_plan(sort_tile, chunk_bytes)
+        before, before_stream = set_plan(sort_tile, chunk_bytes), set_stream(cap, from_k)
         try:
-            nbytes = ctypes.c_size_t()
-            assert lib.repro_pairwise_topk_workspace(n, d, k, ctypes.addressof(nbytes)) == 0
-            work = np.zeros(nbytes.value // 4 + 64, np.float32)
+            work = np.zeros(workspace(n, d, k) // 4 + 64, np.float32)
             out_d, out_i = np.zeros((n, k), np.float32), np.zeros((n, k), np.int32)
             assert lib.repro_pairwise_topk(x.ctypes.data, n, d, k, out_d.ctypes.data, out_i.ctypes.data,
                                            work.ctypes.data, None) == 0
         finally:
             set_plan(*before)
+            set_stream(*before_stream)
         return out_d, out_i
 
+    run.workspace = workspace
     return run
 
 
@@ -236,8 +262,19 @@ def _emu_points(case: str) -> np.ndarray:
     rng = np.random.default_rng(zlib.crc32(case.encode()))
     if case == "ties":  # each point 8 times, 38 rows apart: ties in every bin
         return np.tile(rng.normal(size=(N_EMU // 8, 2)), (8, 1)).astype(np.float32)
+    if case == "line":  # points in order along a line: a row's earlier keys come nearer and nearer
+        return (np.sort(rng.normal(size=(N_EMU, 1)), 0) * np.linspace(1.0, 2.0, 8)).astype(np.float32)
     d = int(case[1:])
     return (rng.normal(size=(N_EMU, d)) + rng.integers(0, 3, size=(N_EMU, 1)) * 2.0).astype(np.float32)
+
+
+def _assert_lists_equal(out, want, case, k):
+    np.testing.assert_array_equal(out[0].view(np.int32), want[0].view(np.int32), err_msg=f"d2 bits, {case}, K={k}")
+    np.testing.assert_array_equal(out[1], want[1], err_msg=f"indices, {case}, K={k}")
+
+
+def _plain(x: np.ndarray, k: int):
+    return tuple(v.numpy() for v in t_pt.pairwise_topk_plain(torch.from_numpy(x), k))
 
 
 # (points, K, sort tile, chunk bytes): d = 8 in registers, 24 in shared
@@ -250,11 +287,58 @@ EMU_SELECT = [("d8", 257, 0, 0), ("d8", N_EMU - 1, 128, 1), ("d24", 257, 0, 0), 
 
 @pytest.mark.parametrize("case,k,sort_tile,chunk", EMU_SELECT)
 def test_emulated_select_instance_equals_the_plain_version(emulated, case, k, sort_tile, chunk):
+    """The stored select, the streamed select turned off (it would take
+    every case at d <= 256)."""
     x = _emu_points(case)
-    out_d, out_i = emulated(x, k, sort_tile, chunk)
-    want_d, want_i = (v.numpy() for v in t_pt.pairwise_topk_plain(torch.from_numpy(x), k))
-    np.testing.assert_array_equal(out_d.view(np.int32), want_d.view(np.int32), err_msg=f"d2 bits, {case}, K={k}")
-    np.testing.assert_array_equal(out_i, want_i, err_msg=f"indices, {case}, K={k}")
+    _assert_lists_equal(emulated(x, k, sort_tile, chunk, from_k=t_pt.KSTREAM), _plain(x, k), case, k)
+
+
+# (points, K, compaction trigger (-1: the whole buffer), the K above which
+# the instance runs (0: past the lists)): d = 8 and 24 (rows in registers,
+# two a warp; in shared memory), 64 with the windows-of-32 norms, duplicates
+# and K = n - 1 past the lists (K = 257 once with the trigger at K + 32:
+# one compaction in the sweep); then short lists with the trigger at
+# K + 32, where a row compacts about (K / 32) ln(n / (K + 32)) times on
+# clustered points and every round once its nearer keys come in order
+# ("line")
+EMU_STREAM = [("d8", 257, -1, 0), ("d8", 257, 289, 0), ("d24", 263, -1, 0), ("d64", 270, -1, 0),
+              ("ties", 290, -1, 0), ("d8", N_EMU - 1, -1, 0), ("d8", 40, 72, 16), ("d24", 40, 72, 16),
+              ("d64", 48, 80, 16), ("line", 40, 72, 16), ("ties", 100, 132, 16)]
+
+
+@pytest.mark.parametrize("case,k,cap,from_k", EMU_STREAM)
+def test_emulated_stream_instance_equals_the_plain_version(emulated, case, k, cap, from_k):
+    x = _emu_points(case)
+    if from_k == 0:
+        assert t_pt.instance(x.shape[1], k) == "stream"
+    _assert_lists_equal(emulated(x, k, cap=cap, from_k=from_k), _plain(x, k), case, k)
+
+
+@pytest.mark.parametrize("case", ["d8", "ties"])
+def test_emulated_stream_k257_starts_with_the_k256_list(emulated, case):
+    """The streamed select's K = 257 lists start with the list instance's
+    K = 256 lists, bit for bit, and compacting often changes nothing."""
+    x = _emu_points(case)
+    d256, i256 = emulated(x, 256)
+    for cap in (-1, 257 + 32):
+        d257, i257 = emulated(x, 257, cap=cap)
+        _assert_lists_equal((d257[:, :256].copy(), i257[:, :256].copy()), (d256, i256), case, 257)
+
+
+def test_emulated_stream_at_kstream_and_the_routing_boundary(emulated):
+    """K = KSTREAM runs the streamed select (four rows a block, buffers of
+    2048 keys) bit-equal to the plain version; ``dispatch`` routes
+    K = KSTREAM + 1 to the stored select, which asks for a chunk of d2 rows
+    in the workspace where the streamed select asks for none (or the norms
+    alone, d > 32)."""
+    ks = t_pt.KSTREAM
+    x = (np.random.default_rng(27).normal(size=(ks + 2, 2)) * 3.0).astype(np.float32)
+    _assert_lists_equal(emulated(x, ks), _plain(x, ks), "d2", ks)
+    n = ks + 100
+    assert [t_pt.instance(d, k) for d in (8, 64) for k in (ks, ks + 1)] == ["stream", "select"] * 2
+    assert emulated.workspace(n, 8, ks) == 0 < emulated.workspace(n, 8, ks + 1)
+    assert emulated.workspace(n, 64, ks) == 4 * n < emulated.workspace(n, 64, ks + 1)
+    assert emulated.workspace(n, 320, 300) > 4 * n  # past d = 256 the stored select at every K
 
 
 @pytest.mark.parametrize("case,k", [("d8", 23), ("d8", 256), ("d24", 135), ("d320", 31)])

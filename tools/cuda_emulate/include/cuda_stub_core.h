@@ -94,6 +94,7 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clzll(long long x) { return x == 0 ? 64 : __builtin_clzll((unsigned long long)x); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline bool __any_sync(unsigned m, bool pred) { return __ballot_sync(m, pred) != 0u; }
